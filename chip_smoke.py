@@ -11,15 +11,21 @@ Phases, each of which passes or raises (a failure exits non-zero):
    ``name, power.limit`` line;
 2. build: compiles the kernels from ``dpu_operator_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   serving path gives it, with its time, the plain version's, one PyTorch
-   library call's (a yardstick the port never calls) and the least time the
-   card could take (its bound);
+   serving and training paths give it, with its time, the plain version's,
+   one PyTorch library call's (a yardstick the port never calls) and the
+   least time the card could take (its bound);
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
-   streams equal ``generate``;
+   streams equal ``generate``; then one tiny fp32 train step whose loss and
+   gradients match the CPU's;
 5. serve the flagship (bf16, about 391M parameters, random weights from a
    seed) through ``Scheduler`` and ``TorchSlotExecutor``: 16 requests on 8
-   slots with chunked prefill; every kernel of the path must have launched.
+   slots with chunked prefill; every kernel of the path must have launched;
+6. train the flagship (bf16, batch 8 x 1024 tokens) through
+   ``make_train_step`` and ``measure_train``: 1 warm-up and 5 timed AdamW
+   steps, loss finite and falling, every gradient leaf finite and not all
+   zero, the three training kernels launched 12 times a step; one profiled
+   step shows where the device time goes.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
@@ -35,17 +41,21 @@ import time
 
 import numpy as np
 
-#: data-sheet rates of one H100 SXM at its full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-#: kernel vs plain: max |kernel - plain| / max(1, |plain|) per dtype. fp32
-#: differs only in summation order; bf16 also in where P and the output
-#: round (one bf16 step is 2^-8 relative)
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: kernel vs plain: the largest :func:`scaled_err` of an output, per
+#: dtype. fp32 differs only in summation order; bf16 also in where P, dS
+#: and the output round (one bf16 step is 2^-8 to 2^-7 of a value). The
+#: H100 readings at this script's shapes and seed: fp32 at most 7.3e-6;
+#: bf16 at most 7.2e-3 (dV at 8x1024), and the bf16 limit lies two bf16
+#: steps (2 * 2^-8) above that
+TOL = {"float32": 1e-4, "bfloat16": 1.5e-2}
 #: bf16 serving: a served token's logit must lie within this of the best
 #: logit under a teacher-forced forward (the random-weight flagship's top
 #: logits sit about 0.05 apart; bf16 logits near 1 round in steps of 0.004)
 SERVE_LOGIT_TOL = 0.05
+#: the kernels each main path must launch (names of ``launch_counts``)
+SERVE_KERNELS = ("fused_rmsnorm", "attention_fwd_tiled",
+                 "attention_fwd_decode")
+TRAIN_KERNELS = ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -106,10 +116,24 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
 
 
 def scaled_err(got, ref) -> tuple:
+    """``(max |got - ref|, max |got - ref| / (|ref| + rms(ref)))``: each
+    element's error in units of its own size plus the reference tensor's
+    RMS, so a large element is held to its own rounding and a small one,
+    where a missed term hides, to the tensor's typical size."""
     g, r = got.float(), ref.float()
     diff = (g - r).abs()
-    return (float(diff.max()),
-            float((diff / r.abs().clamp(min=1.0)).max()))
+    rms = max(float(r.square().mean().sqrt()), 1e-30)
+    return float(diff.max()), float((diff / (r.abs() + rms)).max())
+
+
+def card_peaks() -> dict:
+    """This card's data-sheet rates (``perf.CARD_PEAKS``): the bounds
+    need them."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.perf import CARD_PEAKS
+    name = torch.cuda.get_device_name(0)
+    require(name in CARD_PEAKS, f"no data-sheet rates for {name!r}")
+    return CARD_PEAKS[name]
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -128,6 +152,7 @@ def phase_device() -> dict:
         raise PhaseError(f"nvidia-smi failed: {e}") from e
     require(bool(smi), "nvidia-smi printed nothing")
     print(smi[0], flush=True)
+    card_peaks()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return {"name": name, "smi": smi[0]}
@@ -143,11 +168,20 @@ def phase_build() -> None:
     report = _build.BUILD_DIR / "ptxas.txt"
     if report.exists():
         for line in report.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
                 log("[build] " + line.strip())
 
 
 # -- phase 3 ------------------------------------------------------------------
+def _bound(nbytes: float, flops: float, dname: str) -> tuple:
+    peaks = card_peaks()
+    t_bytes = nbytes / peaks["hbm_bytes_per_s"] * 1e3
+    t_ops = flops / peaks[dname] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def _rms_case(gen, rows: int, d: int, dtype) -> dict:
     import torch
     import torch.nn.functional as F
@@ -161,10 +195,7 @@ def _rms_case(gen, rows: int, d: int, dtype) -> dict:
     max_abs, scaled = scaled_err(got, ref)
     name = str(dtype).replace("torch.", "")
     elt = x.element_size()
-    nbytes = (2 * rows * d + d) * elt
-    flops = 4.0 * rows * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    bound, by = _bound((2 * rows * d + d) * elt, 4.0 * rows * d, "float32")
     return {
         "name": f"fused_rmsnorm[{rows}x{d} {name}]",
         "kernel": "fused_rmsnorm", "dtype": name,
@@ -176,8 +207,7 @@ def _rms_case(gen, rows: int, d: int, dtype) -> dict:
         "plain_ms": cuda_ms(lambda: fused_rmsnorm_plain(x, scale), 20),
         "library_ms": graph_ms(
             lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6)),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound, "bound_by": by,
     }
 
 
@@ -196,11 +226,9 @@ def _attn_case(gen, label: str, q, k, v, pos, kernel: str) -> dict:
     pairs = sum(min(int(p) + i + 1, skv) for p in pos_h for i in range(sq))
     keys = sum(min(int(p) + sq, skv) for p in pos_h)
     elt = q.element_size()
-    nbytes = (2 * b * sq * h * d + 2 * keys * h * d) * elt
-    flops = 4.0 * pairs * h * d
     dname = str(q.dtype).replace("torch.", "")
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    bound, by = _bound((2 * b * sq * h * d + 2 * keys * h * d) * elt,
+                       4.0 * pairs * h * d, dname)
     # library yardstick: SDPA in (B, H, S, D) views with the same mask
     rows = torch.as_tensor(pos_h, device="cuda")[:, None] \
         + torch.arange(sq, device="cuda")
@@ -221,9 +249,96 @@ def _attn_case(gen, label: str, q, k, v, pos, kernel: str) -> dict:
         "plain_ms": cuda_ms(lambda: attention_fwd_plain(q, k, v, pos), 3,
                             warmup=1),
         "library_ms": graph_ms(lib),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound, "bound_by": by,
     }
+
+
+def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
+    """The training path's three kernels at one (B, S, H, D) shape, causal,
+    q / k / v as views of one (B, S, 3HD) projection as in the model: the
+    forward with lse, dQ and dK/dV, each against its plain version on the
+    same inputs, with the library's SDPA forward and backward as
+    yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from dpu_operator_tpu_torch.ops import (
+        attention_bwd_dkv, attention_bwd_dkv_plain, attention_bwd_dq,
+        attention_bwd_dq_plain, attention_delta, attention_fwd_lse,
+        attention_fwd_plain)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    out, lse = attention_fwd_lse(q, k, v)
+    out_p, lse_p = attention_fwd_plain(q, k, v, None, True, return_lse=True)
+    delta = attention_delta(do, out)
+    dq = attention_bwd_dq(q, k, v, do, lse, delta)
+    dq_p = attention_bwd_dq_plain(q, k, v, do, lse, delta)
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta)
+    dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    elt = q.element_size()
+    pairs = b * h * s * (s + 1) / 2          # admitted (row, key) pairs
+    tensor = b * s * h * d * elt             # one (B, S, H, D) tensor
+    stats = b * h * s * 4                    # one (B, H, S) fp32 tensor
+    # library yardsticks: SDPA causal forward, and its backward (dq, dk,
+    # dv together) from a recorded forward, on (B, H, S, D) views
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+    lib_fwd = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), is_causal=True))
+    # the backward cannot be captured in a graph apart from its forward:
+    # its device time comes from the profiler's kernel events instead
+    def sdpa_bwd():
+        return torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    eager_bwd = cuda_ms(sdpa_bwd, 10)
+    lib_bwd = sum(device_times(sdpa_bwd, 10).values())
+    log(f"[kernels] library SDPA backward [{b}x{s}x{h}x{d} {dtype}]: "
+        f"device {lib_bwd:.4f} ms, eager call {eager_bwd:.4f} ms")
+    label = f"{b}x{s}x{h}x{d} {dname}"
+    fwd_src = "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu"
+    bwd_src = "dpu_operator_tpu_torch/csrc/flash_attention_bwd.cu"
+    specs = [
+        ("attention_fwd_lse", fwd_src, ":81",
+         {"out": (out, out_p), "lse": (lse, lse_p)},
+         lambda: attention_fwd_lse(q, k, v),
+         lambda: attention_fwd_plain(q, k, v, None, True, return_lse=True),
+         4 * tensor + stats, 4.0 * pairs * d, lib_fwd),
+        ("attention_bwd_dq", bwd_src, ":169", {"dq": (dq, dq_p)},
+         lambda: attention_bwd_dq(q, k, v, do, lse, delta),
+         lambda: attention_bwd_dq_plain(q, k, v, do, lse, delta),
+         5 * tensor + 2 * stats, 6.0 * pairs * d, lib_bwd),
+        ("attention_bwd_dkv", bwd_src, ":210",
+         {"dk": (dk, dk_p), "dv": (dv, dv_p)},
+         lambda: attention_bwd_dkv(q, k, v, do, lse, delta),
+         lambda: attention_bwd_dkv_plain(q, k, v, do, lse, delta),
+         6 * tensor + 2 * stats, 8.0 * pairs * d, lib_bwd),
+    ]
+    cases = []
+    for name, src, line, outs, fn, plain, nbytes, flops, lib in specs:
+        errs = {k: scaled_err(g, r) for k, (g, r) in outs.items()}
+        log(f"[kernels] {name}[{label}] per output: " + "; ".join(
+            f"{k} max_abs_err {e[0]:.3g} scaled {e[1]:.3g} (plain: max "
+            f"{float(outs[k][1].float().abs().max()):.3g}, rms "
+            f"{float(outs[k][1].float().square().mean().sqrt()):.3g})"
+            for k, e in errs.items()))
+        bound, by = _bound(nbytes, flops, dname)
+        cases.append({
+            "name": f"{name}[{label}]", "kernel": name, "dtype": dname,
+            "source": src,
+            "replaces": "dpu_operator_tpu/ops/flash_attention.py" + line,
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "scaled_err": max(e[1] for e in errs.values()),
+            "ms": graph_ms(fn, reps=5, replays=4),
+            "eager_ms": cuda_ms(fn, 5),
+            "plain_ms": cuda_ms(plain, 2, warmup=1),
+            "library_ms": lib, "bound_ms": bound, "bound_by": by})
+    return cases
 
 
 def phase_kernels(cfg) -> list:
@@ -260,6 +375,11 @@ def phase_kernels(cfg) -> list:
                         dtype=torch.int32)
     cases.append(_attn_case(gen, f"decode 8x1 vs 8x{s_max}x{shape}", qd, ck, cv,
                             pos, "attention_fwd_decode"))
+    # training: the flagship's train batch, one of its sequences, and a
+    # ragged length
+    for b, s, dt in ((8, s_max, bf16), (1, s_max, bf16), (1, 1000, bf16),
+                     (1, s_max, f32), (1, 1000, f32)):
+        cases.extend(_train_cases(gen, b, s, h, dh, dt))
     for c in cases:
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
@@ -340,6 +460,34 @@ def phase_cpu_parity() -> None:
     require(sched.pool.outstanding() == 0, "tiny serve leaked KV blocks")
     log(f"[parity] tiny fp32 serve on the card: {len(reqs)} requests on 2 "
         "slots, chunk 16, every stream equals generate")
+    _train_parity(cfg, p_cpu)
+
+
+def _train_parity(cfg, p_cpu) -> None:
+    """One fp32 train step of the tiny config on the card and on the CPU
+    from the same weights and batch: loss within 1e-4, every gradient leaf
+    within 1e-4 (:func:`scaled_err` against the CPU's)."""
+    import dataclasses
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.train import (make_train_step,
+                                                        param_leaves)
+    cfg = dataclasses.replace(cfg, attention="flash")
+    batch = make_example_batch(cfg, batch=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        step, init_state, place = make_train_step(cfg, device=dev)
+        params, opt = init_state(params=p_cpu)
+        _, _, loss = step(params, opt, place(batch))
+        out[dev] = (float(loss), [p.grad.cpu() for p in param_leaves(params)])
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    grad_err = max(scaled_err(a, b)[1]
+                   for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    log(f"[parity] tiny fp32 train step card vs CPU: loss {out['cpu'][0]:.6f}"
+        f" |diff| {loss_err:.3g}; worst gradient leaf scaled error "
+        f"{grad_err:.3g} over {len(out['cpu'][1])} leaves (tol 1e-4)")
+    require(loss_err <= 1e-4, f"train loss card vs CPU differs by {loss_err}")
+    require(grad_err <= 1e-4, f"a gradient leaf differs card vs CPU by "
+            f"{grad_err}")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -397,8 +545,9 @@ def phase_serve(cfg, params) -> dict:
         require(all(0 <= t < cfg.vocab for t in r.tokens),
                 f"{r.rid}: token out of vocab")
     require(sched.pool.outstanding() == 0, "KV blocks leaked")
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} never launched on the serving path")
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0,
+                f"kernel {name} never launched on the serving path")
 
     # two streams against generate and a teacher-forced forward
     for r in (reqs[0], reqs[9]):
@@ -427,8 +576,9 @@ def phase_serve(cfg, params) -> dict:
     ttfts = sorted(r.ttft_s for r in reqs)
     dec = np.array([t for t, _ in ex.iters])
     kvb = np.array([b for _, b in ex.iters], dtype=np.float64)
-    bound = (wbytes + kvb) / HBM_BYTES_PER_S
-    full_bound = (wbytes + 8 * cfg.max_seq * kv_row_bytes) / HBM_BYTES_PER_S
+    hbm = card_peaks()["hbm_bytes_per_s"]
+    bound = (wbytes + kvb) / hbm
+    full_bound = (wbytes + 8 * cfg.max_seq * kv_row_bytes) / hbm
     out = {
         "requests": 16, "slots": 8, "chunk": 256,
         "generated_tokens": gen_tokens, "wall_s": wall,
@@ -462,8 +612,6 @@ def profile_window(params, cfg) -> None:
     prefill chunk, beside the same work's wall time without the profiler.
     A measurement, not a check: prints "not measured" when the profiler
     sees no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from dpu_operator_tpu_torch.workloads.serve import (Request,
                                                         TorchSlotExecutor)
     ex = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
@@ -481,44 +629,123 @@ def profile_window(params, cfg) -> None:
             "prefill chunk (256 tokens)":
                 lambda: ex.prefill_chunk(active[0][1], 0, 0, 256)}
     for label, fn in work.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        n = 10
-        t0 = time.perf_counter()
+        profile_calls(label, fn, 10)
+
+
+def device_times(fn, n: int) -> dict:
+    """Device milliseconds per call of *fn* by kernel name, from
+    torch.profiler over *n* calls. Device-side events only (kernels,
+    copies: they have no CPU time); an aten op also reports its kernels'
+    time as its own "self" device time, and a user annotation (such as
+    ``Optimizer.step``) spans the kernels inside it, so neither is
+    counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-        except RuntimeError as e:
-            log(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy "
-                f"not measured (profiler failed: {e})")
-            continue
-        # device-side events only (kernels, copies): they have no CPU
-        # time. An aten op also reports its kernels' time as its own
-        # "self" device time, so summing every entry would count it twice
-        by_kernel = {}
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0.0)
-            if us > 0 and e.self_cpu_time_total == 0:
-                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us
-        busy_ms = sum(by_kernel.values()) / n / 1e3
-        if busy_ms <= 0:
-            log(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy "
-                "not measured (the profiler saw no device time)")
-            continue
-        log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms, device idle share "
-            f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        for name, us in top:
-            log(f"[profile]   {us / n / 1e3:8.4f} ms/call  {name[:90]}")
+    by_kernel: dict = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.self_cpu_time_total == 0 \
+                and not getattr(e, "is_user_annotation", False):
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / n / 1e3
+    return by_kernel
+
+
+def profile_calls(label: str, fn, n: int, warmup: int = 3) -> None:
+    """Wall time per call of *fn* without the profiler, then the device's
+    busy time per call (:func:`device_times`), its idle share and the
+    largest device items. A measurement, not a check: prints "not
+    measured" when the profiler sees no device time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    try:
+        by_kernel = device_times(fn, n)
+    except RuntimeError as e:
+        log(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy "
+            f"not measured (profiler failed: {e})")
+        return
+    busy_ms = sum(by_kernel.values())
+    if busy_ms <= 0:
+        log(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy "
+            "not measured (the profiler saw no device time)")
+        return
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, device idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    for name, ms in top:
+        log(f"[profile]   {ms:8.4f} ms/call  {name[:90]}")
+
+
+# -- phase 6 ------------------------------------------------------------------
+def phase_train(cfg) -> dict:
+    """The flagship's training path: ``measure_train`` (1 warm-up and 5
+    timed steps at batch 8 x 1024) with the launch counters read around
+    it, then the gradient guard and one profiled step on a fresh state."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       measure_train)
+    from dpu_operator_tpu_torch.workloads.train import (make_train_step,
+                                                        param_leaves)
+    steps = 5
+    reset_launch_counts()
+    perf = measure_train(cfg, batch=FLAGSHIP_BATCH, steps=steps,
+                         device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[train] launches during the train run ({steps + 1} steps): "
+        f"{counts}")
+    losses = perf.losses
+    mfu = "not known" if perf.mfu is None else f"{perf.mfu:.4f}"
+    log(f"[train] flagship bf16 batch {FLAGSHIP_BATCH}x{cfg.max_seq}: "
+        f"step {perf.step_ms:.2f} ms, {perf.tokens_per_s:.0f} tokens/s, "
+        f"{perf.model_tflops:.2f} model TFLOP/s, MFU {mfu} (peak "
+        f"{perf.peak_tflops} TFLOP/s, {perf.device}), peak memory "
+        f"{perf.peak_memory_bytes / 1e9:.2f} GB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses))
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        require(counts[name] == cfg.n_layers * (steps + 1),
+                f"{name} launched {counts[name]} times, wanted "
+                f"{cfg.n_layers} a step")
+    require(counts["fused_rmsnorm"] == (2 * cfg.n_layers + 1) * (steps + 1),
+            f"fused_rmsnorm launched {counts['fused_rmsnorm']} times")
+
+    # the guard against gradients that stop at a kernel: every leaf
+    step, init_state, place = make_train_step(cfg, device="cuda")
+    params, opt = init_state(1)
+    batch = place(make_example_batch(cfg, batch=FLAGSHIP_BATCH))
+    step(params, opt, batch)
+    leaves = param_leaves(params)
+    for i, p in enumerate(leaves):
+        require(p.grad is not None, f"parameter leaf {i} got no gradient")
+        require(bool(torch.isfinite(p.grad).all()),
+                f"parameter leaf {i} has a non-finite gradient")
+        require(float(p.grad.abs().max()) > 0,
+                f"parameter leaf {i} has an all-zero gradient")
+    log(f"[train] all {len(leaves)} gradient leaves finite and non-zero")
+    profile_calls(f"train step (batch {FLAGSHIP_BATCH}x{cfg.max_seq})",
+                  lambda: step(params, opt, batch), 2, warmup=1)
+    out = {"step_ms": perf.step_ms, "tokens_per_s": perf.tokens_per_s,
+           "model_tflops": perf.model_tflops, "mfu": perf.mfu,
+           "peak_memory_gb": perf.peak_memory_bytes / 1e9,
+           "losses": losses, "launches": counts}
+    log("[train] " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -546,6 +773,10 @@ def main() -> int:
         f"{time.monotonic() - t0:.1f} s")
     counts = phase_serve(cfg, params)["launches"]  # the serve run's
     profile_window(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    train_counts = phase_train(cfg)["launches"]
+    counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"], "launches": counts[c["kernel"]],

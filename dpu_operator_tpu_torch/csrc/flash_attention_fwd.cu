@@ -2,7 +2,10 @@
 // bound to Python with ctypes.
 //
 // Replaces the Pallas kernel dpu_operator_tpu/ops/flash_attention.py::_kernel
-// (forward, no lse; launched by flash_attention) and takes the two-phase
+// in both its uses: the forward of flash_attention (no lse) and the training
+// forward of _fwd_with_lse, which also stores each row's natural-log
+// logsumexp, (m + log2(max(l, 1e-20))) / log2(e), for the backward
+// (flash_attention_bwd.cu). It takes the two-phase
 // causal walk of hack/flash_lab2.py::_kernel_v2 (only key blocks that cross
 // the diagonal are masked). One kernel computes both the causal attention of
 // a whole prompt (q_pos0 = 0, Skv = Sq) and the slotted-cache attention of
@@ -18,7 +21,8 @@
 // (slots, max_seq, H, D) cache is attended with no transpose copy.
 //
 // Two launch shapes:
-// * tiled (Sq > 1): one block per (query tile of 32 rows, head, batch).
+// * tiled (Sq > 1, and every launch that writes the lse): one block per
+//   (query tile of 32 rows, head, batch).
 //   K/V tiles of 64 keys are staged in shared memory as fp32; each warp owns
 //   8 query rows and each lane two keys of a tile. Key blocks past the
 //   tile's last admitted position are never visited; key positions are
@@ -37,13 +41,15 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct AttnArgs {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  const int* q_pos0;  // (B,) int32, device
+  const int* q_pos0;  // (B,) int32, device; null: every offset is 0
+  float* lse;         // (B, H, Sq) fp32, or null: not written
   int B, Sq, Skv, H;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -69,30 +75,6 @@ struct TiledSmem {
   static constexpr size_t kBytes = (kQ + kK + kV + kP) * sizeof(float);
 };
 
-// Copy rows [row0, row0 + n) x D of a strided (S, D) slice into shared
-// memory as fp32; rows past `valid` are zero-filled.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           long long row_stride, int nrows,
-                                           int valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int kPerRow = D / VEC;
-  using P = port::Pack<T, VEC>;
-  for (int idx = threadIdx.x; idx < nrows * kPerRow; idx += NT) {
-    const int r = idx / kPerRow;
-    const int c = (idx - r * kPerRow) * VEC;
-    float* d = dst + r * (D + 4) + c;
-    if (r < valid) {
-      const P p = *reinterpret_cast<const P*>(src + r * row_stride + c);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) d[e] = port::to_f(p.v[e]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) d[e] = 0.f;
-    }
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_tiled_kernel(AttnArgs a) {
@@ -109,14 +91,14 @@ attn_tiled_kernel(AttnArgs a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = tile * kBQ;
   const int nrows = min(kBQ, a.Sq - r0);
-  const int pos0 = a.q_pos0[b];
+  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
   const int p_lo = pos0 + r0;              // first row's absolute position
   const int p_hi = pos0 + r0 + nrows - 1;  // last row's
 
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_ss;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  stage_rows<T, D, NT>(Qs, q, a.q_ss, kBQ, nrows);
+  port::stage_rows<T, D, NT>(Qs, q, a.q_ss, kBQ, nrows);
 
   const int nkb_all = (a.Skv + kBK - 1) / kBK;
   int nkb = nkb_all, n_full = a.Skv / kBK;
@@ -143,33 +125,15 @@ attn_tiled_kernel(AttnArgs a) {
     const int j0 = kb * kBK;
     const int kvalid = min(kBK, a.Skv - j0);
     __syncthreads();  // previous tile fully consumed
-    stage_rows<T, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, kvalid);
-    stage_rows<T, D, NT>(Vs, v + j0 * a.v_ss, a.v_ss, kBK, kvalid);
+    port::stage_rows<T, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, kvalid);
+    port::stage_rows<T, D, NT>(Vs, v + j0 * a.v_ss, a.v_ss, kBK, kvalid);
     __syncthreads();
 
     // scores for this warp's rows against keys lane and lane + 32
     float s[kRPW][2];
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* k0 = Ks + lane * S;
-    const float* k1 = Ks + (lane + 32) * S;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(k0 + d);
-      const float4 kc = *reinterpret_cast<const float4*>(k1 + d);
-#pragma unroll
-      for (int r = 0; r < kRPW; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * S + d);
-        s[r][0] = fmaf(qv.x, ka.x, s[r][0]);
-        s[r][0] = fmaf(qv.y, ka.y, s[r][0]);
-        s[r][0] = fmaf(qv.z, ka.z, s[r][0]);
-        s[r][0] = fmaf(qv.w, ka.w, s[r][0]);
-        s[r][1] = fmaf(qv.x, kc.x, s[r][1]);
-        s[r][1] = fmaf(qv.y, kc.y, s[r][1]);
-        s[r][1] = fmaf(qv.z, kc.z, s[r][1]);
-        s[r][1] = fmaf(qv.w, kc.w, s[r][1]);
-      }
-    }
+    port::dot_rows2<kRPW, D>(s, qw, Ks + lane * S, Ks + (lane + 32) * S);
     const bool masked = kb >= n_full;  // only diagonal / ragged blocks
 #pragma unroll
     for (int r = 0; r < kRPW; ++r) {
@@ -197,17 +161,7 @@ attn_tiled_kernel(AttnArgs a) {
     __syncwarp();
     for (int j = 0; j < kvalid; ++j) {
       float vv[DPL];
-      const float* vr = Vs + j * S + lane * DPL;
-      if constexpr (DPL == 4) {
-        const float4 t4 = *reinterpret_cast<const float4*>(vr);
-        vv[0] = t4.x; vv[1] = t4.y; vv[2] = t4.z; vv[3] = t4.w;
-      } else if constexpr (DPL == 2) {
-        const float2 t2 = *reinterpret_cast<const float2*>(vr);
-        vv[0] = t2.x; vv[1] = t2.y;
-      } else {
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) vv[c] = vr[c];
-      }
+      port::load_cols<DPL>(vv, Vs + j * S + lane * DPL);
 #pragma unroll
       for (int r = 0; r < kRPW; ++r) {
         const float pj = pw[r * kBK + j];
@@ -225,6 +179,10 @@ attn_tiled_kernel(AttnArgs a) {
     const float denom = fmaxf(l[r], 1e-20f);
 #pragma unroll
     for (int c = 0; c < DPL; ++c) o[c] = port::from_f<T>(acc[r][c] / denom);
+    // m and l are warp-uniform after the all-reduces; one lane writes
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + r0 + lr] =
+          (m[r] + log2f(denom)) / kLog2e;
   }
 }
 
@@ -311,7 +269,7 @@ attn_decode_kernel(AttnArgs a) {
 
 template <typename T, int D>
 cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
-  if (a.Sq == 1) {
+  if (a.Sq == 1 && a.lse == nullptr) {
     attn_decode_kernel<T, D><<<dim3(a.Sq, a.H, a.B), kDecWarps * 32, 0, stream>>>(a);
     return cudaGetLastError();
   }
@@ -339,6 +297,13 @@ cudaError_t launch_d(const AttnArgs& a, int d, cudaStream_t stream) {
   }
 }
 
+cudaError_t dispatch(const AttnArgs& a, int d, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == port::kDtypeF32) return launch_d<float>(a, d, s);
+  if (dtype == port::kDtypeBF16) return launch_d<__nv_bfloat16>(a, d, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -357,13 +322,28 @@ int attention_fwd(const void* q, const void* k, const void* v, void* o,
                   int causal, float scale2, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  AttnArgs a{q, k, v, o, static_cast<const int*>(q_pos0), B, Sq, Skv, H,
+  AttnArgs a{q, k, v, o, static_cast<const int*>(q_pos0), nullptr, B, Sq, Skv, H,
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
              o_sb, o_ss, o_sh, causal, scale2};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == port::kDtypeF32) return static_cast<int>(launch_d<float>(a, D, s));
-  if (dtype == port::kDtypeBF16) return static_cast<int>(launch_d<__nv_bfloat16>(a, D, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(a, D, dtype, stream));
+}
+
+// The training forward: self-attention (Sq == Skv == S, offset 0) that also
+// writes lse (B, H, S) fp32, contiguous, in natural log. Always the tiled
+// launch shape, S == 1 included. Strides and checks as attention_fwd.
+int attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int B, int S, int H, int D,
+                      long long q_sb, long long q_ss, long long q_sh,
+                      long long k_sb, long long k_ss, long long k_sh,
+                      long long v_sb, long long v_ss, long long v_sh,
+                      long long o_sb, long long o_ss, long long o_sh,
+                      int causal, float scale2, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgs a{q, k, v, o, nullptr, static_cast<float*>(lse), B, S, S, H,
+             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+             o_sb, o_ss, o_sh, causal, scale2};
+  return static_cast<int>(dispatch(a, D, dtype, stream));
 }
 
 }  // extern "C"

@@ -24,7 +24,7 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("rmsnorm.cu", "flash_attention_fwd.cu")
+SOURCES = ("rmsnorm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,12 @@ _SIGNATURES = {
     "rmsnorm_fwd": (_I, [_P, _P, _P, _I, _I, _F, _I, _I, _P]),
     "attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                       + [_L] * 12 + [_I, _F, _I, _P]),
+    "attention_fwd_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I]
+                          + [_L] * 12 + [_I, _F, _I, _P]),
+    "attention_bwd_dq": (_I, [_P] * 7 + [_I] * 4 + [_L] * 15
+                         + [_I, _F, _F, _I, _P]),
+    "attention_bwd_dkv": (_I, [_P] * 8 + [_I] * 4 + [_L] * 15
+                          + [_I, _F, _F, _I, _P]),
     "port_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -68,7 +74,7 @@ def _digest() -> str:
 def _build(lib_path: Path, stamp: Path, digest: str) -> None:
     """Compile every source in parallel, then link; raise with nvcc's
     output on failure. ptxas's register / shared-memory report is kept in
-    ``ptxas.txt`` beside the library."""
+    ``ptxas.txt`` beside the library, spill lines included."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     objs = [BUILD_DIR / (name + ".o") for name in SOURCES]

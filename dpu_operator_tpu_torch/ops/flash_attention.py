@@ -1,10 +1,12 @@
-"""Attention forward with a per-row query offset: a hand-written CUDA
-kernel and its plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels and their plain PyTorch
+versions, forward with a per-row query offset and the training backward.
 
-Port of the forward kernel of ``dpu_operator_tpu/ops/flash_attention.py``
-(``flash_attention`` and its Pallas ``_kernel``), with the diagonal-only
-masking of ``hack/flash_lab2.py::_kernel_v2``; the kernel is
-``csrc/flash_attention_fwd.cu``.
+Port of ``dpu_operator_tpu/ops/flash_attention.py``: ``flash_attention``
+and its Pallas ``_kernel`` (with the diagonal-only masking of
+``hack/flash_lab2.py::_kernel_v2``) in ``csrc/flash_attention_fwd.cu``;
+the custom VJP ``flash_attention_vjp`` with ``_fwd_with_lse``,
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` in the same forward kernel
+(which then also writes the logsumexp) and ``csrc/flash_attention_bwd.cu``.
 
 :func:`attention_fwd` takes ``q (B, Sq, H, D)``, ``k, v (B, Skv, H, D)``
 and ``q_pos0 (B,)``: row i of batch b sits at absolute position
@@ -17,8 +19,15 @@ slotted cache is passed as it is.
 Numerics as the TPU kernel: scores scaled into the exp2 domain, online
 softmax with fp32 max / sum / accumulator over key blocks of 64 anchored
 at key 0, P rounded to the input type before the PV product, and
-``out = acc / max(l, 1e-20)``. The training forward (with logsumexp) and
-the backward kernels are not ported yet.
+``out = acc / max(l, 1e-20)``.
+
+Training: :func:`flash_attention_vjp` (a :class:`FlashAttentionFn`) saves
+the per-row logsumexp of :func:`attention_fwd_lse`; its backward computes
+``delta = rowsum(dO * O)`` with a torch op (as the JAX package does, outside
+Pallas), then :func:`attention_bwd_dq` and :func:`attention_bwd_dkv`, which
+recompute P from the logsumexp. The Function is the same on the CPU and on
+the card: only the inner calls change, plain versions for CPU tensors and
+kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from . import _build
 _NEG_INF = -1e30
 _LOG2E = math.log2(math.e)
 BLOCK_K = 64
+#: query rows per block of the dK/dV walk (the kernel's query tile)
+BLOCK_Q = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 
@@ -46,13 +57,17 @@ def _positions(q: torch.Tensor, q_pos0: Optional[torch.Tensor]
 
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos0: Optional[torch.Tensor] = None,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, return_lse: bool = False):
     """The kernel's function in plain PyTorch, walking key blocks of
     ``BLOCK_K`` as the kernel does. Every block holds exactly BLOCK_K keys
     (a ragged tail is zero-padded and masked) and each dot product is a
     reduction over the contiguous last dimension, so a row's result does
     not depend on the other rows or on keys past its position: chunked
-    prefill reproduces whole-prompt prefill bit for bit on the CPU too."""
+    prefill reproduces whole-prompt prefill bit for bit on the CPU too.
+
+    With *return_lse*, also the per-row logsumexp (B, H, Sq) fp32 in
+    natural log, from the walk's own max and sum:
+    ``(m + log2(max(l, 1e-20))) / log2(e)``."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     pos = _positions(q, q_pos0).long()
@@ -88,19 +103,23 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vt = v[:, sl].float().permute(0, 2, 3, 1).unsqueeze(2)  # (B,H,1,D,K)
         acc = acc * corr + (pv * vt).sum(-1)
         m = new_m
-    out = acc / torch.clamp(l, min=1e-20)
-    return out.to(q.dtype).permute(0, 2, 1, 3)
+    denom = torch.clamp(l, min=1e-20)
+    out = (acc / denom).to(q.dtype).permute(0, 2, 1, 3)
+    if return_lse:
+        return out, ((m + torch.log2(denom)) / _LOG2E)[..., 0]
+    return out
 
 
-def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check_cuda(what: str, *ts: torch.Tensor) -> None:
+    q = ts[0]
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"attention_fwd: dtype {q.dtype} (fp32 or bf16)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("attention_fwd: q, k, v must share a dtype")
-    if not (q.device == k.device == v.device):
-        raise ValueError("attention_fwd: q, k, v on different devices")
+        raise TypeError(f"{what}: dtype {q.dtype} (fp32 or bf16)")
+    if any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{what}: q, k, v (and dO) must share a dtype")
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{what}: inputs on different devices")
     if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"attention_fwd: head dim {q.shape[3]} not in "
+        raise ValueError(f"{what}: head dim {q.shape[3]} not in "
                          f"{_HEAD_DIMS}")
 
 
@@ -129,7 +148,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_fwd_plain(q, k, v, q_pos0, causal)
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
-    _check_cuda(q, k, v)
+    _check_cuda("attention_fwd", q, k, v)
     q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
     pos = _positions(q, q_pos0).contiguous()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -165,3 +184,246 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[1] != q.shape[1]:
         raise ValueError("flash_attention: q and k must share S")
     return attention_fwd(q, k, v, None, causal)
+
+
+# -- training path ------------------------------------------------------------
+
+def _self_shapes(what: str, q: torch.Tensor, *ts: torch.Tensor) -> None:
+    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"{what}: q, k, v (and dO) must share one "
+                         f"(B, S, H, D) shape, got "
+                         f"{[tuple(t.shape) for t in (q, *ts)]}")
+
+
+def _device_of(what: str, q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    return q.device.type
+
+
+def _strides(*ts: torch.Tensor) -> list:
+    return [t.stride(i) for t in ts for i in range(3)]
+
+
+def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> tuple:
+    """Self-attention of q, k, v (B, S, H, D) at offset 0 and the per-row
+    logsumexp: ``(out (B, S, H, D), lse (B, H, S) fp32)``, lse in natural
+    log (JAX ``_fwd_with_lse``). A CPU tensor takes the plain version; a
+    CUDA tensor launches the tiled forward kernel with its lse output
+    (every S, 1 included) or raises."""
+    _self_shapes("attention_fwd_lse", q, k, v)
+    if _device_of("attention_fwd_lse", q) == "cpu":
+        return attention_fwd_plain(q, k, v, None, causal, return_lse=True)
+    _check_cuda("attention_fwd_lse", q, k, v)
+    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    rc = _build.library().attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, s, h, d, *_strides(q, k, v, out),
+        int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    attention_fwd_lse.launches += 1
+    _build.check(rc, "attention_fwd_lse")
+    return out, lse
+
+
+attention_fwd_lse.launches = 0  # type: ignore[attr-defined]
+
+
+def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32, (B, S, H, D) -> (B, H, S): the
+    softmax-normalisation term of the backward (a torch op, as the JAX
+    package computes it outside Pallas)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_scales(d: int) -> tuple:
+    sm_scale = 1.0 / math.sqrt(d)
+    return sm_scale, sm_scale * _LOG2E
+
+
+def _ds(p: torch.Tensor, dp: torch.Tensor, delta: torch.Tensor,
+        sm_scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """dS = P * (dP - delta) * sm_scale, rounded to the input type before
+    it enters a product (``_bwd_dq_kernel`` :197, ``_bwd_dkv_kernel``
+    :247)."""
+    return (p * (dp - delta) * sm_scale).to(dtype).float()
+
+
+def attention_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor,
+                           causal: bool = True) -> torch.Tensor:
+    """dQ in plain PyTorch, walking key blocks of ``BLOCK_K`` as the kernel
+    does: P recomputed as ``exp2(s * scale2 - lse * log2 e)`` (0 where
+    masked), dS rounded to the input type, dq accumulated in fp32."""
+    b, s, h, d = q.shape
+    sm_scale, scale2 = _bwd_scales(d)
+    qf, dof = (t.float().transpose(1, 2) for t in (q, do))   # (B, H, S, D)
+    lse2 = (lse.float() * _LOG2E)[..., None]                  # (B, H, S, 1)
+    dl = delta.float()[..., None]
+    rows = torch.arange(s, device=q.device)[:, None]
+    dq = torch.zeros((b, h, s, d), device=q.device)
+    for j0 in range(0, s, BLOCK_K):
+        kb, vb = (t[:, j0:j0 + BLOCK_K].float().transpose(1, 2)
+                  for t in (k, v))                            # (B, H, K, D)
+        sc = qf @ kb.transpose(-1, -2) * scale2               # (B, H, S, K)
+        p = torch.exp2(sc - lse2)
+        if causal:
+            keys = torch.arange(j0, j0 + kb.shape[2], device=q.device)
+            p = torch.where(keys[None, :] <= rows, p, 0.0)
+        ds = _ds(p, dof @ vb.transpose(-1, -2), dl, sm_scale, k.dtype)
+        dq = dq + ds @ kb
+    return dq.to(q.dtype).transpose(1, 2)
+
+
+def attention_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool = True) -> tuple:
+    """dK, dV in plain PyTorch, walking query blocks of ``BLOCK_Q`` as the
+    kernel does: ``dv += round(P)^T dO`` (P in dO's type) and
+    ``dk += round(dS)^T Q``, accumulated in fp32."""
+    b, s, h, d = q.shape
+    sm_scale, scale2 = _bwd_scales(d)
+    kf, vf = (t.float().transpose(1, 2) for t in (k, v))     # (B, H, S, D)
+    lse2 = (lse.float() * _LOG2E)[..., None]
+    dl = delta.float()[..., None]
+    keys = torch.arange(s, device=q.device)[None, :]
+    dk = torch.zeros((b, h, s, d), device=q.device)
+    dv = torch.zeros((b, h, s, d), device=q.device)
+    for i0 in range(0, s, BLOCK_Q):
+        qb, dob = (t[:, i0:i0 + BLOCK_Q].float().transpose(1, 2)
+                   for t in (q, do))                          # (B, H, Q, D)
+        n = qb.shape[2]
+        sc = qb @ kf.transpose(-1, -2) * scale2               # (B, H, Q, S)
+        p = torch.exp2(sc - lse2[:, :, i0:i0 + n])
+        if causal:
+            rows = torch.arange(i0, i0 + n, device=q.device)[:, None]
+            p = torch.where(keys <= rows, p, 0.0)
+        dv = dv + p.to(do.dtype).float().transpose(-1, -2) @ dob
+        ds = _ds(p, dob @ vf.transpose(-1, -2), dl[:, :, i0:i0 + n],
+                 sm_scale, q.dtype)
+        dk = dk + ds.transpose(-1, -2) @ qb
+    return dk.to(k.dtype).transpose(1, 2), dv.to(v.dtype).transpose(1, 2)
+
+
+def _bwd_prepare(what: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                 delta: torch.Tensor) -> tuple:
+    """Checks shared by the two backward wrappers; returns the inputs as
+    the kernel takes them."""
+    _check_cuda(what, q, k, v, do)
+    b, s, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, s) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be (B, H, S) fp32 on "
+                             f"q's device, got {tuple(t.shape)} {t.dtype}")
+    q, k, v, do = (t if _aligned(t) else t.contiguous()
+                   for t in (q, k, v, do))
+    return q, k, v, do, lse.contiguous(), delta.contiguous()
+
+
+def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, causal: bool = True
+                     ) -> torch.Tensor:
+    """dQ (B, S, H, D) in q's type from q, k, v, dO (B, S, H, D), the
+    forward's lse and delta (B, H, S) fp32 (JAX ``_bwd_dq_kernel``). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    _self_shapes("attention_bwd_dq", q, k, v, do)
+    if _device_of("attention_bwd_dq", q) == "cpu":
+        return attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    q, k, v, do, lse, delta = _bwd_prepare("attention_bwd_dq", q, k, v, do,
+                                           lse, delta)
+    b, s, h, d = q.shape
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    sm_scale, scale2 = _bwd_scales(d)
+    rc = _build.library().attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, d,
+        *_strides(q, k, v, do, dq), int(causal), scale2, sm_scale,
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    attention_bwd_dq.launches += 1
+    _build.check(rc, "attention_bwd_dq")
+    return dq
+
+
+attention_bwd_dq.launches = 0  # type: ignore[attr-defined]
+
+
+def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool = True) -> tuple:
+    """(dK, dV), each (B, S, H, D) in the input type, from the same inputs
+    as :func:`attention_bwd_dq` (JAX ``_bwd_dkv_kernel``). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    _self_shapes("attention_bwd_dkv", q, k, v, do)
+    if _device_of("attention_bwd_dkv", q) == "cpu":
+        return attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    q, k, v, do, lse, delta = _bwd_prepare("attention_bwd_dkv", q, k, v,
+                                           do, lse, delta)
+    b, s, h, d = q.shape
+    dk = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dk.numel() == 0:
+        return dk, dv
+    sm_scale, scale2 = _bwd_scales(d)
+    rc = _build.library().attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, s, h, d, *_strides(q, k, v, do, dk), int(causal), scale2,
+        sm_scale, _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    attention_bwd_dkv.launches += 1
+    _build.check(rc, "attention_bwd_dkv")
+    return dk, dv
+
+
+attention_bwd_dkv.launches = 0  # type: ignore[attr-defined]
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention (JAX ``flash_attention_vjp``'s custom
+    VJP): the forward saves q, k, v, out and the logsumexp; the backward
+    runs the delta prologue, then dQ, then dK/dV."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor,  # type: ignore[override]
+                v: torch.Tensor, causal: bool) -> torch.Tensor:
+        out, lse = attention_fwd_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do: torch.Tensor) -> tuple:  # type: ignore[override]
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = attention_delta(do, out)
+        dq = attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Differentiable (B, S, H, D) self-attention. When autograd records
+    (grad enabled and an input requires grad) it runs
+    :class:`FlashAttentionFn`; otherwise the primal alone,
+    :func:`flash_attention`, as a JAX ``custom_vjp`` does outside a
+    gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return flash_attention(q, k, v, causal)

@@ -11,6 +11,12 @@ The model's serving path calls this where the JAX model calls
 ``fused_rmsnorm`` keeps the whole product in fp32. In fp32 they agree to
 rounding; in bf16 only to bf16 tolerance. The port uses ``fused_rmsnorm``'s
 numerics throughout.
+
+Training: when autograd records, :func:`fused_rmsnorm` runs
+:class:`RmsNormFn`, whose forward is the same call (kernel on the card,
+plain version on the CPU) and whose backward is the gradient of the fp32
+formula in plain torch ops: the JAX package has no backward kernel for
+RMSNorm (XLA differentiates its ``jnp`` norm).
 """
 
 from __future__ import annotations
@@ -36,7 +42,15 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     """RMSNorm over the last dim of x (..., D) with per-channel scale (D,).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (fp32 or bf16, scale of x's type) or raises."""
+    kernel (fp32 or bf16, scale of x's type) or raises. Differentiable:
+    through :class:`RmsNormFn` when autograd records."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RmsNormFn.apply(x, scale, eps)
+    return _rmsnorm(x, scale, eps)
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
@@ -67,3 +81,29 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 fused_rmsnorm.launches = 0  # type: ignore[attr-defined]
+
+
+class RmsNormFn(torch.autograd.Function):
+    """RMSNorm with the gradient of ``y = x * r * scale``,
+    ``r = rsqrt(mean(x^2) + eps)``, all in fp32:
+    ``dx = r * g - r^3 * x * mean(g * x)`` with ``g = dy * scale``, and
+    ``dscale = sum over rows of dy * x * r``; each rounded once to its
+    input's type."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, scale: torch.Tensor,  # type: ignore[override]
+                eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm(x, scale, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy: torch.Tensor) -> tuple:  # type: ignore[override]
+        x, scale = ctx.saved_tensors
+        xf, dyf = x.float(), dy.float()
+        r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + ctx.eps)
+        g = dyf * scale.float()
+        dx = r * g - r.pow(3) * xf * (g * xf).mean(-1, keepdim=True)
+        dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None

@@ -1,13 +1,17 @@
-"""Decoder-only transformer of the port: config, parameters, forward.
+"""Decoder-only transformer of the port: config, parameters, forward,
+loss.
 
 Port of ``dpu_operator_tpu/workloads/model.py`` (``TransformerConfig``,
-``init_params``, ``forward``) and of ``perf.flagship_config``. The layer:
-pre-norm attention and a tanh-GELU MLP, learned position embeddings, tied
-output embedding, logits in fp32. Every norm is the fused RMSNorm kernel
-and every attention the offset attention kernel (``ops/``), so
-``attention="standard"`` and ``"flash"`` run the same kernel: they compute
-the same function. The sharded and long-context modes and MoE layers are
-not ported yet.
+``init_params``, ``forward``, ``loss_fn``, ``make_example_batch``) and of
+``perf.flagship_config``. The layer: pre-norm attention and a tanh-GELU
+MLP, learned position embeddings, tied output embedding, logits in fp32.
+Every norm is the fused RMSNorm kernel and every attention of
+:func:`forward` the differentiable flash attention (``ops/``), so
+``attention="standard"`` and ``"flash"`` run the same kernels: they compute
+the same function. Both are differentiable on the CPU and on the card
+(``RmsNormFn``, ``FlashAttentionFn``); the training step is
+``workloads/train.py``. The sharded and long-context modes and MoE layers
+are not ported yet.
 
 Parameters are a plain dict shaped like the JAX tree: ``embed (V, D)``,
 ``pos (max_seq, D)``, ``out_norm (D,)`` and ``layers``, a list of dicts
@@ -22,9 +26,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..ops import attention_fwd, fused_rmsnorm
+from ..ops import flash_attention_vjp, fused_rmsnorm
 
 _UNPORTED = {
     "ring": "ROADMAP queue 1, item 8: distributed modes",
@@ -41,9 +46,13 @@ class TransformerConfig:
     d_ff: int = 512
     max_seq: int = 128
     dtype: torch.dtype = torch.bfloat16
-    #: "standard" and "flash" both run the port's attention kernel
+    #: "standard" and "flash" both run the port's attention kernels
     attention: str = "standard"
+    #: recompute each layer on the backward pass (torch.utils.checkpoint,
+    #: the port of jax.checkpoint): less activation memory, more FLOPs
+    remat: bool = False
     moe_experts: int = 0
+    learning_rate: float = 1e-3
 
     @property
     def d_head(self) -> int:
@@ -173,19 +182,41 @@ def layer(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
 
 def forward(params: dict, tokens: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
-    """Logits (B, S, V) fp32 for next-token prediction; tokens (B, S)."""
+    """Logits (B, S, V) fp32 for next-token prediction; tokens (B, S).
+    Differentiable in every parameter; with ``cfg.remat`` each layer is
+    recomputed on the backward pass."""
     _check_supported(cfg)
-    b, s = tokens.shape
+    s = tokens.shape[1]
     tokens = tokens.to(params["embed"].device)
     # the position embedding is added before the cast, as in the JAX model
     x = (params["embed"][tokens] + params["pos"][:s]).to(cfg.dtype)
-    zeros = torch.zeros(b, dtype=torch.int32, device=x.device)
-
-    def attend(q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor) -> torch.Tensor:
-        return attention_fwd(q, k, v, zeros, causal=True)
-
     for lp in params["layers"]:
-        x = layer(x, lp, cfg, attend)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, lp, cfg, flash_attention_vjp,
+                           use_reentrant=False)
+        else:
+            x = layer(x, lp, cfg, flash_attention_vjp)  # causal
     x = fused_rmsnorm(x, params["out_norm"])
     return logits_of(x, params["embed"])
+
+
+def loss_fn(params: dict, batch: dict, cfg: TransformerConfig
+            ) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of the fp32 logits (JAX
+    ``loss_fn`` without the MoE term): batch holds ``tokens`` and
+    ``targets`` (B, S)."""
+    logits = forward(params, batch["tokens"], cfg)
+    targets = batch["targets"].to(logits.device).long()
+    return F.cross_entropy(logits.flatten(0, 1), targets.flatten())
+
+
+def make_example_batch(cfg: TransformerConfig, batch: int = 8,
+                       seq: int = 0) -> dict:
+    """The JAX ``make_example_batch``: ``np.random.default_rng(0)`` tokens
+    (batch, seq + 1), split into inputs and next-token targets, as int64
+    CPU tensors (the same tokens as the JAX batch)."""
+    seq = seq or cfg.max_seq
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (batch, seq + 1), dtype=np.int32)
+    return {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int64)),
+            "targets": torch.from_numpy(toks[:, 1:].astype(np.int64))}
