@@ -13,19 +13,24 @@ Phases, each of which passes or raises (a failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    serving and training paths give it, with its time, the plain version's,
    one PyTorch library call's (a yardstick the port never calls) and the
-   least time the card could take (its bound);
+   least time the card could take (its bound). bf16 at head dim 64 and 128
+   takes the tensor-core kernels (D 64 at 1x1000 and 2x1024), fp32 the
+   CUDA-core ones; a 256-row chunk at offset 256 must equal rows 256-511 of
+   the whole 512-row prefill bit for bit;
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
    streams equal ``generate``; then one tiny fp32 train step whose loss and
    gradients match the CPU's;
 5. serve the flagship (bf16, about 391M parameters, random weights from a
    seed) through ``Scheduler`` and ``TorchSlotExecutor``: 16 requests on 8
-   slots with chunked prefill; every kernel of the path must have launched;
+   slots with chunked prefill; every kernel of the path must have launched,
+   every multi-row attention launch on the tensor cores;
 6. train the flagship (bf16, batch 8 x 1024 tokens) through
    ``make_train_step`` and ``measure_train``: 1 warm-up and 5 timed AdamW
    steps, loss finite and falling, every gradient leaf finite and not all
-   zero, the three training kernels launched 12 times a step; one profiled
-   step shows where the device time goes.
+   zero, the three training kernels launched 12 times a step (the forward
+   and dK/dV on the tensor cores); one profiled step shows where the device
+   time goes.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
@@ -44,18 +49,23 @@ import numpy as np
 #: kernel vs plain: the largest :func:`scaled_err` of an output, per
 #: dtype. fp32 differs only in summation order; bf16 also in where P, dS
 #: and the output round (one bf16 step is 2^-8 to 2^-7 of a value). The
-#: H100 readings at this script's shapes and seed: fp32 at most 7.3e-6;
-#: bf16 at most 7.2e-3 (dV at 8x1024), and the bf16 limit lies two bf16
-#: steps (2 * 2^-8) above that
+#: H100 readings at this script's shapes and seed: fp32 at most 4.9e-6;
+#: bf16 at most 7.2e-3 (dV at 8x1024, on the CUDA cores and on the tensor
+#: cores alike), and the bf16 limit lies two bf16 steps (2 * 2^-8) above
+#: that
 TOL = {"float32": 1e-4, "bfloat16": 1.5e-2}
 #: bf16 serving: a served token's logit must lie within this of the best
 #: logit under a teacher-forced forward (the random-weight flagship's top
 #: logits sit about 0.05 apart; bf16 logits near 1 round in steps of 0.004)
 SERVE_LOGIT_TOL = 0.05
-#: the kernels each main path must launch (names of ``launch_counts``)
-SERVE_KERNELS = ("fused_rmsnorm", "attention_fwd_tiled",
-                 "attention_fwd_decode")
-TRAIN_KERNELS = ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv")
+#: the kernels each main path must launch (names of ``launch_counts``:
+#: ``_tc`` the tensor-core route), and the CUDA-core kernels whose bf16
+#: work moved to the tensor cores, which it must not launch
+SERVE_KERNELS = ("fused_rmsnorm", "attention_fwd_tc", "attention_fwd_decode")
+TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq",
+                 "attention_bwd_dkv_tc")
+SERVE_NOT = ("attention_fwd_tiled",)
+TRAIN_NOT = ("attention_fwd_lse", "attention_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -211,11 +221,24 @@ def _rms_case(gen, rows: int, d: int, dtype) -> dict:
     }
 
 
-def _attn_case(gen, label: str, q, k, v, pos, kernel: str) -> dict:
+def launched(fn):
+    """``(fn(), the launch_counts name of the one kernel it launched)``:
+    the route a call took, read from the counters it moved."""
+    from dpu_operator_tpu_torch.ops import launch_counts
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    moved = [k for k in after if after[k] != before[k]]
+    require(len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1,
+            f"one launch expected; counters moved: {moved}")
+    return out, moved[0]
+
+
+def _attn_case(gen, label: str, q, k, v, pos) -> dict:
     import torch
     import torch.nn.functional as F
     from dpu_operator_tpu_torch.ops import attention_fwd, attention_fwd_plain
-    got = attention_fwd(q, k, v, pos, causal=True)
+    got, kernel = launched(lambda: attention_fwd(q, k, v, pos, causal=True))
     ref = attention_fwd_plain(q, k, v, pos, causal=True)
     torch.cuda.synchronize()
     max_abs, scaled = scaled_err(got, ref)
@@ -240,7 +263,7 @@ def _attn_case(gen, label: str, q, k, v, pos, kernel: str) -> dict:
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
     return {
-        "name": f"attention_fwd[{label}]", "kernel": kernel, "dtype": dname,
+        "name": f"{kernel}[{label}]", "kernel": kernel, "dtype": dname,
         "source": "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
         "max_abs_err": max_abs, "scaled_err": scaled,
@@ -269,12 +292,13 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
                       device="cuda").to(dtype)
     q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
     do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-    out, lse = attention_fwd_lse(q, k, v)
+    (out, lse), fwd_name = launched(lambda: attention_fwd_lse(q, k, v))
     out_p, lse_p = attention_fwd_plain(q, k, v, None, True, return_lse=True)
     delta = attention_delta(do, out)
-    dq = attention_bwd_dq(q, k, v, do, lse, delta)
+    dq, dq_name = launched(lambda: attention_bwd_dq(q, k, v, do, lse, delta))
     dq_p = attention_bwd_dq_plain(q, k, v, do, lse, delta)
-    dk, dv = attention_bwd_dkv(q, k, v, do, lse, delta)
+    (dk, dv), dkv_name = launched(
+        lambda: attention_bwd_dkv(q, k, v, do, lse, delta))
     dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
     dname = str(dtype).replace("torch.", "")
@@ -304,16 +328,16 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
     fwd_src = "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu"
     bwd_src = "dpu_operator_tpu_torch/csrc/flash_attention_bwd.cu"
     specs = [
-        ("attention_fwd_lse", fwd_src, ":81",
+        (fwd_name, fwd_src, ":81",
          {"out": (out, out_p), "lse": (lse, lse_p)},
          lambda: attention_fwd_lse(q, k, v),
          lambda: attention_fwd_plain(q, k, v, None, True, return_lse=True),
          4 * tensor + stats, 4.0 * pairs * d, lib_fwd),
-        ("attention_bwd_dq", bwd_src, ":169", {"dq": (dq, dq_p)},
+        (dq_name, bwd_src, ":169", {"dq": (dq, dq_p)},
          lambda: attention_bwd_dq(q, k, v, do, lse, delta),
          lambda: attention_bwd_dq_plain(q, k, v, do, lse, delta),
          5 * tensor + 2 * stats, 6.0 * pairs * d, lib_bwd),
-        ("attention_bwd_dkv", bwd_src, ":210",
+        (dkv_name, bwd_src, ":210",
          {"dk": (dk, dk_p), "dv": (dv, dv_p)},
          lambda: attention_bwd_dkv(q, k, v, do, lse, delta),
          lambda: attention_bwd_dkv_plain(q, k, v, do, lse, delta),
@@ -341,6 +365,25 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
     return cases
 
 
+def _chunk_equals_whole(q, k, v, ck, cv) -> None:
+    """The forward's invariant on the card: the 256-row chunk at offset
+    256, over slot 3's cache row holding the prompt's K / V, equals rows
+    256-511 of the whole 512-row prefill under ``torch.equal``."""
+    import torch
+    from dpu_operator_tpu_torch.ops import attention_fwd
+    p = q.shape[1]
+    whole, kernel = launched(lambda: attention_fwd(q, k, v))
+    ck[3, :p], cv[3, :p] = k[0], v[0]
+    off = torch.full((1,), 256, dtype=torch.int32, device="cuda")
+    part, kernel_c = launched(lambda: attention_fwd(q[:, 256:p], ck[3:4],
+                                                    cv[3:4], off))
+    torch.cuda.synchronize()
+    same = torch.equal(part, whole[:, 256:p])
+    log(f"[kernels] chunk 256@256 ({kernel_c}) equals rows 256-{p - 1} of "
+        f"the whole prefill ({kernel}) bit for bit: {same}")
+    require(same, "the chunk at offset 256 differs from the whole prefill")
+
+
 def phase_kernels(cfg) -> list:
     import torch
     gen = torch.Generator(device="cuda")
@@ -359,27 +402,32 @@ def phase_kernels(cfg) -> list:
     q, k, v = rnd(1, 512, h, dh), rnd(1, 512, h, dh), rnd(1, 512, h, dh)
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     shape = f"{h}x{dh}"
-    cases.append(_attn_case(gen, f"prefill 1x512x{shape}", q, k, v, zero,
-                            "attention_fwd_tiled"))
+    cases.append(_attn_case(gen, f"prefill 1x512x{shape}", q, k, v, zero))
+    # the same prompt in fp32: the tiled CUDA-core kernel (fp32 serving)
+    cases.append(_attn_case(gen, f"prefill 1x512x{shape} float32", q.float(),
+                            k.float(), v.float(), zero))
     # chunk: 256 queries at offset 256 against one slot's row of the cache
     ck, cv = rnd(8, s_max, h, dh), rnd(8, s_max, h, dh)
     qc = rnd(1, 256, h, dh)
     off = torch.full((1,), 256, dtype=torch.int32, device="cuda")
     cases.append(_attn_case(gen, f"chunk 1x256x{shape}@256 vs slot row of "
                             f"8x{s_max}",
-                            qc, ck[3:4], cv[3:4], off,
-                            "attention_fwd_tiled"))
+                            qc, ck[3:4], cv[3:4], off))
     # decode: 8 slots x 1 query against the whole cache, random positions
     qd = rnd(8, 1, h, dh)
     pos = torch.randint(0, s_max, (8,), generator=gen, device="cuda",
                         dtype=torch.int32)
     cases.append(_attn_case(gen, f"decode 8x1 vs 8x{s_max}x{shape}", qd, ck, cv,
-                            pos, "attention_fwd_decode"))
+                            pos))
+    _chunk_equals_whole(q, k, v, ck, cv)
     # training: the flagship's train batch, one of its sequences, and a
-    # ragged length
-    for b, s, dt in ((8, s_max, bf16), (1, s_max, bf16), (1, 1000, bf16),
-                     (1, s_max, f32), (1, 1000, f32)):
-        cases.extend(_train_cases(gen, b, s, h, dh, dt))
+    # ragged length; then head dim 64 (the n64 products) at one and two
+    # warpgroups a block
+    for b, s, hd, dt in ((8, s_max, dh, bf16), (1, s_max, dh, bf16),
+                         (1, 1000, dh, bf16), (1, s_max, dh, f32),
+                         (1, 1000, dh, f32), (1, 1000, 64, bf16),
+                         (2, s_max, 64, bf16)):
+        cases.extend(_train_cases(gen, b, s, h, hd, dt))
     for c in cases:
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
@@ -548,6 +596,9 @@ def phase_serve(cfg, params) -> dict:
     for name in SERVE_KERNELS:
         require(counts[name] > 0,
                 f"kernel {name} never launched on the serving path")
+    for name in SERVE_NOT:
+        require(counts[name] == 0, f"{name} launched {counts[name]} times on "
+                "the bf16 serving path (its work belongs to the tensor cores)")
 
     # two streams against generate and a teacher-forced forward
     for r in (reqs[0], reqs[9]):
@@ -722,6 +773,9 @@ def phase_train(cfg) -> dict:
         require(counts[name] == cfg.n_layers * (steps + 1),
                 f"{name} launched {counts[name]} times, wanted "
                 f"{cfg.n_layers} a step")
+    for name in TRAIN_NOT:
+        require(counts[name] == 0, f"{name} launched {counts[name]} times in "
+                "the bf16 train run (its work belongs to the tensor cores)")
     require(counts["fused_rmsnorm"] == (2 * cfg.n_layers + 1) * (steps + 1),
             f"fused_rmsnorm launched {counts['fused_rmsnorm']} times")
 
@@ -776,7 +830,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     train_counts = phase_train(cfg)["launches"]
-    counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
+    # each kernel's launches on the two main paths, each read from zero
+    counts = {k: counts[k] + train_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"], "launches": counts[c["kernel"]],

@@ -12,6 +12,12 @@ namespace port {
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
 
+// The port's own error codes, past cudaError_t's range (port_error_string
+// names them): a refused TMA tensor map, and a tensor-core kernel whose
+// register count cannot fund its producer / consumer register split.
+constexpr int kErrTensorMap = 10001;
+constexpr int kErrRegisters = 10002;
+
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {

@@ -30,12 +30,17 @@
 //   diagonal, each lane two queries for the scores and D / 32 columns of dk
 //   and dv.
 //
+// * dkv on the tensor cores (bf16 at D 64 / 128; the wrapper's route 2):
+//   attn_bwd_dkv_tc_kernel, below; fp32 and D 32 keep the kernel above.
+//
 // Bound on the card: operations (dq: 6, dkv: 8 multiply-adds x 2 per
-// admitted (row, key) pair and head dimension). This first version computes
-// on the fp32 CUDA cores, not the tensor cores (no wgmma / TMA yet); both
-// kernels need more than 48 KB of shared memory (set per kernel at first
-// launch).
+// admitted (row, key) pair and head dimension). dq and the CUDA-core dkv
+// compute on the fp32 CUDA cores; all kernels need more than 48 KB of shared
+// memory (set per kernel at first launch).
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -292,6 +297,282 @@ attn_bwd_dkv_kernel(BwdArgs a) {
   }
 }
 
+// ----------------------------------------------------- dkv, tensor cores --
+// attn_bwd_dkv_tc_kernel: dK and dV in bf16 at D 64 / 128 on wgmma. One
+// block per (key tile of 64 NWG keys, head, batch): NWG consumer warpgroups
+// of 64 keys each and one producer warp. K and V are loaded once; the
+// producer streams 64-row tiles of Q and dO by TMA, with their lse * log2 e
+// and delta (loaded by the producer's lanes: a (B, H, S) fp32 row of ragged
+// S breaks TMA's 16-byte stride rule), through a ring of kDkvStages,
+// starting at the tile of the block's first key (causal). Per query tile a
+// consumer warpgroup takes
+//   S^T = K Q^T and dP^T = V dO^T by m64n64k16 over D (shared memory);
+//   P^T = exp2(S^T scale2 - lse * log2 e), exactly 0 where masked, and
+//   dS^T = P^T (dP^T - delta) sm_scale, in registers, both rounded to bf16
+//   as the Pallas kernel and the plain version round them. The tensor
+//   cores sum S and dP in another order than an fp32 matrix product on the
+//   CUDA cores, so about 2e-5 of those roundings would fall the other way
+//   (H100 measurement), and one such flip of a P near 0.3 moves a whole dV
+//   row by one bf16 step of P times dO. So where a P or dS is large enough
+//   for that to matter (>= kHeavy) and lies within the possible summation
+//   error of a bf16 rounding midpoint, the kernel recomputes that
+//   element's S and dP with the sequential fp32 dot product (seq_dot) and
+//   rounds from those: its rounding decisions are the plain version's.
+//   A first pass only flags such elements; the recompute runs for the
+//   flagged ones alone (well under one element per warp and tile);
+//   dV += P^T dO and dK += dS^T Q by m64nDk16, the register A operand and
+//   B transposed from shared memory.
+// No atomics: each dK / dV element is summed by one warpgroup, query tile by
+// query tile in order. The accumulators take D fp32 registers a thread
+// (128 at D 128) besides 64 for S^T and dP^T. With two consumer
+// warpgroups the producer is a whole warpgroup (setmaxnreg moves registers
+// between warpgroups: ptxas budgets 65536 / 384 = 168 a thread at entry),
+// which lowers its limit to kProducerRegs so that the consumers can raise
+// theirs to kConsumerRegs; only its first warp works. With one consumer
+// warpgroup the block is 160 threads and needs no split.
+constexpr int kDkvStages = 2;
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+//: P or |dS| from which a flipped bf16 rounding would show in dV / dK (one
+//: bf16 step of 2^-6 is 6e-5; times |dO| or |Q| below 4, under 3e-3 of the
+//: outputs' typical size 0.1)
+constexpr float kHeavy = 1.f / 64;
+//: bound on |S_tensor_cores - S_sequential| (and dP alike), above the
+//: largest fp32 product error measured against fp64 (1.5e-5, 128-wide rows
+//: of N(0, 1), H100): every flagged element costs a sequential dot product,
+//: so the window is kept near the error it must cover
+constexpr float kDotErr = 2e-5f;
+
+// Replace the bf16 half (hi: the upper) of A-fragment register `slot`
+// (flattened [k16 step][register]) with x rounded to bf16: a select per
+// register, so the fragments stay in registers for a runtime slot.
+__device__ __forceinline__ void patch_bf16(uint32_t (&v)[4][4], int slot, int hi,
+                                           float x) {
+  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16(x));
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const uint32_t r = v[t >> 2][t & 3];
+    const uint32_t nr = hi ? ((r & 0xFFFFu) | (b << 16)) : ((r & 0xFFFF0000u) | b);
+    v[t >> 2][t & 3] = t == slot ? nr : r;
+  }
+}
+
+template <int NWG>
+constexpr int dkv_threads() { return NWG * 128 + (NWG == 2 ? 128 : 32); }
+
+template <int D, int NWG>
+struct TcDkvSmem {
+  static constexpr int kNH = D / 64;                      // 64-column blocks a row
+  static constexpr uint32_t kKV = NWG * kNH * tc::kBlk;   // K of the block's keys (V alike)
+  static constexpr uint32_t kStage = 2 * kNH * tc::kBlk;  // Q blocks, then dO
+  static constexpr uint32_t kStats = 2 * 64 * 4;          // lse * log2 e, then delta
+  static constexpr uint32_t kBars = (1 + 2 * kDkvStages) * 8;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t kBytes =
+      2 * kKV + kDkvStages * (kStage + kStats) + kBars + 1024;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(dkv_threads<NWG>(), 1)
+attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, BwdArgs a) {
+  using L = TcDkvSmem<D, NWG>;
+  constexpr int NH = L::kNH;
+  constexpr int BK = 64 * NWG;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* ks = tc::align_1024(tc_smem);
+  uint8_t* vs = ks + L::kKV;
+  uint8_t* stg = vs + L::kKV;
+  float* stats = reinterpret_cast<float*>(stg + kDkvStages * L::kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + kDkvStages * 128);
+  uint64_t* full_kv = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kDkvStages;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
+  const int nkeys = min(BK, a.S - k0);
+  const int nqt = (a.S + kKBQ - 1) / kKBQ;
+  // query tiles before the block's first key contribute nothing
+  const int qt0 = a.causal ? k0 / kKBQ : 0;
+  const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.S;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(full_kv, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      tc::mbar_init(&full[s], 32);  // the producer's lanes (their stats)
+      tc::mbar_init(&empty[s], NWG * 128);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * 128) {
+    // producer: its first warp loads, any other warps only give back
+    // registers
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x >= NWG * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      const int nk = (nkeys + 63) / 64;  // warpgroups that hold keys
+      tc::mbar_expect_tx(full_kv, 2 * nk * NH * tc::kBlk);
+      for (int w = 0; w < nk; ++w)
+        for (int c = 0; c < NH; ++c) {
+          tc::tma_load_4d(ks + (w * NH + c) * tc::kBlk, &tk, full_kv, 64 * c, h,
+                          k0 + 64 * w, b);
+          tc::tma_load_4d(vs + (w * NH + c) * tc::kBlk, &tv, full_kv, 64 * c, h,
+                          k0 + 64 * w, b);
+        }
+    }
+    for (int qt = qt0; qt < nqt; ++qt) {
+      const int i = qt - qt0, s = i % kDkvStages, u = i / kDkvStages;
+      if (u > 0) tc::mbar_wait(&empty[s], (u - 1) & 1);
+      float* st = stats + s * 128;
+      for (int r = lane; r < kKBQ; r += 32) {
+        const int q = qt * kKBQ + r;
+        st[r] = q < a.S ? a.lse[stat0 + q] * kLog2e : 0.f;
+        st[kKBQ + r] = q < a.S ? a.delta[stat0 + q] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* qsd = stg + s * L::kStage;
+        tc::mbar_expect_tx(&full[s], L::kStage);
+        for (int c = 0; c < NH; ++c) {
+          tc::tma_load_4d(qsd + c * tc::kBlk, &tq, &full[s], 64 * c, h, qt * kKBQ, b);
+          tc::tma_load_4d(qsd + (NH + c) * tc::kBlk, &tdo, &full[s], 64 * c, h,
+                          qt * kKBQ, b);
+        }
+      } else {
+        tc::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int w = threadIdx.x >> 7;           // consumer warpgroup
+    const int warp = (threadIdx.x >> 5) & 3;  // warp in the warpgroup
+    const int lane = threadIdx.x & 31;
+    const int kw = k0 + 64 * w;               // the warpgroup's first key
+    const bool has_keys = kw < a.S;
+    const int qt_w = a.causal ? kw / kKBQ : 0;
+    // this thread's keys (rows of S^T) kw + lr and kw + lr + 8, and its
+    // queries 8 j + c0 (+ 1) of the tile (the accumulator map)
+    const int lr = 16 * warp + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    const int key[2] = {kw + lr, kw + lr + 8};
+    const uint8_t* kws = ks + w * NH * tc::kBlk;
+    const uint8_t* vws = vs + w * NH * tc::kBlk;
+    // relative error of P from an error of kDotErr in S (exp2 domain)
+    const float p_rel = 0.6931472f * a.scale2 * kDotErr;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if (has_keys) tc::mbar_wait(full_kv, 0);
+
+    for (int qt = qt0; qt < nqt; ++qt) {
+      const int i = qt - qt0, s = i % kDkvStages;
+      tc::mbar_wait(&full[s], (i / kDkvStages) & 1);
+      if (has_keys && qt >= qt_w) {
+        const uint8_t* qs = stg + s * L::kStage;
+        const uint8_t* dos = qs + NH * tc::kBlk;
+        const float* l2s = stats + s * 128;
+        const float* dls = l2s + kKBQ;
+        float st[32], dp[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) st[e] = dp[e] = 0.f;
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          tc::mma_m64n64k16_ss<0>(st, tc::desc_k(kws, kk), tc::desc_k(qs, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          tc::mma_m64n64k16_ss<0>(dp, tc::desc_k(vws, kk), tc::desc_k(dos, kk), kk > 0);
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(st);
+        tc::fence_regs(dp);
+
+        // P^T and dS^T rounded to bf16 as the A operands of k16 step j / 2;
+        // flag the heavy values that lie near a bf16 rounding midpoint
+        uint32_t pa[4][4], da[4][4];
+        uint32_t flags = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float pr[4], dr[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = 8 * j + c0 + (e & 1);  // query within the tile
+            const int q = qt * kKBQ + qi;
+            const int kr = key[e >> 1];
+            const bool ok = kr < a.S && q < a.S && !(a.causal && kr > q);
+            const float p = ok ? exp2f(st[4 * j + e] * a.scale2 - l2s[qi]) : 0.f;
+            const float ds = p * (dp[4 * j + e] - dls[qi]) * a.sm_scale;
+            pr[e] = p;
+            dr[e] = ds;
+            if ((p >= kHeavy && tc::near_bf16_midpoint(p, p * p_rel)) ||
+                (fabsf(ds) >= kHeavy &&
+                 tc::near_bf16_midpoint(ds, fabsf(ds) * p_rel +
+                                                p * a.sm_scale * kDotErr)))
+              flags |= 1u << (4 * j + e);
+          }
+          pa[j >> 1][2 * (j & 1)] = tc::pack_bf16(pr[0], pr[1]);
+          pa[j >> 1][2 * (j & 1) + 1] = tc::pack_bf16(pr[2], pr[3]);
+          da[j >> 1][2 * (j & 1)] = tc::pack_bf16(dr[0], dr[1]);
+          da[j >> 1][2 * (j & 1) + 1] = tc::pack_bf16(dr[2], dr[3]);
+        }
+        // rare: those take P and dS from the sequential fp32 dot products,
+        // as the plain version does, patched into their fragment slot
+        // (step j / 2, register 2 (j % 2) + e / 2, half e % 2)
+        while (flags != 0) {
+          const int i = __ffs(flags) - 1;
+          flags &= flags - 1;
+          const int j = i >> 2, e = i & 3;
+          const int qi = 8 * j + c0 + (e & 1);
+          const int rk = lr + 8 * (e >> 1);
+          const float p = exp2f(tc::seq_dot<D>(kws, rk, qs, qi) * a.scale2 - l2s[qi]);
+          const float ds = p * (tc::seq_dot<D>(vws, rk, dos, qi) - dls[qi]) * a.sm_scale;
+          const int slot = 4 * (j >> 1) + 2 * (j & 1) + (e >> 1);
+          patch_bf16(pa, slot, e & 1, p);
+          patch_bf16(da, slot, e & 1, ds);
+        }
+        tc::wg_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t) tc::mma_rs<D, 1>(dv, pa[t], tc::desc_t(dos, t), 1);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) tc::mma_rs<D, 1>(dk, da[t], tc::desc_t(qs, t), 1);
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(dv);
+        tc::fence_regs(dk);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          tc::fence_regs(pa[t]);
+          tc::fence_regs(da[t]);
+        }
+      }
+      tc::mbar_arrive(&empty[s]);  // this thread is done with stage s
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!has_keys || key[r] >= a.S) continue;
+      const long long off = b * a.g_sb + h * a.g_sh +
+                            static_cast<long long>(key[r]) * a.g_ss + c0;
+      __nv_bfloat16* gk = static_cast<__nv_bfloat16*>(a.dk) + off;
+      __nv_bfloat16* gv = static_cast<__nv_bfloat16*>(a.dv) + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(gk + 8 * j) =
+            __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(gv + 8 * j) =
+            __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 // Dynamic shared memory above 48 KB has to be allowed once per kernel.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, bool& configured) {
@@ -315,13 +596,57 @@ cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = DkvSmem<D>::kBytes;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
+    return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
+  } else {
+    constexpr size_t smem = DkvSmem<D>::kBytes;
+    static bool configured = false;
+    const cudaError_t e = allow_smem(attn_bwd_dkv_kernel<T, D>, smem, configured);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.S + kKBK - 1) / kKBK, a.H, a.B);
+    attn_bwd_dkv_kernel<T, D><<<grid, kKWarps * 32, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+}
+
+template <int D, int NWG>
+cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
+  using L = TcDkvSmem<D, NWG>;
   static bool configured = false;
-  const cudaError_t e = allow_smem(attn_bwd_dkv_kernel<T, D>, smem, configured);
+  cudaError_t e = allow_smem(attn_bwd_dkv_tc_kernel<D, NWG>, L::kBytes, configured);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + kKBK - 1) / kKBK, a.H, a.B);
-  attn_bwd_dkv_kernel<T, D><<<grid, kKWarps * 32, smem, stream>>>(a);
+  if constexpr (NWG == 2) {
+    // setmaxnreg moves registers within the block's launch allocation: the
+    // consumers' raise must fit what the producer gives back, or it waits
+    // for ever. Refuse to launch instead.
+    static int regs = -1;
+    if (regs < 0) {
+      cudaFuncAttributes fa;
+      e = cudaFuncGetAttributes(&fa, attn_bwd_dkv_tc_kernel<D, NWG>);
+      if (e != cudaSuccess) return e;
+      regs = fa.numRegs;
+    }
+    if (regs * dkv_threads<NWG>() < NWG * 128 * kConsumerRegs + 128 * kProducerRegs)
+      return static_cast<cudaError_t>(port::kErrRegisters);
+  }
+  CUtensorMap tq, tk, tv, tdo;
+  if (!tc::encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh) ||
+      !tc::encode_bshd(&tk, a.k, a.B, a.S, a.H, D, a.k_sb, a.k_ss, a.k_sh) ||
+      !tc::encode_bshd(&tv, a.v, a.B, a.S, a.H, D, a.v_sb, a.v_ss, a.v_sh) ||
+      !tc::encode_bshd(&tdo, a.dout, a.B, a.S, a.H, D, a.d_sb, a.d_ss, a.d_sh))
+    return static_cast<cudaError_t>(port::kErrTensorMap);
+  const dim3 grid((a.S + 64 * NWG - 1) / (64 * NWG), a.H, a.B);
+  attn_bwd_dkv_tc_kernel<D, NWG><<<grid, dkv_threads<NWG>(), L::kBytes, stream>>>(
+      tq, tk, tv, tdo, a);
   return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_tc_d(const BwdArgs& a, int d, int tile_rows, cudaStream_t s) {
+  if (tile_rows == 128 && d == 64) return launch_dkv_tc<64, 2>(a, s);
+  if (tile_rows == 128 && d == 128) return launch_dkv_tc<128, 2>(a, s);
+  if (tile_rows == 64 && d == 64) return launch_dkv_tc<64, 1>(a, s);
+  if (tile_rows == 64 && d == 128) return launch_dkv_tc<128, 1>(a, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -334,10 +659,18 @@ cudaError_t launch_t(const BwdArgs& a, int d, bool dkv, cudaStream_t s) {
   }
 }
 
-int run(const BwdArgs& a, int d, int dtype, bool dkv, void* stream) {
+constexpr int kRouteSimt = 0, kRouteTc = 2;
+
+int run(const BwdArgs& a, int d, int dtype, bool dkv, int route, int tile_rows,
+        void* stream) {
   if (a.B <= 0 || a.S <= 0 || a.H <= 0 || a.B > 65535 || a.H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteTc) {
+    if (!dkv || dtype != port::kDtypeBF16) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_dkv_tc_d(a, d, tile_rows, s));
+  }
+  if (route != kRouteSimt) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::kDtypeF32) return static_cast<int>(launch_t<float>(a, d, dkv, s));
   if (dtype == port::kDtypeBF16)
     return static_cast<int>(launch_t<__nv_bfloat16>(a, d, dkv, s));
@@ -353,6 +686,8 @@ extern "C" {
 // contiguous; dq (and dk, dv) written with strides g_*. D in {32, 64, 128};
 // every pointer 16-byte aligned and every stride a multiple of 16 bytes (the
 // wrapper checks). dtype: 0 fp32, 1 bf16. Each returns cudaGetLastError().
+// attention_bwd_dkv's route: 0 the CUDA-core kernel, 2 the tensor cores
+// (bf16, D 64 or 128) with tile_rows 64 or 128 keys a block.
 int attention_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int S, int H, int D,
@@ -367,7 +702,7 @@ int attention_bwd_dq(const void* q, const void* k, const void* v,
             static_cast<const float*>(delta), dq, nullptr, nullptr, B, S, H,
             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
             d_sb, d_ss, d_sh, g_sb, g_ss, g_sh, causal, scale2, sm_scale};
-  return run(a, D, dtype, false, stream);
+  return run(a, D, dtype, false, kRouteSimt, 0, stream);
 }
 
 int attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -379,12 +714,12 @@ int attention_bwd_dkv(const void* q, const void* k, const void* v,
                       long long d_sb, long long d_ss, long long d_sh,
                       long long g_sb, long long g_ss, long long g_sh,
                       int causal, float scale2, float sm_scale, int dtype,
-                      void* stream) {
+                      int route, int tile_rows, void* stream) {
   BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
             static_cast<const float*>(delta), nullptr, dk, dv, B, S, H,
             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
             d_sb, d_ss, d_sh, g_sb, g_ss, g_sh, causal, scale2, sm_scale};
-  return run(a, D, dtype, true, stream);
+  return run(a, D, dtype, true, route, tile_rows, stream);
 }
 
 }  // extern "C"

@@ -20,8 +20,10 @@
 // k / v are read through their strides, so one slot's row of the
 // (slots, max_seq, H, D) cache is attended with no transpose copy.
 //
-// Two launch shapes:
-// * tiled (Sq > 1, and every launch that writes the lse): one block per
+// Three kernels; the wrapper picks one by a route code:
+// * tensor cores (route 2: bf16 at D 64 or 128, Sq > 1 or with the lse):
+//   attn_fwd_tc_kernel, below.
+// * tiled on the CUDA cores (route 0: fp32, and bf16 at D 32): one block per
 //   (query tile of 32 rows, head, batch).
 //   K/V tiles of 64 keys are staged in shared memory as fp32; each warp owns
 //   8 query rows and each lane two keys of a tile. Key blocks past the
@@ -29,14 +31,18 @@
 //   anchored at absolute key 0 and a row's arithmetic does not depend on the
 //   other rows of its tile (a block that is fully masked for a row adds exact
 //   zeros), so chunked prefill reproduces whole-prompt prefill row for row.
-// * decode (Sq == 1): one block per (row, head, batch); the 8 warps take
+// * decode (route 1: Sq == 1 without the lse): one block per (row, head,
+//   batch); the 8 warps take
 //   32-key tiles in turn, each lane one key, and combine their partial
 //   (max, sum, acc) in shared memory at the end. No query rows are wasted.
 //
 // Bound on the card: at decode, bytes (each admitted K/V row read once); at
-// prefill, operations (4 * admitted pairs * D). This first version computes
-// on the fp32 CUDA cores, not the tensor cores (no wgmma / TMA yet).
+// prefill, operations (4 * admitted pairs * D). The tiled and decode kernels
+// compute on the fp32 CUDA cores; bf16 at D 64 / 128 takes the tensor cores.
+#include <type_traits>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -267,40 +273,300 @@ attn_decode_kernel(AttnArgs a) {
   }
 }
 
+// -------------------------------------------------------- tensor cores --
+// attn_fwd_tc_kernel: the bf16 forward at D 64 / 128 on wgmma. One block per
+// (query tile of 64 NWG rows, head, batch): NWG consumer warpgroups of 64
+// rows each and one producer warp. The producer loads the Q tile once and
+// streams 64-key K / V tiles through a ring of kTcStages by TMA (bf16 in
+// the 128-byte swizzle that wgmma reads; rows past S read as zeros). Per
+// key tile a consumer warpgroup takes
+//   S = Q K^T by m64n64k16 over D, both operands in shared memory;
+//   in registers: S scaled into the exp2 domain, the mask on the tiles that
+//   cross the diagonal or the ragged edge only (the n_full / nkb split of
+//   the tiled kernel, per warpgroup), the online max and sum over the four
+//   lanes of a quad (they share a row), P rounded to bf16;
+//   O += P V by m64nDk16, P as the register A operand, V transposed from
+//   shared memory.
+// Key tiles stay anchored at key 0, and a row's arithmetic involves no other
+// row (the tensor cores keep rows apart; every reduction stays in its quad),
+// so a row's result does not depend on which tile holds it: chunked prefill
+// equals whole prefill bit for bit.
+//
+// Bound: operations (4 * admitted pairs * D on the bf16 tensor cores) at
+// prefill and training shapes. Shared memory: the Q tile and two K / V
+// stages in bf16, 96 KB at D 128 with two warpgroups.
+constexpr int kTcStages = 2;
+
+template <int D, int NWG>
+struct TcFwdSmem {
+  static constexpr int kNH = D / 64;                      // 64-column blocks a row
+  static constexpr uint32_t kQ = NWG * kNH * tc::kBlk;    // the Q tile
+  static constexpr uint32_t kStage = 2 * kNH * tc::kBlk;  // K blocks, then V
+  static constexpr uint32_t kBars = (1 + 2 * kTcStages) * 8;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t kBytes = kQ + kTcStages * kStage + kBars + 1024;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, AttnArgs a) {
+  using L = TcFwdSmem<D, NWG>;
+  constexpr int NH = L::kNH;
+  constexpr int BM = 64 * NWG;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* qs = tc::align_1024(tc_smem);
+  uint8_t* kvs = qs + L::kQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kvs + kTcStages * L::kStage);
+  uint64_t* full_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kTcStages;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * BM;
+  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
+  const int nrows = min(BM, a.Sq - r0);
+  const int nkb_all = (a.Skv + kBK - 1) / kBK;
+  // key tiles the block's last row needs; a warpgroup may need fewer
+  const int nkb = a.causal ? min(nkb_all, (pos0 + r0 + nrows - 1) / kBK + 1) : nkb_all;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(full_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], NWG * 128);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * 128) {
+    // producer warp: one lane issues every copy
+    if (threadIdx.x == NWG * 128) {
+      const int nq = (nrows + 63) / 64;  // warpgroups that hold rows
+      tc::mbar_expect_tx(full_q, nq * NH * tc::kBlk);
+      for (int w = 0; w < nq; ++w)
+        for (int c = 0; c < NH; ++c)
+          tc::tma_load_4d(qs + (w * NH + c) * tc::kBlk, &tq, full_q, 64 * c, h,
+                          r0 + 64 * w, b);
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % kTcStages, u = kb / kTcStages;
+        if (u > 0) tc::mbar_wait(&empty[s], (u - 1) & 1);
+        uint8_t* ks = kvs + s * L::kStage;
+        tc::mbar_expect_tx(&full[s], L::kStage);
+        for (int c = 0; c < NH; ++c) {
+          tc::tma_load_4d(ks + c * tc::kBlk, &tk, &full[s], 64 * c, h, kb * kBK, b);
+          tc::tma_load_4d(ks + (NH + c) * tc::kBlk, &tv, &full[s], 64 * c, h,
+                          kb * kBK, b);
+        }
+      }
+    }
+  } else {
+    const int w = threadIdx.x >> 7;           // consumer warpgroup
+    const int warp = (threadIdx.x >> 5) & 3;  // warp in the warpgroup
+    const int lane = threadIdx.x & 31;
+    const int rw = r0 + 64 * w;               // the warpgroup's first row
+    const int wrows = min(64, a.Sq - rw);     // <= 0: no rows
+    int nkb_w = 0, n_full = 0;
+    if (wrows > 0) {
+      const int p_lo = pos0 + rw, p_hi = pos0 + rw + wrows - 1;
+      nkb_w = a.causal ? min(nkb_all, p_hi / kBK + 1) : nkb_all;
+      // tiles wholly at or below the warpgroup's first row need no mask
+      n_full = a.Skv / kBK;
+      if (a.causal) n_full = min(n_full, (p_lo + 1) / kBK);
+      n_full = min(n_full, nkb_w);
+    }
+    // this thread's rows lr and lr + 8 of the warpgroup's tile, and its
+    // columns 8 j + c0 (+ 1) of every 8-column group (the accumulator map)
+    const int lr = 16 * warp + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    const int prow[2] = {pos0 + rw + lr, pos0 + rw + lr + 8};
+    const uint8_t* qw = qs + w * NH * tc::kBlk;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    if (nkb_w > 0) tc::mbar_wait(full_q, 0);
+
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = kb % kTcStages;
+      tc::mbar_wait(&full[s], (kb / kTcStages) & 1);
+      if (kb < nkb_w) {
+        const uint8_t* ks = kvs + s * L::kStage;
+        const uint8_t* vs = ks + NH * tc::kBlk;
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          tc::mma_m64n64k16_ss<0>(sc, tc::desc_k(qw, kk), tc::desc_k(ks, kk), kk > 0);
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(sc);
+
+        const int j0 = kb * kBK;
+        const bool masked = kb >= n_full;  // only diagonal / ragged tiles
+        float bm[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = j0 + 8 * j + c0 + (i & 1);
+            float x = sc[4 * j + i] * a.scale2;
+            if (masked && (col >= a.Skv || (a.causal && col > prow[i >> 1]))) x = kNegInf;
+            sc[4 * j + i] = x;
+            bm[i >> 1] = fmaxf(bm[i >> 1], x);
+          }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 1));
+          bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 2));
+          const float mn = fmaxf(m[r], bm[r]);
+          corr[r] = exp2f(m[r] - mn);
+          m[r] = mn;
+        }
+        // P in fp32 for the row sums; rounded to bf16 as the A operand of
+        // k16 step j / 2 (row lr in a[0] / a[2], row lr + 8 in a[1] / a[3])
+        float ps[2] = {0.f, 0.f};
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            p[i] = exp2f(sc[4 * j + i] - m[i >> 1]);
+            ps[i >> 1] += p[i];
+          }
+          pa[j >> 1][2 * (j & 1)] = tc::pack_bf16(p[0], p[1]);
+          pa[j >> 1][2 * (j & 1) + 1] = tc::pack_bf16(p[2], p[3]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+          ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+          l[r] = l[r] * corr[r] + ps[r];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= corr[0];
+          o[4 * j + 1] *= corr[0];
+          o[4 * j + 2] *= corr[1];
+          o[4 * j + 3] *= corr[1];
+        }
+        tc::wg_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t) tc::mma_rs<D, 1>(o, pa[t], tc::desc_t(vs, t), 1);
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(o);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) tc::fence_regs(pa[t]);
+      }
+      tc::mbar_arrive(&empty[s]);  // this thread is done with stage s
+    }
+
+    if (wrows > 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = lr + 8 * r;
+        if (row >= wrows) continue;
+        const float denom = fmaxf(l[r], 1e-20f);
+        __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh +
+                              static_cast<long long>(rw + row) * a.o_ss + c0;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+              o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+        // m and l are equal on the four lanes of the quad; one writes
+        if (a.lse != nullptr && (lane & 3) == 0)
+          a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + rw + row] =
+              (m[r] + log2f(denom)) / kLog2e;
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------- launching --
+constexpr int kRouteSimt = 0, kRouteDecode = 1, kRouteTc = 2;
+
 template <typename T, int D>
-cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
-  if (a.Sq == 1 && a.lse == nullptr) {
+cudaError_t launch(const AttnArgs& a, bool decode, cudaStream_t stream) {
+  if (decode) {
     attn_decode_kernel<T, D><<<dim3(a.Sq, a.H, a.B), kDecWarps * 32, 0, stream>>>(a);
     return cudaGetLastError();
   }
-  constexpr size_t smem = TiledSmem<D>::kBytes;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_tiled_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
+    return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
+  } else {
+    constexpr size_t smem = TiledSmem<D>::kBytes;
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          attn_tiled_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+    attn_tiled_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(a);
+    return cudaGetLastError();
   }
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  attn_tiled_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const AttnArgs& a, int d, cudaStream_t stream) {
+cudaError_t launch_d(const AttnArgs& a, int d, bool decode, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 32: return launch<T, 32>(a, decode, stream);
+    case 64: return launch<T, 64>(a, decode, stream);
+    case 128: return launch<T, 128>(a, decode, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch(const AttnArgs& a, int d, int dtype, void* stream) {
+template <int D, int NWG>
+cudaError_t launch_tc(const AttnArgs& a, cudaStream_t stream) {
+  using L = TcFwdSmem<D, NWG>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_tc_kernel<D, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!tc::encode_bshd(&tq, a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh) ||
+      !tc::encode_bshd(&tk, a.k, a.B, a.Skv, a.H, D, a.k_sb, a.k_ss, a.k_sh) ||
+      !tc::encode_bshd(&tv, a.v, a.B, a.Skv, a.H, D, a.v_sb, a.v_ss, a.v_sh))
+    return static_cast<cudaError_t>(port::kErrTensorMap);
+  const dim3 grid((a.Sq + 64 * NWG - 1) / (64 * NWG), a.H, a.B);
+  attn_fwd_tc_kernel<D, NWG><<<grid, NWG * 128 + 32, L::kBytes, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tc_d(const AttnArgs& a, int d, int tile_rows, cudaStream_t s) {
+  if (tile_rows == 128 && d == 64) return launch_tc<64, 2>(a, s);
+  if (tile_rows == 128 && d == 128) return launch_tc<128, 2>(a, s);
+  if (tile_rows == 64 && d == 64) return launch_tc<64, 1>(a, s);
+  if (tile_rows == 64 && d == 128) return launch_tc<128, 1>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(const AttnArgs& a, int d, int dtype, int route, int tile_rows,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == port::kDtypeF32) return launch_d<float>(a, d, s);
-  if (dtype == port::kDtypeBF16) return launch_d<__nv_bfloat16>(a, d, s);
+  if (route == kRouteTc)
+    return dtype == port::kDtypeBF16 ? launch_tc_d(a, d, tile_rows, s)
+                                     : cudaErrorInvalidValue;
+  if (route == kRouteDecode && (a.Sq != 1 || a.lse != nullptr)) return cudaErrorInvalidValue;
+  if (route != kRouteSimt && route != kRouteDecode) return cudaErrorInvalidValue;
+  const bool decode = route == kRouteDecode;
+  if (dtype == port::kDtypeF32) return launch_d<float>(a, d, decode, s);
+  if (dtype == port::kDtypeBF16) return launch_d<__nv_bfloat16>(a, d, decode, s);
   return cudaErrorInvalidValue;
 }
 
@@ -312,38 +578,45 @@ extern "C" {
 // for the batch, sequence and head dimensions; the last dimension is
 // contiguous. q_pos0: (B,) int32 on the device. D in {32, 64, 128}; every
 // pointer 16-byte aligned and every stride a multiple of 16 bytes (the
-// wrapper checks). dtype: 0 fp32, 1 bf16. Returns cudaGetLastError().
+// wrapper checks). dtype: 0 fp32, 1 bf16. route: 0 the tiled CUDA-core
+// kernel, 1 the decode kernel (Sq == 1), 2 the tensor cores (bf16, D 64 or
+// 128) with tile_rows 64 or 128 query rows a block. Returns
+// cudaGetLastError(), or an error without launching when the route does not
+// take the arguments.
 int attention_fwd(const void* q, const void* k, const void* v, void* o,
                   const void* q_pos0, int B, int Sq, int Skv, int H, int D,
                   long long q_sb, long long q_ss, long long q_sh,
                   long long k_sb, long long k_ss, long long k_sh,
                   long long v_sb, long long v_ss, long long v_sh,
                   long long o_sb, long long o_ss, long long o_sh,
-                  int causal, float scale2, int dtype, void* stream) {
+                  int causal, float scale2, int dtype, int route, int tile_rows,
+                  void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a{q, k, v, o, static_cast<const int*>(q_pos0), nullptr, B, Sq, Skv, H,
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
              o_sb, o_ss, o_sh, causal, scale2};
-  return static_cast<int>(dispatch(a, D, dtype, stream));
+  return static_cast<int>(dispatch(a, D, dtype, route, tile_rows, stream));
 }
 
 // The training forward: self-attention (Sq == Skv == S, offset 0) that also
-// writes lse (B, H, S) fp32, contiguous, in natural log. Always the tiled
-// launch shape, S == 1 included. Strides and checks as attention_fwd.
+// writes lse (B, H, S) fp32, contiguous, in natural log. Route 0 (tiled) or
+// 2 (tensor cores), S == 1 included. Strides and checks as attention_fwd.
 int attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int S, int H, int D,
                       long long q_sb, long long q_ss, long long q_sh,
                       long long k_sb, long long k_ss, long long k_sh,
                       long long v_sb, long long v_ss, long long v_sh,
                       long long o_sb, long long o_ss, long long o_sh,
-                      int causal, float scale2, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || lse == nullptr)
+                      int causal, float scale2, int dtype, int route,
+                      int tile_rows, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || lse == nullptr ||
+      route == kRouteDecode)
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a{q, k, v, o, nullptr, static_cast<float*>(lse), B, S, S, H,
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
              o_sb, o_ss, o_sh, causal, scale2};
-  return static_cast<int>(dispatch(a, D, dtype, stream));
+  return static_cast<int>(dispatch(a, D, dtype, route, tile_rows, stream));
 }
 
 }  // extern "C"

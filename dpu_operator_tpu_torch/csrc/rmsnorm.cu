@@ -99,6 +99,10 @@ int rmsnorm_fwd(const void* x, const void* scale, void* out, int rows, int d,
 }
 
 const char* port_error_string(int code) {
+  if (code == port::kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a (B, S, H, D) view";
+  if (code == port::kErrRegisters)
+    return "kernel compiled with too few registers for its setmaxnreg split";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

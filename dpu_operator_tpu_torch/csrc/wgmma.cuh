@@ -1,0 +1,329 @@
+// Tensor-core building blocks for Hopper (sm_90a) shared by the port's
+// wgmma kernels (flash_attention_fwd.cu, flash_attention_bwd.cu): shared
+// memory matrix descriptors for the 128-byte-swizzled bf16 layout, the
+// wgmma fence / commit / wait, m64n64k16 and m64n128k16 bf16 -> fp32
+// products (A from shared memory or registers, B K-major or transposed),
+// mbarriers, and TMA tile loads of strided (B, S, H, D) views.
+//
+// Tile layout in shared memory. A tile of R rows x 64 bf16 (128 bytes a
+// row) is one "block": row r at byte 128 r, its eight 16-byte chunks
+// permuted by chunk ^ (r % 8) (the 128-byte swizzle that TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B). A row of D = 128 is two blocks, columns
+// 0-63 and 64-127, each starting on a 1024-byte boundary.
+//
+// wgmma accumulator map (m64nN, fp32, N / 2 registers a thread): thread t
+// of the warpgroup, warp w = t / 32 (0-3), lane l = t % 32, register
+// d[4 j + i] (j = 0 .. N / 8 - 1, i = 0 .. 3) holds
+//     row = 16 w + l / 4 + 8 * (i / 2),  col = 8 j + 2 (l % 4) + (i % 2).
+// The four lanes of a quad (l / 4 equal) share a row. The A operand from
+// registers (m64k16 bf16, four 32-bit registers a thread) has the same map:
+// a[i] packs (row 16 w + l / 4 + 8 (i % 2), cols 8 (i / 2) + 2 (l % 4)
+// + {0, 1}), so the accumulator of an m64n64 product, rounded to bf16 and
+// packed as a[i] = (d[8 t + 2 i], d[8 t + 2 i + 1]), is the A operand of the
+// k16 step t of the next product (P after S in attention).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tc {
+
+//: bytes of one 64-row x 64-column bf16 block
+constexpr uint32_t kBlk = 64 * 128;
+//: a wait on an mbarrier that lasts longer than this many cycles (several
+//: seconds) traps, so a protocol fault ends the kernel with an error rather
+//: than hanging the card
+constexpr long long kWaitCycles = 1LL << 33;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Dynamic shared memory rounded up to the swizzle's 1024-byte period (the
+// layout wgmma's descriptors assume; the kernels allocate 1 KB of slack).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ------------------------------------------------------------ mbarrier --
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive once and expect `bytes` more of TMA traffic in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of parity `parity` has completed (the n-th use of a
+// barrier waits with parity n & 1).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+// ----------------------------------------------------------------- TMA --
+// One box of a 4-D tensor map (dims D, H, S, B, innermost first) into
+// shared memory; completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- wgmma --
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major operands (K
+// contiguous: Q, K, V as the A / B of S = Q K^T): lbo unused (16), sbo =
+// 1024, the start advanced 32 bytes per k16 step inside a block and by a
+// block per 64 columns. Transposed B (N contiguous: V, Q, dO as the B of a
+// product over rows): lbo = bytes from one 64-column block to the next,
+// sbo = 1024, the start advanced 16 rows (2048 bytes) per k16 step.
+__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = smem_u32(smem);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16)
+         | (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32)
+         | (1ull << 62);
+}
+
+// K-major block operand at k16 step kk of a row of D columns (blocks of 64
+// columns kBlk bytes apart).
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* base, int kk) {
+  return desc_sw128(base + (kk >> 2) * kBlk + (kk & 3) * 32, 16, 1024);
+}
+
+// Transposed B at k16 step kk (rows 16 kk .. 16 kk + 15 of the tile; its
+// 64-column blocks kBlk bytes apart).
+__device__ __forceinline__ uint64_t desc_t(const uint8_t* base, int kk) {
+  return desc_sw128(base + kk * 2048, kBlk, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wait (accumulators and register A).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (+)= A B for one k16 step. `_ss`: A from shared memory (descriptor
+// da); `_rs`: A from registers. TB = 1: B transposed (N contiguous).
+// scale_d = 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void mma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void mma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void mma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void mma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (+)= A B with N = D (64 or 128) for the register-A products.
+template <int N, int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                       uint64_t db, int scale_d) {
+  if constexpr (N == 64) mma_m64n64k16_rs<TB>(d, a, db, scale_d);
+  else mma_m64n128k16_rs<TB>(d, a, db, scale_d);
+}
+
+// Row ra of tile a dotted with row rb of tile b (swizzled tiles of
+// 64-column blocks kBlk bytes apart) over D columns in fp32, one fmaf at a
+// time in column order: the order, and so the rounding, of a plain fp32
+// matrix product on the CUDA cores. Reads 16-byte chunks (8 columns; the
+// swizzle permutes whole chunks).
+template <int D>
+__device__ __forceinline__ float seq_dot(const uint8_t* a, int ra, const uint8_t* b,
+                                      int rb) {
+  float acc = 0.f;
+#pragma unroll 2
+  for (int g = 0; g < D / 8; ++g) {
+    const uint32_t blk = (g >> 3) * kBlk;
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        a + blk + ra * 128 + (((g & 7) ^ (ra & 7)) << 4));
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        b + blk + rb * 128 + (((g & 7) ^ (rb & 7)) << 4));
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+      acc = fmaf(u.x, v.x, acc);
+      acc = fmaf(u.y, v.y, acc);
+    }
+  }
+  return acc;
+}
+
+// True when x lies within tol of a bf16 rounding midpoint, i.e. when an
+// error of tol in x could round it to the other neighbour. The low 16 bits
+// of an fp32 value are what bf16 rounding drops (0x8000: the midpoint);
+// |x| * 2^-24 is at most one fp32 step of x, so the distance is never
+// overestimated.
+__device__ __forceinline__ bool near_bf16_midpoint(float x, float tol) {
+  const int off = static_cast<int>(__float_as_uint(x) & 0xFFFFu) - 0x8000;
+  return fabsf(static_cast<float>(off)) * fabsf(x) * 5.9604645e-8f <= tol;
+}
+
+// ------------------------------------------------------ host: tensor maps --
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime (no -lcuda).
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 (B, S, H, D) view with element strides (sb, ss, sh), last dim
+// contiguous, as a 4-D map over (D, H, S, B) whose box is one 64-row x
+// 64-column block of one (batch, head): rows past S (and a box wholly past
+// it) read as zeros. The strides are the view's own: q, k, v of one
+// projection, or one slot's row of the KV cache, need no copy. Every stride
+// and the base must be 16-byte aligned (the wrapper checks).
+inline bool encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                        int H, int D, long long sb, long long ss,
+                        long long sh) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc

@@ -17,25 +17,27 @@ __all__ = ["FlashAttentionFn", "RmsNormFn", "attention_bwd_dkv",
            "flash_attention_vjp", "fused_rmsnorm", "fused_rmsnorm_plain",
            "launch_counts", "reset_launch_counts"]
 
-#: the wrappers whose launches :func:`launch_counts` reports besides the
-#: two shapes of ``attention_fwd``
-_COUNTED = (attention_fwd_lse, attention_bwd_dq, attention_bwd_dkv)
-
-
 def launch_counts() -> dict:
-    """Kernel launches so far, by kernel (decode-shaped attention counted
-    apart from the tiled shape)."""
-    counts = {"fused_rmsnorm": fused_rmsnorm.launches,
-              "attention_fwd_tiled": (attention_fwd.launches
-                                      - attention_fwd.decode_launches),
-              "attention_fwd_decode": attention_fwd.decode_launches}
-    counts.update((fn.__name__, fn.launches) for fn in _COUNTED)
-    return counts
+    """Kernel launches so far, by kernel: each wrapper's launches split by
+    the route they took (``_tc``: the tensor-core kernel; the other name of
+    a wrapper: its CUDA-core kernel; decode-shaped attention apart)."""
+    fwd, lse, dkv = attention_fwd, attention_fwd_lse, attention_bwd_dkv
+    return {
+        "fused_rmsnorm": fused_rmsnorm.launches,
+        "attention_fwd_tiled": (fwd.launches - fwd.decode_launches
+                                - fwd.tc_launches),
+        "attention_fwd_decode": fwd.decode_launches,
+        "attention_fwd_tc": fwd.tc_launches,
+        "attention_fwd_lse": lse.launches - lse.tc_launches,
+        "attention_fwd_lse_tc": lse.tc_launches,
+        "attention_bwd_dq": attention_bwd_dq.launches,
+        "attention_bwd_dkv": dkv.launches - dkv.tc_launches,
+        "attention_bwd_dkv_tc": dkv.tc_launches,
+    }
 
 
 def reset_launch_counts() -> None:
-    fused_rmsnorm.launches = 0
-    attention_fwd.launches = 0
+    fused_rmsnorm.launches = attention_bwd_dq.launches = 0
     attention_fwd.decode_launches = 0
-    for fn in _COUNTED:
-        fn.launches = 0
+    for fn in (attention_fwd, attention_fwd_lse, attention_bwd_dkv):
+        fn.launches = fn.tc_launches = 0

@@ -21,6 +21,13 @@ softmax with fp32 max / sum / accumulator over key blocks of 64 anchored
 at key 0, P rounded to the input type before the PV product, and
 ``out = acc / max(l, 1e-20)``.
 
+Kernels by route (:func:`_attn_route`, :func:`_dkv_route`): bf16 at head
+dim 64 or 128 takes the tensor-core (``wgmma``) forward and dK/dV kernels,
+in query or key tiles of :func:`_tile_rows`; fp32 and head dim 32 take the
+CUDA-core kernels (``wgmma`` has no fp32 operand, and TF32 would not hold
+fp32's limits); one query row without the lse takes the decode kernel. A
+launch that fails raises: no route falls back to another.
+
 Training: :func:`flash_attention_vjp` (a :class:`FlashAttentionFn`) saves
 the per-row logsumexp of :func:`attention_fwd_lse`; its backward computes
 ``delta = rowsum(dO * O)`` with a torch op (as the JAX package does, outside
@@ -46,6 +53,39 @@ BLOCK_K = 64
 BLOCK_Q = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+#: head dims the tensor-core kernels take (bf16 only)
+_TC_HEAD_DIMS = (64, 128)
+#: route codes of the C entry points
+_ROUTE_CODES = {"simt": 0, "decode": 1, "tc": 2}
+
+
+def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
+    """The forward kernel a CUDA launch takes: ``"decode"`` for one query
+    row without the lse, ``"tc"`` (tensor cores) for bf16 at head dim 64 or
+    128, ``"simt"`` (the tiled CUDA-core kernel) otherwise."""
+    if sq == 1 and not with_lse:
+        return "decode"
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def _dkv_route(dtype: torch.dtype, d: int) -> str:
+    """The dK/dV kernel a CUDA launch takes: ``"tc"`` for bf16 at head
+    dim 64 or 128, ``"simt"`` otherwise."""
+    return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS else "simt"
+
+
+def _tile_rows(b: int, n: int, h: int, sms: int) -> int:
+    """Query rows (forward) or keys (dK/dV) per block of a tensor-core
+    kernel: 128 (two consumer warpgroups) unless that grid of
+    ``ceil(n / 128) * h * b`` blocks has fewer blocks than the card has
+    SMs, then 64 (one warpgroup, twice the blocks)."""
+    return 128 if -(-n // 128) * h * b >= sms else 64
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _positions(q: torch.Tensor, q_pos0: Optional[torch.Tensor]
@@ -138,8 +178,9 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch b at absolute position ``q_pos0[b] + i`` (default 0).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (one query row: the decode launch shape; more: the tiled one)
-    or raises. Returns a new contiguous (B, Sq, H, D) tensor."""
+    kernel of :func:`_attn_route` (one query row: the decode kernel; more:
+    the tensor cores in bf16 at head dim 64 / 128, else the tiled CUDA-core
+    kernel) or raises. Returns a new contiguous (B, Sq, H, D) tensor."""
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2:] != (h, d) or v.shape != k.shape:
         raise ValueError(f"attention_fwd: shapes q {tuple(q.shape)} "
@@ -154,6 +195,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    route = _attn_route(q.dtype, d, sq, with_lse=False)
     lib = _build.library()
     rc = lib.attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -163,17 +205,22 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
         int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
+        _ROUTE_CODES[route], _tile_rows(b, sq, h, _sms(q.device)),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd.launches += 1
-    if sq == 1:
+    if route == "decode":
         attention_fwd.decode_launches += 1
+    elif route == "tc":
+        attention_fwd.tc_launches += 1
     _build.check(rc, "attention_fwd")
     return out
 
 
-#: launches of either shape, and of the decode shape (Sq == 1) alone
+#: launches of every route, of the decode kernel (Sq == 1) and of the
+#: tensor-core kernel alone
 attention_fwd.launches = 0  # type: ignore[attr-defined]
 attention_fwd.decode_launches = 0  # type: ignore[attr-defined]
+attention_fwd.tc_launches = 0  # type: ignore[attr-defined]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -210,8 +257,9 @@ def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Self-attention of q, k, v (B, S, H, D) at offset 0 and the per-row
     logsumexp: ``(out (B, S, H, D), lse (B, H, S) fp32)``, lse in natural
     log (JAX ``_fwd_with_lse``). A CPU tensor takes the plain version; a
-    CUDA tensor launches the tiled forward kernel with its lse output
-    (every S, 1 included) or raises."""
+    CUDA tensor launches a forward kernel with its lse output (every S, 1
+    included: the tensor cores in bf16 at head dim 64 / 128, else the tiled
+    CUDA-core kernel) or raises."""
     _self_shapes("attention_fwd_lse", q, k, v)
     if _device_of("attention_fwd_lse", q) == "cpu":
         return attention_fwd_plain(q, k, v, None, causal, return_lse=True)
@@ -222,17 +270,23 @@ def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    route = _attn_route(q.dtype, d, s, with_lse=True)
     rc = _build.library().attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, d, *_strides(q, k, v, out),
         int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
+        _ROUTE_CODES[route], _tile_rows(b, s, h, _sms(q.device)),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd_lse.launches += 1
+    if route == "tc":
+        attention_fwd_lse.tc_launches += 1
     _build.check(rc, "attention_fwd_lse")
     return out, lse
 
 
+#: launches of both routes, and of the tensor-core kernel alone
 attention_fwd_lse.launches = 0  # type: ignore[attr-defined]
+attention_fwd_lse.tc_launches = 0  # type: ignore[attr-defined]
 
 
 def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -366,8 +420,9 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       delta: torch.Tensor, causal: bool = True) -> tuple:
     """(dK, dV), each (B, S, H, D) in the input type, from the same inputs
     as :func:`attention_bwd_dq` (JAX ``_bwd_dkv_kernel``). A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    takes the plain version; a CUDA tensor launches the kernel of
+    :func:`_dkv_route` (the tensor cores in bf16 at head dim 64 / 128, else
+    the CUDA-core kernel) or raises."""
     _self_shapes("attention_bwd_dkv", q, k, v, do)
     if _device_of("attention_bwd_dkv", q) == "cpu":
         return attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
@@ -379,18 +434,24 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dk.numel() == 0:
         return dk, dv
     sm_scale, scale2 = _bwd_scales(d)
+    route = _dkv_route(q.dtype, d)
     rc = _build.library().attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, s, h, d, *_strides(q, k, v, do, dk), int(causal), scale2,
-        sm_scale, _DTYPE_CODES[q.dtype],
+        sm_scale, _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
+        _tile_rows(b, s, h, _sms(q.device)),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_bwd_dkv.launches += 1
+    if route == "tc":
+        attention_bwd_dkv.tc_launches += 1
     _build.check(rc, "attention_bwd_dkv")
     return dk, dv
 
 
+#: launches of both routes, and of the tensor-core kernel alone
 attention_bwd_dkv.launches = 0  # type: ignore[attr-defined]
+attention_bwd_dkv.tc_launches = 0  # type: ignore[attr-defined]
 
 
 class FlashAttentionFn(torch.autograd.Function):
