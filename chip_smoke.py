@@ -15,8 +15,10 @@ Phases, each of which passes or raises (a failure exits non-zero):
    one PyTorch library call's (a yardstick the port never calls) and the
    least time the card could take (its bound). bf16 at head dim 64 and 128
    takes the tensor-core kernels (D 64 at 1x1000 and 2x1024), fp32 the
-   CUDA-core ones; a 256-row chunk at offset 256 must equal rows 256-511 of
-   the whole 512-row prefill bit for bit;
+   CUDA-core ones, one query row the decode kernels split over keys; a
+   256-row chunk at offset 256 must equal rows 256-511 of the whole 512-row
+   prefill bit for bit, and slot 0's decode row launched alone must equal
+   its row of the 8-slot launch bit for bit;
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
    streams equal ``generate``; then one tiny fp32 train step whose loss and
@@ -28,9 +30,8 @@ Phases, each of which passes or raises (a failure exits non-zero):
 6. train the flagship (bf16, batch 8 x 1024 tokens) through
    ``make_train_step`` and ``measure_train``: 1 warm-up and 5 timed AdamW
    steps, loss finite and falling, every gradient leaf finite and not all
-   zero, the three training kernels launched 12 times a step (the forward
-   and dK/dV on the tensor cores); one profiled step shows where the device
-   time goes.
+   zero, the three training kernels launched 12 times a step, all on the
+   tensor cores; one profiled step shows where the device time goes.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
@@ -62,10 +63,10 @@ SERVE_LOGIT_TOL = 0.05
 #: ``_tc`` the tensor-core route), and the CUDA-core kernels whose bf16
 #: work moved to the tensor cores, which it must not launch
 SERVE_KERNELS = ("fused_rmsnorm", "attention_fwd_tc", "attention_fwd_decode")
-TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq",
+TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq_tc",
                  "attention_bwd_dkv_tc")
 SERVE_NOT = ("attention_fwd_tiled",)
-TRAIN_NOT = ("attention_fwd_lse", "attention_bwd_dkv")
+TRAIN_NOT = ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -384,6 +385,29 @@ def _chunk_equals_whole(q, k, v, ck, cv) -> None:
     require(same, "the chunk at offset 256 differs from the whole prefill")
 
 
+def _decode_row_alone(q, ck, cv, pos) -> None:
+    """The decode kernels' invariant on the card: slot 0's row launched
+    alone (B = 1) equals its row of the 8-slot launch under ``torch.equal``,
+    and a second launch gives the same output. Also the kernels against
+    the plain split-and-combine (the same chunk maxima)."""
+    import torch
+    from dpu_operator_tpu_torch.ops import (attention_decode_plain,
+                                            attention_fwd)
+    batch, kernel = launched(lambda: attention_fwd(q, ck, cv, pos))
+    one = attention_fwd(q[:1], ck[:1], cv[:1], pos[:1])
+    again = attention_fwd(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    same, repeat = torch.equal(one, batch[:1]), torch.equal(again, batch)
+    _, err = scaled_err(batch, attention_decode_plain(q, ck, cv, pos))
+    log(f"[kernels] decode ({kernel}): slot 0 alone equals its row of the "
+        f"{q.shape[0]}-slot launch bit for bit: {same}; a second launch "
+        f"equal: {repeat}; scaled error against the plain split {err:.3g}")
+    require(same, "slot 0's decode row differs between B = 1 and the "
+            "8-slot launch")
+    require(repeat, "two decode launches on the same inputs differ")
+    require(err <= TOL["bfloat16"], f"decode vs the plain split: {err:.3g}")
+
+
 def phase_kernels(cfg) -> list:
     import torch
     gen = torch.Generator(device="cuda")
@@ -419,6 +443,11 @@ def phase_kernels(cfg) -> list:
                         dtype=torch.int32)
     cases.append(_attn_case(gen, f"decode 8x1 vs 8x{s_max}x{shape}", qd, ck, cv,
                             pos))
+    # decode at the serve profile's shape: 8 slots at position 511
+    p511 = torch.full((8,), 511, dtype=torch.int32, device="cuda")
+    cases.append(_attn_case(gen, f"decode 8x1@511 vs 8x{s_max}x{shape}", qd,
+                            ck, cv, p511))
+    _decode_row_alone(qd, ck, cv, pos)
     _chunk_equals_whole(q, k, v, ck, cv)
     # training: the flagship's train batch, one of its sequences, and a
     # ragged length; then head dim 64 (the n64 products) at one and two

@@ -21,6 +21,7 @@
 // (B, H, S) fp32 contiguous; dq, dk, dv written through one set of output
 // strides. Ragged S is masked in the kernels (no divisibility rule).
 //
+// On the CUDA cores (fp32, and bf16 at D 32):
 // * dq: one block per (query tile of 32 rows, head, batch), 4 warps of 8
 //   rows; walks 64-key tiles up to the tile's last row (causal), each lane
 //   two keys for the scores and D / 32 columns of dq.
@@ -30,11 +31,12 @@
 //   diagonal, each lane two queries for the scores and D / 32 columns of dk
 //   and dv.
 //
-// * dkv on the tensor cores (bf16 at D 64 / 128; the wrapper's route 2):
-//   attn_bwd_dkv_tc_kernel, below; fp32 and D 32 keep the kernel above.
+// * dq and dkv on the tensor cores (bf16 at D 64 / 128; the wrapper's
+//   route 2): attn_bwd_dq_tc_kernel and attn_bwd_dkv_tc_kernel, below; fp32
+//   and D 32 keep the two kernels above.
 //
 // Bound on the card: operations (dq: 6, dkv: 8 multiply-adds x 2 per
-// admitted (row, key) pair and head dimension). dq and the CUDA-core dkv
+// admitted (row, key) pair and head dimension). The CUDA-core kernels
 // compute on the fp32 CUDA cores; all kernels need more than 48 KB of shared
 // memory (set per kernel at first launch).
 #include <type_traits>
@@ -297,6 +299,253 @@ attn_bwd_dkv_kernel(BwdArgs a) {
   }
 }
 
+// ---------------------------------- rounding re-decision, tensor cores --
+// The tensor cores sum S and dP in another order than an fp32 matrix
+// product on the CUDA cores, so a few P or dS roundings to bf16 fall on the
+// other side of a midpoint than the plain version's. Both tensor-core
+// backward kernels re-decide those that matter from the sequential dot
+// product (seq_dot): the constants and the fragment patch below.
+//: P or |dS| from which a flipped bf16 rounding would show in dQ, dK or dV
+//: (one bf16 step of 2^-6 is 6e-5; times |K|, |dO| or |Q| below 4, under
+//: 3e-3 of the outputs' typical size 0.1)
+constexpr float kHeavy = 1.f / 64;
+//: bound on |S_tensor_cores - S_sequential| (and dP alike), above the
+//: largest fp32 product error measured against fp64 (1.5e-5, 128-wide rows
+//: of N(0, 1), H100): every flagged element costs a sequential dot product,
+//: so the window is kept near the error it must cover
+constexpr float kDotErr = 2e-5f;
+
+// Replace the bf16 half (hi: the upper) of A-fragment register `slot`
+// (flattened [k16 step][register]) with x rounded to bf16: a select per
+// register, so the fragments stay in registers for a runtime slot.
+__device__ __forceinline__ void patch_bf16(uint32_t (&v)[4][4], int slot, int hi,
+                                           float x) {
+  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16(x));
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const uint32_t r = v[t >> 2][t & 3];
+    const uint32_t nr = hi ? ((r & 0xFFFFu) | (b << 16)) : ((r & 0xFFFF0000u) | b);
+    v[t >> 2][t & 3] = t == slot ? nr : r;
+  }
+}
+
+// ------------------------------------------------------ dq, tensor cores --
+// attn_bwd_dq_tc_kernel: dQ in bf16 at D 64 / 128 on wgmma, the dK/dV
+// kernel's structure with the roles of queries and keys swapped. One block
+// per (query tile of 64 NWG rows, head, batch): NWG consumer warpgroups of 64
+// rows each and one producer warp. The producer loads the block's Q and dO
+// tiles once, then streams 64-key K / V tiles by TMA through a ring of
+// kDqStages, from key 0 to the tile that holds the block's last admitted key
+// (causal): tiles stay anchored at key 0. Each consumer thread loads its own
+// two rows' lse * log2 e and delta once (a (B, H, S) fp32 row of ragged S
+// breaks TMA's 16-byte stride rule). Per key tile a consumer warpgroup takes
+//   S = Q K^T and dP = dO V^T by m64n64k16 over D (shared memory);
+//   P = exp2(S scale2 - lse * log2 e), exactly 0 where masked (the mask only
+//   on the tiles that cross the diagonal or the ragged edge: the forward's
+//   n_full / nkb split), and dS = P (dP - delta) sm_scale, rounded to bf16
+//   as the register A operand. P enters no product here, so dS is the only
+//   rounding on this path; where |dS| >= kHeavy lies within the possible
+//   summation error of a bf16 midpoint, the kernel recomputes that element's
+//   S and dP with seq_dot and rounds from those, as the dK/dV kernel does
+//   (without it, 1.8e-2 against the plain version at 8 x 1024 x 12 x 128,
+//   over the 1.5e-2 limit; H100 measurement);
+//   dQ += dS K by m64nDk16, K transposed from shared memory.
+// No atomics: each dQ element is summed by one warpgroup, key tile by key
+// tile in order, so dQ is the same from run to run. The accumulator takes
+// D / 2 fp32 registers a thread besides 64 for S and dP, which fits the
+// 288-thread block's share without a setmaxnreg split.
+constexpr int kDqStages = 2;
+
+template <int D, int NWG>
+struct TcDqSmem {
+  static constexpr int kNH = D / 64;                      // 64-column blocks a row
+  static constexpr uint32_t kQ = NWG * kNH * tc::kBlk;    // the Q tile (dO alike)
+  static constexpr uint32_t kStage = 2 * kNH * tc::kBlk;  // K blocks, then V
+  static constexpr uint32_t kBars = (1 + 2 * kDqStages) * 8;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t kBytes = 2 * kQ + kDqStages * kStage + kBars + 1024;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, 1)
+attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, BwdArgs a) {
+  using L = TcDqSmem<D, NWG>;
+  constexpr int NH = L::kNH;
+  constexpr int BM = 64 * NWG;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* qs = tc::align_1024(tc_smem);
+  uint8_t* dos = qs + L::kQ;
+  uint8_t* kvs = dos + L::kQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kvs + kDqStages * L::kStage);
+  uint64_t* full_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + kDqStages;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = blockIdx.x * BM;
+  const int nrows = min(BM, a.S - r0);
+  const int nkb_all = (a.S + kQBK - 1) / kQBK;
+  // key tiles the block's last row needs; a warpgroup may need fewer
+  const int nkb = a.causal ? min(nkb_all, (r0 + nrows - 1) / kQBK + 1) : nkb_all;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(full_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], NWG * 128);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * 128) {
+    // producer warp: one lane issues every copy
+    if (threadIdx.x == NWG * 128) {
+      const int nq = (nrows + 63) / 64;  // warpgroups that hold rows
+      tc::mbar_expect_tx(full_q, 2 * nq * NH * tc::kBlk);
+      for (int w = 0; w < nq; ++w)
+        for (int c = 0; c < NH; ++c) {
+          tc::tma_load_4d(qs + (w * NH + c) * tc::kBlk, &tq, full_q, 64 * c, h,
+                          r0 + 64 * w, b);
+          tc::tma_load_4d(dos + (w * NH + c) * tc::kBlk, &tdo, full_q, 64 * c, h,
+                          r0 + 64 * w, b);
+        }
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % kDqStages, u = kb / kDqStages;
+        if (u > 0) tc::mbar_wait(&empty[s], (u - 1) & 1);
+        uint8_t* ks = kvs + s * L::kStage;
+        tc::mbar_expect_tx(&full[s], L::kStage);
+        for (int c = 0; c < NH; ++c) {
+          tc::tma_load_4d(ks + c * tc::kBlk, &tk, &full[s], 64 * c, h, kb * kQBK, b);
+          tc::tma_load_4d(ks + (NH + c) * tc::kBlk, &tv, &full[s], 64 * c, h,
+                          kb * kQBK, b);
+        }
+      }
+    }
+  } else {
+    const int w = threadIdx.x >> 7;           // consumer warpgroup
+    const int warp = (threadIdx.x >> 5) & 3;  // warp in the warpgroup
+    const int lane = threadIdx.x & 31;
+    const int rw = r0 + 64 * w;               // the warpgroup's first row
+    const int wrows = min(64, a.S - rw);      // <= 0: no rows
+    int nkb_w = 0, n_full = 0;
+    if (wrows > 0) {
+      nkb_w = a.causal ? min(nkb_all, (rw + wrows - 1) / kQBK + 1) : nkb_all;
+      // tiles wholly at or below the warpgroup's first row need no mask
+      n_full = a.S / kQBK;
+      if (a.causal) n_full = min(n_full, (rw + 1) / kQBK);
+      n_full = min(n_full, nkb_w);
+    }
+    // this thread's rows lr and lr + 8 of the warpgroup's tile, and its
+    // keys 8 j + c0 (+ 1) of every key tile (the accumulator map)
+    const int lr = 16 * warp + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    const int row[2] = {rw + lr, rw + lr + 8};
+    const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.S;
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row[r] < a.S;
+      lse2[r] = ok ? a.lse[stat0 + row[r]] * kLog2e : 0.f;
+      dlt[r] = ok ? a.delta[stat0 + row[r]] : 0.f;
+    }
+    const uint8_t* qw = qs + w * NH * tc::kBlk;
+    const uint8_t* dow = dos + w * NH * tc::kBlk;
+    // relative error of P from an error of kDotErr in S (exp2 domain)
+    const float p_rel = 0.6931472f * a.scale2 * kDotErr;
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    if (nkb_w > 0) tc::mbar_wait(full_q, 0);
+
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = kb % kDqStages;
+      tc::mbar_wait(&full[s], (kb / kDqStages) & 1);
+      if (kb < nkb_w) {
+        const uint8_t* ks = kvs + s * L::kStage;
+        const uint8_t* vs = ks + NH * tc::kBlk;
+        float st[32], dp[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) st[e] = dp[e] = 0.f;
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          tc::mma_m64n64k16_ss<0>(st, tc::desc_k(qw, kk), tc::desc_k(ks, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          tc::mma_m64n64k16_ss<0>(dp, tc::desc_k(dow, kk), tc::desc_k(vs, kk), kk > 0);
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(st);
+        tc::fence_regs(dp);
+
+        // dS rounded to bf16 as the A operand of k16 step j / 2 (row lr in
+        // a[0] / a[2], row lr + 8 in a[1] / a[3]); flag the heavy values
+        // that lie near a bf16 rounding midpoint
+        const int j0 = kb * kQBK;
+        const bool masked = kb >= n_full;  // only diagonal / ragged tiles
+        uint32_t da[4][4];
+        uint32_t flags = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float dr[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j0 + 8 * j + c0 + (e & 1);
+            const int r = e >> 1;
+            float p = exp2f(st[4 * j + e] * a.scale2 - lse2[r]);
+            if (masked && (key >= a.S || (a.causal && key > row[r]))) p = 0.f;
+            const float ds = p * (dp[4 * j + e] - dlt[r]) * a.sm_scale;
+            dr[e] = ds;
+            if (fabsf(ds) >= kHeavy &&
+                tc::near_bf16_midpoint(ds, fabsf(ds) * p_rel + p * a.sm_scale * kDotErr))
+              flags |= 1u << (4 * j + e);
+          }
+          da[j >> 1][2 * (j & 1)] = tc::pack_bf16(dr[0], dr[1]);
+          da[j >> 1][2 * (j & 1) + 1] = tc::pack_bf16(dr[2], dr[3]);
+        }
+        // rare: those take dS from the sequential fp32 dot products, as
+        // the plain version does, patched into their fragment slot (step
+        // j / 2, register 2 (j % 2) + e / 2, half e % 2)
+        while (flags != 0) {
+          const int i = __ffs(flags) - 1;
+          flags &= flags - 1;
+          const int j = i >> 2, e = i & 3;
+          const int kj = 8 * j + c0 + (e & 1);
+          const int rq = lr + 8 * (e >> 1);
+          const float p = exp2f(tc::seq_dot<D>(qw, rq, ks, kj) * a.scale2 - lse2[e >> 1]);
+          const float ds = p * (tc::seq_dot<D>(dow, rq, vs, kj) - dlt[e >> 1]) * a.sm_scale;
+          patch_bf16(da, 4 * (j >> 1) + 2 * (j & 1) + (e >> 1), e & 1, ds);
+        }
+        tc::wg_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t) tc::mma_rs<D, 1>(dq, da[t], tc::desc_t(ks, t), 1);
+        tc::wg_commit();
+        tc::wg_wait<0>();
+        tc::fence_regs(dq);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) tc::fence_regs(da[t]);
+      }
+      tc::mbar_arrive(&empty[s]);  // this thread is done with stage s
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (wrows <= 0 || lr + 8 * r >= wrows) continue;
+      __nv_bfloat16* g = static_cast<__nv_bfloat16*>(a.dq) + b * a.g_sb + h * a.g_sh +
+                         static_cast<long long>(row[r]) * a.g_ss + c0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(g + 8 * j) =
+            __floats2bfloat162_rn(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 // ----------------------------------------------------- dkv, tensor cores --
 // attn_bwd_dkv_tc_kernel: dK and dV in bf16 at D 64 / 128 on wgmma. One
 // block per (key tile of 64 NWG keys, head, batch): NWG consumer warpgroups
@@ -332,30 +581,6 @@ attn_bwd_dkv_kernel(BwdArgs a) {
 // warpgroup the block is 160 threads and needs no split.
 constexpr int kDkvStages = 2;
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
-//: P or |dS| from which a flipped bf16 rounding would show in dV / dK (one
-//: bf16 step of 2^-6 is 6e-5; times |dO| or |Q| below 4, under 3e-3 of the
-//: outputs' typical size 0.1)
-constexpr float kHeavy = 1.f / 64;
-//: bound on |S_tensor_cores - S_sequential| (and dP alike), above the
-//: largest fp32 product error measured against fp64 (1.5e-5, 128-wide rows
-//: of N(0, 1), H100): every flagged element costs a sequential dot product,
-//: so the window is kept near the error it must cover
-constexpr float kDotErr = 2e-5f;
-
-// Replace the bf16 half (hi: the upper) of A-fragment register `slot`
-// (flattened [k16 step][register]) with x rounded to bf16: a select per
-// register, so the fragments stay in registers for a runtime slot.
-__device__ __forceinline__ void patch_bf16(uint32_t (&v)[4][4], int slot, int hi,
-                                           float x) {
-  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16(x));
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    const uint32_t r = v[t >> 2][t & 3];
-    const uint32_t nr = hi ? ((r & 0xFFFFu) | (b << 16)) : ((r & 0xFFFF0000u) | b);
-    v[t >> 2][t & 3] = t == slot ? nr : r;
-  }
-}
-
 template <int NWG>
 constexpr int dkv_threads() { return NWG * 128 + (NWG == 2 ? 128 : 32); }
 
@@ -583,15 +808,28 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& configured) {
   return e;
 }
 
+// Tensor maps of q, k, v and dO, each through its own strides.
+bool encode_maps(const BwdArgs& a, int d, CUtensorMap* tq, CUtensorMap* tk,
+                 CUtensorMap* tv, CUtensorMap* tdo) {
+  return tc::encode_bshd(tq, a.q, a.B, a.S, a.H, d, a.q_sb, a.q_ss, a.q_sh) &&
+         tc::encode_bshd(tk, a.k, a.B, a.S, a.H, d, a.k_sb, a.k_ss, a.k_sh) &&
+         tc::encode_bshd(tv, a.v, a.B, a.S, a.H, d, a.v_sb, a.v_ss, a.v_sh) &&
+         tc::encode_bshd(tdo, a.dout, a.B, a.S, a.H, d, a.d_sb, a.d_ss, a.d_sh);
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = DqSmem<D>::kBytes;
-  static bool configured = false;
-  const cudaError_t e = allow_smem(attn_bwd_dq_kernel<T, D>, smem, configured);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + kQBQ - 1) / kQBQ, a.H, a.B);
-  attn_bwd_dq_kernel<T, D><<<grid, kQWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
+    return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
+  } else {
+    constexpr size_t smem = DqSmem<D>::kBytes;
+    static bool configured = false;
+    const cudaError_t e = allow_smem(attn_bwd_dq_kernel<T, D>, smem, configured);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((a.S + kQBQ - 1) / kQBQ, a.H, a.B);
+    attn_bwd_dq_kernel<T, D><<<grid, kQWarps * 32, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -630,10 +868,7 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
       return static_cast<cudaError_t>(port::kErrRegisters);
   }
   CUtensorMap tq, tk, tv, tdo;
-  if (!tc::encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh) ||
-      !tc::encode_bshd(&tk, a.k, a.B, a.S, a.H, D, a.k_sb, a.k_ss, a.k_sh) ||
-      !tc::encode_bshd(&tv, a.v, a.B, a.S, a.H, D, a.v_sb, a.v_ss, a.v_sh) ||
-      !tc::encode_bshd(&tdo, a.dout, a.B, a.S, a.H, D, a.d_sb, a.d_ss, a.d_sh))
+  if (!encode_maps(a, D, &tq, &tk, &tv, &tdo))
     return static_cast<cudaError_t>(port::kErrTensorMap);
   const dim3 grid((a.S + 64 * NWG - 1) / (64 * NWG), a.H, a.B);
   attn_bwd_dkv_tc_kernel<D, NWG><<<grid, dkv_threads<NWG>(), L::kBytes, stream>>>(
@@ -641,11 +876,32 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_dkv_tc_d(const BwdArgs& a, int d, int tile_rows, cudaStream_t s) {
-  if (tile_rows == 128 && d == 64) return launch_dkv_tc<64, 2>(a, s);
-  if (tile_rows == 128 && d == 128) return launch_dkv_tc<128, 2>(a, s);
-  if (tile_rows == 64 && d == 64) return launch_dkv_tc<64, 1>(a, s);
-  if (tile_rows == 64 && d == 128) return launch_dkv_tc<128, 1>(a, s);
+template <int D, int NWG>
+cudaError_t launch_dq_tc(const BwdArgs& a, cudaStream_t stream) {
+  using L = TcDqSmem<D, NWG>;
+  static bool configured = false;
+  const cudaError_t e = allow_smem(attn_bwd_dq_tc_kernel<D, NWG>, L::kBytes, configured);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_maps(a, D, &tq, &tk, &tv, &tdo))
+    return static_cast<cudaError_t>(port::kErrTensorMap);
+  const dim3 grid((a.S + 64 * NWG - 1) / (64 * NWG), a.H, a.B);
+  attn_bwd_dq_tc_kernel<D, NWG><<<grid, NWG * 128 + 32, L::kBytes, stream>>>(
+      tq, tk, tv, tdo, a);
+  return cudaGetLastError();
+}
+
+template <int D, int NWG>
+cudaError_t launch_tc(const BwdArgs& a, bool dkv, cudaStream_t s) {
+  return dkv ? launch_dkv_tc<D, NWG>(a, s) : launch_dq_tc<D, NWG>(a, s);
+}
+
+cudaError_t launch_tc_d(const BwdArgs& a, int d, int tile_rows, bool dkv,
+                        cudaStream_t s) {
+  if (tile_rows == 128 && d == 64) return launch_tc<64, 2>(a, dkv, s);
+  if (tile_rows == 128 && d == 128) return launch_tc<128, 2>(a, dkv, s);
+  if (tile_rows == 64 && d == 64) return launch_tc<64, 1>(a, dkv, s);
+  if (tile_rows == 64 && d == 128) return launch_tc<128, 1>(a, dkv, s);
   return cudaErrorInvalidValue;
 }
 
@@ -667,8 +923,8 @@ int run(const BwdArgs& a, int d, int dtype, bool dkv, int route, int tile_rows,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteTc) {
-    if (!dkv || dtype != port::kDtypeBF16) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_dkv_tc_d(a, d, tile_rows, s));
+    if (dtype != port::kDtypeBF16) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_tc_d(a, d, tile_rows, dkv, s));
   }
   if (route != kRouteSimt) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == port::kDtypeF32) return static_cast<int>(launch_t<float>(a, d, dkv, s));
@@ -686,8 +942,9 @@ extern "C" {
 // contiguous; dq (and dk, dv) written with strides g_*. D in {32, 64, 128};
 // every pointer 16-byte aligned and every stride a multiple of 16 bytes (the
 // wrapper checks). dtype: 0 fp32, 1 bf16. Each returns cudaGetLastError().
-// attention_bwd_dkv's route: 0 the CUDA-core kernel, 2 the tensor cores
-// (bf16, D 64 or 128) with tile_rows 64 or 128 keys a block.
+// route: 0 the CUDA-core kernel (fp32, and bf16 at D 32), 2 the tensor
+// cores (bf16, D 64 or 128) with tile_rows 64 or 128 query rows (dq) or keys
+// (dkv) a block.
 int attention_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int S, int H, int D,
@@ -697,12 +954,12 @@ int attention_bwd_dq(const void* q, const void* k, const void* v,
                      long long d_sb, long long d_ss, long long d_sh,
                      long long g_sb, long long g_ss, long long g_sh,
                      int causal, float scale2, float sm_scale, int dtype,
-                     void* stream) {
+                     int route, int tile_rows, void* stream) {
   BwdArgs a{q, k, v, dout, static_cast<const float*>(lse),
             static_cast<const float*>(delta), dq, nullptr, nullptr, B, S, H,
             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
             d_sb, d_ss, d_sh, g_sb, g_ss, g_sh, causal, scale2, sm_scale};
-  return run(a, D, dtype, false, kRouteSimt, 0, stream);
+  return run(a, D, dtype, false, route, tile_rows, stream);
 }
 
 int attention_bwd_dkv(const void* q, const void* k, const void* v,

@@ -20,7 +20,7 @@
 // k / v are read through their strides, so one slot's row of the
 // (slots, max_seq, H, D) cache is attended with no transpose copy.
 //
-// Three kernels; the wrapper picks one by a route code:
+// Three routes; the wrapper picks one:
 // * tensor cores (route 2: bf16 at D 64 or 128, Sq > 1 or with the lse):
 //   attn_fwd_tc_kernel, below.
 // * tiled on the CUDA cores (route 0: fp32, and bf16 at D 32): one block per
@@ -31,10 +31,9 @@
 //   anchored at absolute key 0 and a row's arithmetic does not depend on the
 //   other rows of its tile (a block that is fully masked for a row adds exact
 //   zeros), so chunked prefill reproduces whole-prompt prefill row for row.
-// * decode (route 1: Sq == 1 without the lse): one block per (row, head,
-//   batch); the 8 warps take
-//   32-key tiles in turn, each lane one key, and combine their partial
-//   (max, sum, acc) in shared memory at the end. No query rows are wasted.
+// * decode (Sq == 1 without the lse; its own entry point, attention_decode):
+//   attn_decode_split_kernel splits each row's keys into fixed chunks across
+//   blocks, attn_decode_combine_kernel folds the chunks' partials; below.
 //
 // Bound on the card: at decode, bytes (each admitted K/V row read once); at
 // prefill, operations (4 * admitted pairs * D). The tiled and decode kernels
@@ -193,84 +192,150 @@ attn_tiled_kernel(AttnArgs a) {
 }
 
 // --------------------------------------------------------------- decode --
-constexpr int kDecWarps = 8;
+// One query row without the lse (decode, verify at width 1), split over
+// keys. A row's admitted keys, min(q_pos0[b] + 1, Skv) when causal, are cut
+// into chunks of kDecChunk keys anchored at key 0. attn_decode_split_kernel
+// runs one block per (head, chunk, batch) over the longest row's chunks; a
+// block whose chunk lies past its row's keys exits at once, so short rows
+// cost nothing and a long cache fills the card (8 slots at position 511: 384
+// working blocks of 8 warps, against 96 blocks when one block took a whole
+// row). The heads of a chunk are neighbouring blocks, so they read the same
+// cache rows (all heads of a key lie together) at about the same time. Warp
+// w takes keys [16 w, 16 w + 16) of the chunk. A key row of D elements is
+// read by LPK neighbouring lanes, 16 bytes each (at D 128 in bf16, 16 lanes a
+// 256-byte row: one warp-wide load serves two keys), and its score summed by
+// shuffles inside the lane group; V is read the same way for the PV sum.
+// (Of the shapes tried on the H100, 4 warps of 32 keys in a chunk-major grid,
+// with or without every load held in registers, 16 warps of 8 keys, chunks
+// of 32, 64 and 256 keys, and the combine folded into the last block of a
+// row by a counter, none was faster at 8 slots near position 512.) The
+// chunk's softmax is taken against the chunk's own max: P =
+// exp2(s - m_chunk) rounded to the input type before the PV product, l and
+// acc in fp32. Each chunk writes its partial (m, l, acc[D]) in fp32 to the
+// wrapper's scratch, and attn_decode_combine_kernel folds a row's partials in
+// chunk order into out = acc / max(l, 1e-20). A row's result depends only on
+// its query, its keys and kDecChunk: not on B, H, the grid or which block
+// finishes first.
+constexpr int kDecChunk = 128;
+constexpr int kDecKeysPerWarp = 16;
+constexpr int kDecWarps = kDecChunk / kDecKeysPerWarp;  // 256 threads
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kDecWarps * 32)
-attn_decode_kernel(AttnArgs a) {
-  constexpr int DPL = D / 32;
-  constexpr int VEC = 16 / sizeof(T);
+attn_decode_split_kernel(AttnArgs a, float* part) {
+  constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte piece
+  constexpr int LPK = D / VEC;         // lanes that read one key row
+  constexpr int KPL = 32 / LPK;        // keys of one warp-wide load
+  constexpr int NG = kDecKeysPerWarp / KPL;  // loads for the warp's keys
   using P = port::Pack<T, VEC>;
-  using PV = port::Pack<T, DPL>;  // one lane's output columns of a V row
-  __shared__ float qs[D];
   __shared__ float wm[kDecWarps], wl[kDecWarps];
   __shared__ float wacc[kDecWarps][D];
 
-  const int i = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int n_keys = a.causal ? min(a.q_pos0[b] + 1, a.Skv) : a.Skv;
+  const int k0 = c * kDecChunk;
+  if (k0 >= n_keys) return;  // past the row's keys: no partial
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + i * a.q_ss + h * a.q_sh;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  for (int d = threadIdx.x; d < D; d += kDecWarps * 32) qs[d] = port::to_f(q[d]);
-  __syncthreads();
+  const int sub = lane % LPK;  // this lane's piece of a row
+  const int kw = k0 + kDecKeysPerWarp * warp + lane / LPK;  // its key of load 0
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh + sub * VEC;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh + sub * VEC;
+  const P qp = *reinterpret_cast<const P*>(q + sub * VEC);
 
-  const int n_keys = a.causal ? min(a.q_pos0[b] + i + 1, a.Skv) : a.Skv;
-  float m = kNegInf, l = 0.f, acc[DPL];
+  float s[NG];
 #pragma unroll
-  for (int c = 0; c < DPL; ++c) acc[c] = 0.f;
-
-  for (int t0 = warp * 32; t0 < n_keys; t0 += kDecWarps * 32) {
-    const int j = t0 + lane;
-    float sc = kNegInf;
-    if (j < n_keys) {
-      const T* kr = k + j * a.k_ss;
-      float dot = 0.f;
+  for (int g = 0; g < NG; ++g) {
+    const int key = kw + g * KPL;
+    float dot = 0.f;
+    if (key < n_keys) {
+      const P kp = *reinterpret_cast<const P*>(k + key * a.k_ss);
 #pragma unroll
-      for (int d = 0; d < D; d += VEC) {
-        const P p = *reinterpret_cast<const P*>(kr + d);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(qs[d + e], port::to_f(p.v[e]), dot);
-      }
-      sc = dot * a.scale2;
+      for (int e = 0; e < VEC; ++e) dot = fmaf(port::to_f(qp.v[e]), port::to_f(kp.v[e]), dot);
     }
-    const float m_new = fmaxf(m, port::warp_max(sc));
-    const float p = exp2f(sc - m_new);
-    const float corr = exp2f(m - m_new);
-    l = l * corr + port::warp_sum(p);
-    m = m_new;
-    const float pb = port::to_f(port::from_f<T>(p));
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[c] *= corr;
-    const int jn = min(32, n_keys - t0);
-    for (int jj = 0; jj < jn; ++jj) {
-      const float pj = __shfl_sync(0xffffffffu, pb, jj);
-      const PV vr = *reinterpret_cast<const PV*>(v + (t0 + jj) * a.v_ss + lane * DPL);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[c] = fmaf(pj, port::to_f(vr.v[c]), acc[c]);
-    }
+    s[g] = dot;
   }
-
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
-#pragma unroll
-  for (int c = 0; c < DPL; ++c) wacc[warp][lane * DPL + c] = acc[c];
-  __syncthreads();
   float mx = kNegInf;
 #pragma unroll
-  for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, wm[w]);
-  float lsum = 0.f;
+  for (int g = 0; g < NG; ++g) {
 #pragma unroll
-  for (int w = 0; w < kDecWarps; ++w) lsum += wl[w] * exp2f(wm[w] - mx);
-  const float denom = fmaxf(lsum, 1e-20f);
-  T* o = static_cast<T*>(a.o) + b * a.o_sb + i * a.o_ss + h * a.o_sh;
+    for (int o = LPK / 2; o > 0; o >>= 1) s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
+    s[g] = kw + g * KPL < n_keys ? s[g] * a.scale2 : kNegInf;
+    mx = fmaxf(mx, s[g]);
+  }
+  mx = port::warp_max(mx);
+  if (lane == 0) wm[warp] = mx;
+  __syncthreads();
+  float m = wm[0];
+#pragma unroll
+  for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, wm[w]);  // finite: k0 < n_keys
+
+  float l = 0.f, acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    const int key = kw + g * KPL;
+    if (key < n_keys) {
+      const float p = exp2f(s[g] - m);
+      l += p;
+      // P enters the PV product in the input type (bf16 P on bf16 inputs)
+      const float pb = port::round_to<T>(p);
+      const P vp = *reinterpret_cast<const P*>(v + key * a.v_ss);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(pb, port::to_f(vp.v[e]), acc[e]);
+    }
+  }
+  // sum over the warp's lane groups (each group holds the same l)
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  }
+  if (lane < LPK) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) wacc[warp][lane * VEC + e] = acc[e];
+  }
+  if (lane == 0) wl[warp] = l;
+  __syncthreads();
+  // the chunk's partial: warps summed in order
+  float* out = part + ((static_cast<long long>(b) * a.H + h) * gridDim.y + c) * (D + 2);
   for (int d = threadIdx.x; d < D; d += kDecWarps * 32) {
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) sum += wacc[w][d] * exp2f(wm[w] - mx);
-    o[d] = port::from_f<T>(sum / denom);
+    for (int w = 0; w < kDecWarps; ++w) sum += wacc[w][d];
+    out[2 + d] = sum;
   }
+  if (threadIdx.x == 0) {
+    float ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) ls += wl[w];
+    out[0] = m;
+    out[1] = ls;
+  }
+}
+
+// One block per (head, batch), one thread per column: a row's chunk
+// partials folded in chunk order. A row with no admitted key writes zeros.
+template <typename T, int D>
+__global__ void __launch_bounds__(D)
+attn_decode_combine_kernel(AttnArgs a, const float* part, int nch_max) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int n_keys = a.causal ? min(a.q_pos0[b] + 1, a.Skv) : a.Skv;
+  const int nch = n_keys > 0 ? (n_keys + kDecChunk - 1) / kDecChunk : 0;
+  const float* p = part + (static_cast<long long>(b) * a.H + h) * nch_max * (D + 2);
+  float m = kNegInf;
+  for (int c = 0; c < nch; ++c) m = fmaxf(m, p[c * (D + 2)]);
+  float l = 0.f, acc = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    const float* pc = p + c * (D + 2);
+    const float w = exp2f(pc[0] - m);
+    l += pc[1] * w;
+    acc += pc[2 + d] * w;
+  }
+  T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  o[d] = port::from_f<T>(acc / fmaxf(l, 1e-20f));
 }
 
 // -------------------------------------------------------- tensor cores --
@@ -491,14 +556,10 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ----------------------------------------------------------- launching --
-constexpr int kRouteSimt = 0, kRouteDecode = 1, kRouteTc = 2;
+constexpr int kRouteSimt = 0, kRouteTc = 2;
 
 template <typename T, int D>
-cudaError_t launch(const AttnArgs& a, bool decode, cudaStream_t stream) {
-  if (decode) {
-    attn_decode_kernel<T, D><<<dim3(a.Sq, a.H, a.B), kDecWarps * 32, 0, stream>>>(a);
-    return cudaGetLastError();
-  }
+cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
     return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
   } else {
@@ -518,11 +579,31 @@ cudaError_t launch(const AttnArgs& a, bool decode, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_d(const AttnArgs& a, int d, bool decode, cudaStream_t stream) {
+cudaError_t launch_d(const AttnArgs& a, int d, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(a, decode, stream);
-    case 64: return launch<T, 64>(a, decode, stream);
-    case 128: return launch<T, 128>(a, decode, stream);
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_decode(const AttnArgs& a, float* part, cudaStream_t stream) {
+  const int nch = (a.Skv + kDecChunk - 1) / kDecChunk;
+  attn_decode_split_kernel<T, D><<<dim3(a.H, nch, a.B), kDecWarps * 32, 0, stream>>>(a, part);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_decode_combine_kernel<T, D><<<dim3(a.H, a.B), D, 0, stream>>>(a, part, nch);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_decode_d(const AttnArgs& a, int d, float* part, cudaStream_t stream) {
+  switch (d) {
+    case 32: return launch_decode<T, 32>(a, part, stream);
+    case 64: return launch_decode<T, 64>(a, part, stream);
+    case 128: return launch_decode<T, 128>(a, part, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -562,11 +643,9 @@ cudaError_t dispatch(const AttnArgs& a, int d, int dtype, int route, int tile_ro
   if (route == kRouteTc)
     return dtype == port::kDtypeBF16 ? launch_tc_d(a, d, tile_rows, s)
                                      : cudaErrorInvalidValue;
-  if (route == kRouteDecode && (a.Sq != 1 || a.lse != nullptr)) return cudaErrorInvalidValue;
-  if (route != kRouteSimt && route != kRouteDecode) return cudaErrorInvalidValue;
-  const bool decode = route == kRouteDecode;
-  if (dtype == port::kDtypeF32) return launch_d<float>(a, d, decode, s);
-  if (dtype == port::kDtypeBF16) return launch_d<__nv_bfloat16>(a, d, decode, s);
+  if (route != kRouteSimt) return cudaErrorInvalidValue;
+  if (dtype == port::kDtypeF32) return launch_d<float>(a, d, s);
+  if (dtype == port::kDtypeBF16) return launch_d<__nv_bfloat16>(a, d, s);
   return cudaErrorInvalidValue;
 }
 
@@ -579,8 +658,8 @@ extern "C" {
 // contiguous. q_pos0: (B,) int32 on the device. D in {32, 64, 128}; every
 // pointer 16-byte aligned and every stride a multiple of 16 bytes (the
 // wrapper checks). dtype: 0 fp32, 1 bf16. route: 0 the tiled CUDA-core
-// kernel, 1 the decode kernel (Sq == 1), 2 the tensor cores (bf16, D 64 or
-// 128) with tile_rows 64 or 128 query rows a block. Returns
+// kernel, 2 the tensor cores (bf16, D 64 or 128) with tile_rows 64 or 128
+// query rows a block (one query row takes attention_decode). Returns
 // cudaGetLastError(), or an error without launching when the route does not
 // take the arguments.
 int attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -610,13 +689,40 @@ int attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                       long long o_sb, long long o_ss, long long o_sh,
                       int causal, float scale2, int dtype, int route,
                       int tile_rows, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || lse == nullptr ||
-      route == kRouteDecode)
+  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a{q, k, v, o, nullptr, static_cast<float*>(lse), B, S, S, H,
              q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
              o_sb, o_ss, o_sh, causal, scale2};
   return static_cast<int>(dispatch(a, D, dtype, route, tile_rows, stream));
+}
+
+// One query row a batch entry, without the lse (decode), split over keys:
+// q / o (B, 1, H, D), k / v (B, Skv, H, D), q_pos0 (B,) int32 on the device
+// (read when causal), strides and checks as attention_fwd. part: fp32
+// scratch of B * H * ceil(Skv / chunk) * (D + 2) floats, which the two
+// kernels leave as they like; chunk must be the kernel's kDecChunk (the
+// wrapper's DECODE_CHUNK). Launches the split kernel, then the combine
+// kernel; returns cudaGetLastError().
+int attention_decode(const void* q, const void* k, const void* v, void* o,
+                     const void* q_pos0, void* part, int B, int Skv, int H, int D,
+                     long long q_sb, long long q_ss, long long q_sh,
+                     long long k_sb, long long k_ss, long long k_sh,
+                     long long v_sb, long long v_ss, long long v_sh,
+                     long long o_sb, long long o_ss, long long o_sh,
+                     int causal, float scale2, int dtype, int chunk, void* stream) {
+  if (B <= 0 || Skv <= 0 || H <= 0 || B > 65535 || H > 65535 || part == nullptr ||
+      chunk != kDecChunk || (causal && q_pos0 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgs a{q, k, v, o, static_cast<const int*>(q_pos0), nullptr, B, 1, Skv, H,
+             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+             o_sb, o_ss, o_sh, causal, scale2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* f = static_cast<float*>(part);
+  if (dtype == port::kDtypeF32) return static_cast<int>(launch_decode_d<float>(a, D, f, s));
+  if (dtype == port::kDtypeBF16)
+    return static_cast<int>(launch_decode_d<__nv_bfloat16>(a, D, f, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -43,8 +43,10 @@ _SIGNATURES = {
                       + [_L] * 12 + [_I, _F, _I, _I, _I, _P]),
     "attention_fwd_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I]
                           + [_L] * 12 + [_I, _F, _I, _I, _I, _P]),
+    "attention_decode": (_I, [_P] * 6 + [_I] * 4 + [_L] * 12
+                         + [_I, _F, _I, _I, _P]),
     "attention_bwd_dq": (_I, [_P] * 7 + [_I] * 4 + [_L] * 15
-                         + [_I, _F, _F, _I, _P]),
+                         + [_I, _F, _F, _I, _I, _I, _P]),
     "attention_bwd_dkv": (_I, [_P] * 8 + [_I] * 4 + [_L] * 15
                           + [_I, _F, _F, _I, _I, _I, _P]),
     "port_error_string": (ctypes.c_char_p, [_I]),

@@ -21,11 +21,15 @@ softmax with fp32 max / sum / accumulator over key blocks of 64 anchored
 at key 0, P rounded to the input type before the PV product, and
 ``out = acc / max(l, 1e-20)``.
 
-Kernels by route (:func:`_attn_route`, :func:`_dkv_route`): bf16 at head
-dim 64 or 128 takes the tensor-core (``wgmma``) forward and dK/dV kernels,
-in query or key tiles of :func:`_tile_rows`; fp32 and head dim 32 take the
-CUDA-core kernels (``wgmma`` has no fp32 operand, and TF32 would not hold
-fp32's limits); one query row without the lse takes the decode kernel. A
+Kernels by route (:func:`_attn_route`, :func:`_dq_route`,
+:func:`_dkv_route`): bf16 at head dim 64 or 128 takes the tensor-core
+(``wgmma``) forward, dQ and dK/dV kernels, in query or key tiles of
+:func:`_tile_rows`; fp32 and head dim 32 take the CUDA-core kernels
+(``wgmma`` has no fp32 operand, and TF32 would not hold fp32's limits); one
+query row without the lse takes the decode kernels, which split each row's
+keys into chunks of ``DECODE_CHUNK`` across blocks and fold the chunks'
+partials in chunk order (:func:`_decode_chunks`;
+:func:`attention_decode_plain` is the same split in plain PyTorch). A
 launch that fails raises: no route falls back to another.
 
 Training: :func:`flash_attention_vjp` (a :class:`FlashAttentionFn`) saves
@@ -55,8 +59,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 #: head dims the tensor-core kernels take (bf16 only)
 _TC_HEAD_DIMS = (64, 128)
-#: route codes of the C entry points
-_ROUTE_CODES = {"simt": 0, "decode": 1, "tc": 2}
+#: route codes of the C entry points (one query row takes its own entry
+#: point, ``attention_decode``)
+_ROUTE_CODES = {"simt": 0, "tc": 2}
+#: keys per chunk of the decode kernels' split (the kernel's kDecChunk)
+DECODE_CHUNK = 128
 
 
 def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
@@ -74,6 +81,21 @@ def _dkv_route(dtype: torch.dtype, d: int) -> str:
     """The dK/dV kernel a CUDA launch takes: ``"tc"`` for bf16 at head
     dim 64 or 128, ``"simt"`` otherwise."""
     return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS else "simt"
+
+
+#: the dQ kernel a CUDA launch takes: the same rule as dK/dV's
+_dq_route = _dkv_route
+
+
+def _decode_chunks(pos: int, skv: int, causal: bool = True) -> int:
+    """Chunks of ``DECODE_CHUNK`` keys, anchored at key 0, that the decode
+    row at absolute position *pos* works through over a cache row of *skv*
+    keys: its ``min(pos + 1, skv)`` admitted keys (all *skv* when not
+    causal). The grid holds ``_decode_chunks(skv - 1, skv)`` blocks a row;
+    block ``c`` works iff ``c`` is below the row's count and exits at once
+    otherwise."""
+    n = min(pos + 1, skv) if causal else skv
+    return -(-max(n, 0) // DECODE_CHUNK)
 
 
 def _tile_rows(b: int, n: int, h: int, sms: int) -> int:
@@ -150,6 +172,57 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def attention_decode_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           q_pos0: Optional[torch.Tensor] = None,
+                           causal: bool = True) -> torch.Tensor:
+    """The decode kernels' split-and-combine in plain PyTorch, for one query
+    row: q (B, 1, H, D) over k, v (B, Skv, H, D). Each row's admitted keys
+    are cut into chunks of ``DECODE_CHUNK`` anchored at key 0; a chunk's
+    softmax is taken against its own max, with P rounded to the input type
+    before the PV product; the chunks' (m, l, acc) are then folded in chunk
+    order into ``acc / max(l, 1e-20)``. A row's arithmetic involves no other
+    row, so its result does not depend on the batch it sits in. The tests
+    and ``chip_smoke.py`` hold the kernels' design to it;
+    :func:`attention_fwd_plain` stays the kernels' plain version."""
+    b, sq, h, d = q.shape
+    if sq != 1:
+        raise ValueError(f"attention_decode_plain: one query row, got {sq}")
+    skv = k.shape[1]
+    pos = _positions(q, q_pos0).long()
+    n_keys = torch.clamp(pos + 1, max=skv) if causal \
+        else torch.full_like(pos, skv)
+    nch = _decode_chunks(skv - 1, skv)
+    pad = nch * DECODE_CHUNK - skv
+    if pad > 0:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    scale2 = _LOG2E / math.sqrt(d)
+    qf = q.float()[:, 0, :, None, :]                            # (B,H,1,D)
+    parts = []
+    for c in range(nch):
+        sl = slice(c * DECODE_CHUNK, (c + 1) * DECODE_CHUNK)
+        keys = torch.arange(sl.start, sl.stop, device=q.device)
+        ok = (keys[None, :] < n_keys[:, None])[:, None]         # (B,1,C)
+        s = (qf * k[:, sl].float().permute(0, 2, 1, 3)).sum(-1) * scale2
+        s = torch.where(ok, s, _NEG_INF)                        # (B,H,C)
+        m = s.amax(-1)
+        # a chunk past the row's keys: m = -1e30, l = 0, acc = 0
+        p = torch.where(ok, torch.exp2(s - m[..., None]), 0.0)
+        pv = p.to(v.dtype).float().unsqueeze(2)                 # (B,H,1,C)
+        vt = v[:, sl].float().permute(0, 2, 3, 1)               # (B,H,D,C)
+        parts.append((m, p.sum(-1), (pv * vt).sum(-1)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)      # (B,H)
+    l = torch.zeros_like(m_all)
+    acc = torch.zeros((b, h, d), device=q.device)
+    for m, lc, ac in parts:
+        w = torch.exp2(m - m_all)
+        l = l + lc * w
+        acc = acc + ac * w[..., None]
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.to(q.dtype)[:, None]
+
+
 def _check_cuda(what: str, *ts: torch.Tensor) -> None:
     q = ts[0]
     if q.dtype not in _DTYPE_CODES:
@@ -178,9 +251,10 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch b at absolute position ``q_pos0[b] + i`` (default 0).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel of :func:`_attn_route` (one query row: the decode kernel; more:
-    the tensor cores in bf16 at head dim 64 / 128, else the tiled CUDA-core
-    kernel) or raises. Returns a new contiguous (B, Sq, H, D) tensor."""
+    kernel of :func:`_attn_route` (one query row: the decode kernels, split
+    over keys; more: the tensor cores in bf16 at head dim 64 / 128, else the
+    tiled CUDA-core kernel) or raises. Returns a new contiguous
+    (B, Sq, H, D) tensor."""
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2:] != (h, d) or v.shape != k.shape:
         raise ValueError(f"attention_fwd: shapes q {tuple(q.shape)} "
@@ -197,16 +271,24 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     route = _attn_route(q.dtype, d, sq, with_lse=False)
     lib = _build.library()
-    rc = lib.attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        pos.data_ptr(), b, sq, k.shape[1], h, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-        int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
-        _ROUTE_CODES[route], _tile_rows(b, sq, h, _sms(q.device)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    skv = k.shape[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "decode":
+        # the chunks' partials (m, l, acc[D]) in fp32, (B, H, chunks, D + 2)
+        part = torch.empty((b, h, _decode_chunks(skv - 1, skv), d + 2),
+                           dtype=torch.float32, device=q.device)
+        rc = lib.attention_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            pos.data_ptr(), part.data_ptr(), b, skv, h, d,
+            *_strides(q, k, v, out), int(causal), _LOG2E / math.sqrt(d),
+            _DTYPE_CODES[q.dtype], DECODE_CHUNK, stream)
+    else:
+        rc = lib.attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            pos.data_ptr(), b, sq, skv, h, d, *_strides(q, k, v, out),
+            int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
+            _ROUTE_CODES[route], _tile_rows(b, sq, h, _sms(q.device)),
+            stream)
     attention_fwd.launches += 1
     if route == "decode":
         attention_fwd.decode_launches += 1
@@ -390,8 +472,9 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ) -> torch.Tensor:
     """dQ (B, S, H, D) in q's type from q, k, v, dO (B, S, H, D), the
     forward's lse and delta (B, H, S) fp32 (JAX ``_bwd_dq_kernel``). A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    tensor takes the plain version; a CUDA tensor launches the kernel of
+    :func:`_dq_route` (the tensor cores in bf16 at head dim 64 / 128, else
+    the CUDA-core kernel) or raises."""
     _self_shapes("attention_bwd_dq", q, k, v, do)
     if _device_of("attention_bwd_dq", q) == "cpu":
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
@@ -402,17 +485,24 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq
     sm_scale, scale2 = _bwd_scales(d)
+    route = _dq_route(q.dtype, d)
     rc = _build.library().attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, d,
         *_strides(q, k, v, do, dq), int(causal), scale2, sm_scale,
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
+        _tile_rows(b, s, h, _sms(q.device)),
+        torch.cuda.current_stream(q.device).cuda_stream)
     attention_bwd_dq.launches += 1
+    if route == "tc":
+        attention_bwd_dq.tc_launches += 1
     _build.check(rc, "attention_bwd_dq")
     return dq
 
 
+#: launches of both routes, and of the tensor-core kernel alone
 attention_bwd_dq.launches = 0  # type: ignore[attr-defined]
+attention_bwd_dq.tc_launches = 0  # type: ignore[attr-defined]
 
 
 def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

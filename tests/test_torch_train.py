@@ -428,9 +428,9 @@ def test_cuda_training_kernels_match_plain(cuda, dtype, tol, s, d, causal):
             attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
             *attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)]
     after = launch_counts()
-    # bf16 at head dim 64 / 128 takes the tensor-core forward and dK/dV
+    # bf16 at head dim 64 / 128 takes the tensor-core forward, dQ and dK/dV
     tc = "_tc" if dtype == torch.bfloat16 and d in (64, 128) else ""
-    for name in ("attention_fwd_lse" + tc, "attention_bwd_dq",
+    for name in ("attention_fwd_lse" + tc, "attention_bwd_dq" + tc,
                  "attention_bwd_dkv" + tc):
         assert after[name] == counts[name] + 1
     for a, b in zip(got, want):
