@@ -18,20 +18,30 @@ Phases, each of which passes or raises (a failure exits non-zero):
    CUDA-core ones, one query row the decode kernels split over keys; a
    256-row chunk at offset 256 must equal rows 256-511 of the whole 512-row
    prefill bit for bit, and slot 0's decode row launched alone must equal
-   its row of the 8-slot launch bit for bit;
+   its row of the 8-slot launch bit for bit; speculative verify's shape (8
+   slots x 5 rows at random positions) takes the tensor-core forward;
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
-   streams equal ``generate``; then one tiny fp32 train step whose loss and
-   gradients match the CPU's;
+   streams equal ``generate``; then a tiny fp32 serve that speculates
+   (oracle drafts, the last one corrupted) and preempts a batch request
+   mid-speculation, every stream equal to ``generate``; then one tiny fp32
+   train step whose loss and gradients match the CPU's;
 5. serve the flagship (bf16, about 391M parameters, random weights from a
    seed) through ``Scheduler`` and ``TorchSlotExecutor``: 16 requests on 8
    slots with chunked prefill; every kernel of the path must have launched,
-   every multi-row attention launch on the tensor cores;
+   every multi-row attention launch on the tensor cores. Then the same 16
+   requests twice more with speculation (k = 4): drafted by prompt lookup
+   (``NgramDrafter``), and by an oracle fed the plain run's streams with
+   the last draft of each proposal corrupted; verify must run on the
+   tensor-core forward, and each run is reported beside the plain one;
 6. train the flagship (bf16, batch 8 x 1024 tokens) through
    ``make_train_step`` and ``measure_train``: 1 warm-up and 5 timed AdamW
    steps, loss finite and falling, every gradient leaf finite and not all
    zero, the three training kernels launched 12 times a step, all on the
    tensor cores; one profiled step shows where the device time goes.
+
+A profile window between phases 5 and 6 shows where the time of a decode
+iteration, a verify iteration and a prefill chunk goes.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
@@ -63,6 +73,9 @@ SERVE_LOGIT_TOL = 0.05
 #: ``_tc`` the tensor-core route), and the CUDA-core kernels whose bf16
 #: work moved to the tensor cores, which it must not launch
 SERVE_KERNELS = ("fused_rmsnorm", "attention_fwd_tc", "attention_fwd_decode")
+#: a speculating serve run: verify replaces decode wherever a row has drafts
+#: (an oracle drafts on every iteration, so the decode kernels may not run)
+SPEC_KERNELS = ("fused_rmsnorm", "attention_fwd_tc")
 TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq_tc",
                  "attention_bwd_dkv_tc")
 SERVE_NOT = ("attention_fwd_tiled",)
@@ -457,6 +470,17 @@ def phase_kernels(cfg) -> list:
                          (1, 1000, dh, f32), (1, 1000, 64, bf16),
                          (2, s_max, 64, bf16)):
         cases.extend(_train_cases(gen, b, s, h, hd, dt))
+    # speculative verify (k = 4 drafts): 8 slots x 5 rows against the whole
+    # cache at random positions, on the tensor-core forward
+    qv = rnd(8, 5, h, dh)
+    pv = torch.randint(0, s_max - 4, (8,), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    cases.append(_attn_case(gen, f"verify 8x5 vs 8x{s_max}x{shape}", qv, ck,
+                            cv, pv))
+    require(cases[-1]["kernel"] == "attention_fwd_tc",
+            f"verify took {cases[-1]['kernel']}, not the tensor cores")
+    # RMSNorm at the training shape (batch 8 x 1024 tokens)
+    cases.append(_rms_case(gen, 8 * s_max, d, bf16))
     for c in cases:
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
@@ -473,16 +497,17 @@ def phase_kernels(cfg) -> list:
 
 # -- phase 4 ------------------------------------------------------------------
 def _serve(params, cfg, reqs, slots: int, chunk: int, device: str,
-           executor_cls=None, clock=None):
+           executor_cls=None, clock=None, spec_k: int = 0, drafter=None):
     from dpu_operator_tpu_torch.workloads.serve import (
         Scheduler, ServeConfig, TorchSlotExecutor)
     cls = executor_cls or TorchSlotExecutor
-    ex = cls(params, cfg, slots=slots, chunk_tokens=chunk, device=device)
+    ex = cls(params, cfg, slots=slots, chunk_tokens=chunk, spec_k=spec_k,
+             device=device)
     blocks = slots * cfg.max_seq // 16
     sched = Scheduler(ServeConfig(slots=slots, kv_blocks=blocks,
                                   kv_block_size=16,
-                                  prefill_chunk_tokens=chunk),
-                      ex, clock=clock)
+                                  prefill_chunk_tokens=chunk, spec_k=spec_k),
+                      ex, clock=clock, drafter=drafter)
     for r in reqs:
         r.arrival_s = sched.now  # all arrive at once, on the run's clock
         sched.submit(r)
@@ -537,7 +562,77 @@ def phase_cpu_parity() -> None:
     require(sched.pool.outstanding() == 0, "tiny serve leaked KV blocks")
     log(f"[parity] tiny fp32 serve on the card: {len(reqs)} requests on 2 "
         "slots, chunk 16, every stream equals generate")
+    _spec_preempt_parity(p_gpu, cfg)
     _train_parity(cfg, p_cpu)
+
+
+class OracleDrafter:
+    """Drafts copied from reference streams (keyed by prompt), the last of
+    two or more drafts corrupted: acceptance and rejection forced on the
+    real verify path."""
+
+    def __init__(self, refs: dict, prompts: dict, vocab: int) -> None:
+        self.refs, self.prompts, self.vocab = refs, prompts, vocab
+
+    def propose(self, ids, k: int) -> list:
+        ids = list(ids)
+        for rid, p in self.prompts.items():
+            if len(ids) >= len(p) and tuple(ids[:len(p)]) == p:
+                done = len(ids) - len(p)
+                d = list(self.refs[rid][done:done + k])
+                if len(d) >= 2:
+                    d[-1] = (d[-1] + 1) % self.vocab
+                return d
+        return []
+
+
+def _spec_preempt_parity(params, cfg) -> None:
+    """Speculation through a preemption on the card (tiny fp32, virtual
+    clock): two batch requests fill 2 slots and all 6 KV blocks, and an
+    interactive arrival evicts one of them after it has speculated. Every
+    stream must equal ``generate``, and no block may leak."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import generate
+    from dpu_operator_tpu_torch.workloads.serve import (
+        BATCH, INTERACTIVE, Request, Scheduler, ServeConfig,
+        TorchSlotExecutor)
+    rng = np.random.default_rng(8)
+    prompts = {rid: tuple(int(t) for t in rng.integers(0, cfg.vocab, n))
+               for rid, n in (("b1", 20), ("b2", 13), ("hot", 9))}
+    out_len = 24
+    refs = {rid: generate(params, cfg, torch.tensor([p]), out_len,
+                          device="cuda")[0].tolist()
+            for rid, p in prompts.items()}
+    ex = TorchSlotExecutor(params, cfg, slots=2, chunk_tokens=16, spec_k=3,
+                           device="cuda")
+    sched = Scheduler(ServeConfig(slots=2, kv_blocks=6, kv_block_size=16,
+                                  prefill_chunk_tokens=16, spec_k=3,
+                                  preemption=True),
+                      ex, drafter=OracleDrafter(refs, prompts, cfg.vocab))
+    for rid, cls, t in (("b1", BATCH, 0.0), ("b2", BATCH, 0.0),
+                        ("hot", INTERACTIVE, 0.1)):
+        sched.submit(Request(rid=rid, prompt_len=len(prompts[rid]),
+                             output_len=out_len, prompt=prompts[rid],
+                             slo_class=cls, arrival_s=t))
+    sched.run()
+    trace = sched.trace
+    require(len(sched.completed) == 3 and not sched.failed,
+            "tiny spec serve incomplete")
+    for r in sched.completed:
+        require(r.tokens == refs[r.rid], f"tiny fp32 spec serve {r.rid}: "
+                f"stream {r.tokens} != generate {refs[r.rid]}")
+    pre = next((i for i, t in enumerate(trace) if t[0] == "preempt"), None)
+    require(pre is not None, "the interactive request preempted nothing")
+    victim = trace[pre][2]
+    require(any(t[0] == "spec" and t[2] == victim for t in trace[:pre]),
+            f"{victim} was preempted before it speculated")
+    require(sched.pool.outstanding() == 0, "tiny spec serve leaked KV blocks")
+    spec = [t for t in trace if t[0] == "spec"]
+    log(f"[parity] tiny fp32 spec serve on the card (k 3, 2 slots, 6 KV "
+        f"blocks): {victim} preempted by {trace[pre][3]} mid-speculation "
+        f"({trace[pre][4]} phase); {len(spec)} verify rows, "
+        f"{sum(t[4] for t in spec)}/{sum(t[3] for t in spec)} drafts "
+        "accepted; every stream equals generate")
 
 
 def _train_parity(cfg, p_cpu) -> None:
@@ -568,32 +663,159 @@ def _train_parity(cfg, p_cpu) -> None:
 
 
 # -- phase 5 ------------------------------------------------------------------
-def phase_serve(cfg, params) -> dict:
-    import torch
-    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
-    from dpu_operator_tpu_torch.workloads.decode import generate
-    from dpu_operator_tpu_torch.workloads.model import forward, param_bytes
+def _timed_executor(cfg):
+    """TorchSlotExecutor that records each decode and verify iteration's
+    wall time (each ends in a host copy, so the host clock sees the
+    device's work), the KV bytes its attention reads, and the tensor-core
+    forward's launches inside verify."""
+    from dpu_operator_tpu_torch.ops import launch_counts
     from dpu_operator_tpu_torch.workloads.serve import TorchSlotExecutor
-
     kv_row_bytes = 2 * cfg.n_layers * cfg.n_heads * cfg.d_head * 2
 
     class TimedExecutor(TorchSlotExecutor):
-        """Wall time of each decode iteration (it ends in a host copy,
-        so the host clock sees the device's work) and the KV bytes its
-        attention reads."""
-
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.iters: list = []
+            self.verifies: list = []
+            self.verify_tc = 0
+
+        def _kv_bytes(self, width: int) -> int:
+            keys = np.minimum(np.clip(self.pos, 0, self.cfg.max_seq - 1)
+                              + width, self.cfg.max_seq)
+            return int(keys.sum()) * kv_row_bytes
 
         def step(self, active):
-            keys = int(np.sum(np.minimum(
-                np.clip(self.pos, 0, self.cfg.max_seq - 1) + 1,
-                self.cfg.max_seq)))
+            kv = self._kv_bytes(1)
             t0 = time.perf_counter()
             out = super().step(active)
-            self.iters.append((time.perf_counter() - t0, keys * kv_row_bytes))
+            self.iters.append((time.perf_counter() - t0, kv))
             return out
+
+        def spec_step(self, active, drafts):
+            kv = self._kv_bytes(self.spec_width)
+            tc = launch_counts()["attention_fwd_tc"]
+            t0 = time.perf_counter()
+            out = super().spec_step(active, drafts)
+            self.verifies.append((time.perf_counter() - t0, kv))
+            self.verify_tc += launch_counts()["attention_fwd_tc"] - tc
+            return out
+
+    return TimedExecutor
+
+
+def _margin(params, cfg, r) -> float:
+    """The worst teacher-forced margin of *r*'s served tokens: how far
+    each lies below the best logit of a full forward over prompt + the
+    tokens before it."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import forward
+    seq = torch.tensor([list(r.prompt) + r.tokens[:-1]], device="cuda")
+    logits = forward(params, cfg=cfg, tokens=seq)[0, r.prompt_len - 1:]
+    served = torch.tensor(r.tokens, device="cuda")
+    margin = logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]
+    return float(margin.max())
+
+
+def _serve_run(params, cfg, label: str, reqs: list, wbytes: int,
+               spec_k: int = 0, drafter=None) -> dict:
+    """One timed serve run of *reqs* (16 on 8 slots, chunk 256) with the
+    launch counters set to 0 just before and read just after: checks the
+    run's gates and returns its numbers."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    t0 = time.monotonic()
+    sched, ex = _serve(params, cfg, reqs, slots=8, chunk=256, device="cuda",
+                       executor_cls=_timed_executor(cfg),
+                       clock=time.monotonic, spec_k=spec_k, drafter=drafter)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    log(f"[serve] {label}: launches during the run: {counts}")
+    require(len(sched.completed) == len(reqs) and not sched.failed
+            and not sched.rejected,
+            f"{label}: completed {len(sched.completed)} failed "
+            f"{len(sched.failed)} rejected {len(sched.rejected)}")
+    for r in reqs:
+        require(len(r.tokens) == r.output_len,
+                f"{label} {r.rid}: {len(r.tokens)} tokens, wanted "
+                f"{r.output_len}")
+        require(all(0 <= t < cfg.vocab for t in r.tokens),
+                f"{label} {r.rid}: token out of vocab")
+    require(sched.pool.outstanding() == 0, f"{label}: KV blocks leaked")
+    for name in SPEC_KERNELS if spec_k else SERVE_KERNELS:
+        require(counts[name] > 0,
+                f"{label}: kernel {name} never launched on the serving path")
+    for name in SERVE_NOT:
+        require(counts[name] == 0, f"{label}: {name} launched {counts[name]} "
+                "times on the bf16 serving path (its work belongs to the "
+                "tensor cores)")
+    hbm = card_peaks()["hbm_bytes_per_s"]
+
+    def iters(pairs):
+        t = np.array([w for w, _ in pairs]) * 1e3
+        bound = (wbytes + np.array([b for _, b in pairs], np.float64)) \
+            / hbm * 1e3
+        return (len(pairs), float(t.mean()) if len(t) else None,
+                float(np.median(t)) if len(t) else None,
+                float(bound.mean()) if len(t) else None)
+
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    ttfts = sorted(r.ttft_s for r in reqs)
+    n_dec, dec_mean, dec_p50, dec_bound = iters(ex.iters)
+    n_ver, ver_mean, ver_p50, ver_bound = iters(ex.verifies)
+    spec = sched._spec
+    rows = sched.spec_rows_total
+    out = {
+        "run": label, "requests": len(reqs), "slots": 8, "chunk": 256,
+        "spec_k": spec_k, "generated_tokens": gen_tokens, "wall_s": wall,
+        "tokens_per_s": gen_tokens / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2], "ttft_max_s": ttfts[-1],
+        "decode_iterations": n_dec, "decode_ms_mean": dec_mean,
+        "decode_ms_p50": dec_p50, "decode_bound_ms_mean": dec_bound,
+        "verify_iterations": n_ver, "verify_ms_mean": ver_mean,
+        "verify_ms_p50": ver_p50, "verify_bound_ms_mean": ver_bound,
+        # tokens after each request's first, per decode or verify iteration
+        "tokens_per_iteration": (gen_tokens - len(reqs))
+        / max(n_dec + n_ver, 1),
+        "drafts_proposed": spec.proposed_total,
+        "drafts_accepted": spec.accepted_total,
+        "acceptance_rate": spec.acceptance_rate(),
+        "tokens_per_verify_row": (spec.accepted_total + rows) / rows
+        if rows else None,
+        "verify_tc_launches": ex.verify_tc,
+        "prefill_chunks": sched.prefill_chunks_total,
+        "iterations": sched.iterations, "launches": counts,
+    }
+
+    def ms(x):
+        return "n/a" if x is None else f"{x:.3f} ms"
+
+    log(f"[serve] {label}: {gen_tokens} tokens in {wall:.3f} s = "
+        f"{out['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+        f"{out['ttft_p50_s'] * 1e3:.1f} ms (max "
+        f"{out['ttft_max_s'] * 1e3:.1f} ms); decode {n_dec} iterations, "
+        f"mean {ms(dec_mean)} (p50 {ms(dec_p50)}) vs bound {ms(dec_bound)}; "
+        f"verify {n_ver} iterations, mean {ms(ver_mean)} (p50 "
+        f"{ms(ver_p50)}) vs bound {ms(ver_bound)} (weights + the KV the "
+        f"iteration reads); drafts {spec.proposed_total} proposed, "
+        f"{spec.accepted_total} accepted (rate "
+        f"{spec.acceptance_rate():.3f}); tokens per verify row "
+        f"{out['tokens_per_verify_row']}; tokens per iteration "
+        f"{out['tokens_per_iteration']:.3f}")
+    return out
+
+
+def phase_serve(cfg, params) -> dict:
+    """The plain serve run, then the same requests with speculation (k 4)
+    drafted by prompt lookup and by a corrupted oracle of the plain run's
+    streams, then plain again. Returns each run's numbers and the launches
+    of all four."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import generate
+    from dpu_operator_tpu_torch.workloads.model import param_bytes
+    from dpu_operator_tpu_torch.workloads.serve import Request
+    from dpu_operator_tpu_torch.workloads.spec import NgramDrafter
 
     wbytes = param_bytes(params)
     rng = np.random.default_rng(2026)
@@ -603,99 +825,76 @@ def phase_serve(cfg, params) -> dict:
              device="cuda")
     torch.cuda.synchronize()
 
-    reset_launch_counts()
-    t0 = time.monotonic()
-    sched, ex = _serve(params, cfg, reqs, slots=8, chunk=256, device="cuda",
-                       executor_cls=TimedExecutor, clock=time.monotonic)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    counts = launch_counts()
-    log(f"[serve] launches during the serve run: {counts}")
+    def fresh():
+        return [Request(rid=r.rid, prompt_len=r.prompt_len,
+                        output_len=r.output_len, prompt=r.prompt)
+                for r in reqs]
 
-    require(len(sched.completed) == 16 and not sched.failed
-            and not sched.rejected,
-            f"completed {len(sched.completed)} failed {len(sched.failed)} "
-            f"rejected {len(sched.rejected)}")
-    for r in reqs:
-        require(len(r.tokens) == r.output_len,
-                f"{r.rid}: {len(r.tokens)} tokens, wanted {r.output_len}")
-        require(all(0 <= t < cfg.vocab for t in r.tokens),
-                f"{r.rid}: token out of vocab")
-    require(sched.pool.outstanding() == 0, "KV blocks leaked")
-    for name in SERVE_KERNELS:
-        require(counts[name] > 0,
-                f"kernel {name} never launched on the serving path")
-    for name in SERVE_NOT:
-        require(counts[name] == 0, f"{name} launched {counts[name]} times on "
-                "the bf16 serving path (its work belongs to the tensor cores)")
+    plain = _serve_run(params, cfg, "plain", reqs, wbytes)
+    prompts = {r.rid: r.prompt for r in reqs}
+    streams = {r.rid: list(r.tokens) for r in reqs}
+    runs = {"plain": plain}
+    served = {"plain": {r.rid: r for r in reqs}}
+    for label, drafter in (
+            ("spec ngram", NgramDrafter()),
+            ("spec oracle", OracleDrafter(streams, prompts, cfg.vocab))):
+        again = fresh()
+        run = _serve_run(params, cfg, label, again, wbytes, spec_k=4,
+                         drafter=drafter)
+        require(run["verify_iterations"] > 0,
+                f"{label}: no verify iteration ran")
+        require(run["verify_tc_launches"] > 0,
+                f"{label}: verify never launched the tensor-core forward")
+        runs[label] = run
+        served[label] = {r.rid: r for r in again}
+    require(runs["spec oracle"]["drafts_accepted"] > 0,
+            "spec oracle: no draft accepted")
+    # the plain run once more: the spread of the host-paced wall times
+    # between two runs of the same work in this process
+    runs["plain again"] = _serve_run(params, cfg, "plain again", fresh(),
+                                     wbytes)
 
-    # two streams against generate and a teacher-forced forward
-    for r in (reqs[0], reqs[9]):
-        want = generate(params, cfg, torch.tensor([r.prompt]),
-                        r.output_len, device="cuda")[0].tolist()
-        same = next((i for i, (a, b) in enumerate(zip(r.tokens, want))
-                     if a != b), len(want))
-        seq = torch.tensor([list(r.prompt) + r.tokens[:-1]], device="cuda")
-        logits = forward(params, cfg=cfg, tokens=seq)[0, r.prompt_len - 1:]
-        served = torch.tensor(r.tokens, device="cuda")
-        margin = logits.max(-1).values - logits.gather(
-            1, served[:, None])[:, 0]
-        worst = float(margin.max())
-        log(f"[serve] {r.rid} (prompt {r.prompt_len}, {r.output_len} "
-            f"tokens): equals generate for {same}/{len(want)} tokens; "
-            f"worst teacher-forced margin {worst:.4f} "
-            f"(tol {SERVE_LOGIT_TOL})")
-        require(worst <= SERVE_LOGIT_TOL,
-                f"{r.rid}: a served token is {worst:.4f} below the best "
-                "logit of a full forward")
-        if same < len(want):
-            log(f"[serve] {r.rid}: first difference at token {same} is a "
-                "bf16 near-tie (both tokens within tolerance of the best)")
-
-    gen_tokens = sum(len(r.tokens) for r in reqs)
-    ttfts = sorted(r.ttft_s for r in reqs)
-    dec = np.array([t for t, _ in ex.iters])
-    kvb = np.array([b for _, b in ex.iters], dtype=np.float64)
-    hbm = card_peaks()["hbm_bytes_per_s"]
-    bound = (wbytes + kvb) / hbm
-    full_bound = (wbytes + 8 * cfg.max_seq * kv_row_bytes) / hbm
-    out = {
-        "requests": 16, "slots": 8, "chunk": 256,
-        "generated_tokens": gen_tokens, "wall_s": wall,
-        "tokens_per_s": gen_tokens / wall,
-        "ttft_p50_s": ttfts[len(ttfts) // 2],
-        "ttft_max_s": ttfts[-1],
-        "decode_iterations": len(dec),
-        "decode_ms_mean": float(dec.mean() * 1e3),
-        "decode_ms_p50": float(np.median(dec) * 1e3),
-        "decode_bound_ms_mean": float(bound.mean() * 1e3),
-        "decode_bound_ms_full_cache": full_bound * 1e3,
-        "prefill_chunks": sched.prefill_chunks_total,
-        "iterations": sched.iterations, "launches": counts,
-    }
-    log(f"[serve] {gen_tokens} tokens in {wall:.3f} s = "
-        f"{out['tokens_per_s']:.1f} tokens/s; TTFT p50 "
-        f"{out['ttft_p50_s'] * 1e3:.1f} ms (max "
-        f"{out['ttft_max_s'] * 1e3:.1f} ms); decode {len(dec)} iterations, "
-        f"mean {out['decode_ms_mean']:.3f} ms p50 "
-        f"{out['decode_ms_p50']:.3f} ms vs bound "
-        f"{out['decode_bound_ms_mean']:.3f} ms (this run's weights + KV "
-        f"read; {full_bound * 1e3:.3f} ms with all 8 caches full)")
-    log("[serve] " + json.dumps(out))
-    return out
+    # two streams of each run against generate and a teacher-forced forward
+    for rid in ("req-00", "req-09"):
+        r0 = served["plain"][rid]
+        want = generate(params, cfg, torch.tensor([r0.prompt]),
+                        r0.output_len, device="cuda")[0].tolist()
+        for label, by_rid in served.items():
+            r = by_rid[rid]
+            same = next((i for i, (a, b) in enumerate(zip(r.tokens, want))
+                         if a != b), len(want))
+            worst = _margin(params, cfg, r)
+            log(f"[serve] {label} {rid} (prompt {r.prompt_len}, "
+                f"{r.output_len} tokens): equals generate for "
+                f"{same}/{len(want)} tokens; worst teacher-forced margin "
+                f"{worst:.4f} (tol {SERVE_LOGIT_TOL})")
+            require(worst <= SERVE_LOGIT_TOL,
+                    f"{label} {rid}: a served token is {worst:.4f} below the "
+                    "best logit of a full forward")
+            if same < len(want):
+                log(f"[serve] {label} {rid}: first difference at token "
+                    f"{same} is a bf16 near-tie (both tokens within "
+                    "tolerance of the best)")
+    for label, run in runs.items():
+        log("[serve] " + json.dumps({k: v for k, v in run.items()
+                                     if k != "launches"}))
+    launches = {k: sum(run["launches"][k] for run in runs.values())
+                for k in plain["launches"]}
+    return {"runs": runs, "launches": launches}
 
 
 def profile_window(params, cfg) -> None:
     """Where a serving iteration's time goes at the flagship shape: the
     device's busy time (torch.profiler's kernel times) per decode
-    iteration of 8 slots holding 512-token prompts and per 256-token
+    iteration of 8 slots holding 512-token prompts, per verify iteration
+    of the same 8 slots at width 5 (4 drafts each), and per 256-token
     prefill chunk, beside the same work's wall time without the profiler.
     A measurement, not a check: prints "not measured" when the profiler
     sees no device time."""
     from dpu_operator_tpu_torch.workloads.serve import (Request,
                                                         TorchSlotExecutor)
     ex = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
-                           device="cuda")
+                           spec_k=4, device="cuda")
     rng = np.random.default_rng(99)
     active = []
     for slot in range(8):
@@ -705,7 +904,11 @@ def profile_window(params, cfg) -> None:
         ex.prefill_chunk(req, slot, 0, 256)
         ex.prefill_chunk(req, slot, 256, 256)
         active.append((slot, req))
+    drafts = {slot: [int(t) for t in rng.integers(0, cfg.vocab, 4)]
+              for slot in range(8)}
     work = {"decode iteration (8 slots)": lambda: ex.step(active),
+            "verify iteration (8 slots x 5 rows)":
+                lambda: ex.spec_step(active, drafts),
             "prefill chunk (256 tokens)":
                 lambda: ex.prefill_chunk(active[0][1], 0, 0, 256)}
     for label, fn in work.items():
@@ -854,12 +1057,13 @@ def main() -> int:
     log(f"[serve] flagship bf16: {wbytes / 2 / 1e6:.1f}M parameters, "
         f"{wbytes / 1e6:.1f} MB, made on the card in "
         f"{time.monotonic() - t0:.1f} s")
-    counts = phase_serve(cfg, params)["launches"]  # the serve run's
+    counts = phase_serve(cfg, params)["launches"]  # the serve runs'
     profile_window(params, cfg)
     del params
     torch.cuda.empty_cache()
     train_counts = phase_train(cfg)["launches"]
-    # each kernel's launches on the two main paths, each read from zero
+    # each kernel's launches on the main paths (the three serve runs and
+    # the train run), each read from zero
     counts = {k: counts[k] + train_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],

@@ -1,35 +1,97 @@
 """Block accounting for the KV cache of the continuous-batching scheduler.
 
-The port's own copy of the allocation accounting of
-``dpu_operator_tpu/workloads/kv_pool.py::KvBlockPool``: a request holds
-fixed-size blocks of ``block_size`` token slots from admission to
-completion, and freed blocks are reusable at once. The free list is kept
-sorted and hands out the lowest id first, so a seeded run allocates the
-same blocks every time. Prefix sharing, copy-on-write, speculative
-rollback and the metrics gauges are not ported yet. Pure accounting: the
-slot executor's dense cache holds the data.
+The port's own copy of ``dpu_operator_tpu/workloads/kv_pool.py``: a
+request holds fixed-size blocks of ``block_size`` token slots from
+admission to completion, and freed blocks are reusable at once. The free
+list is kept sorted and hands out the lowest id first, so a seeded run
+allocates the same blocks every time.
+
+**Prefix sharing (copy-on-write).** With ``sharing=True`` the pool keeps a
+content-addressed index over allocated blocks, each block of a prompt
+keyed by the rolling hash of everything up to and including it
+(:func:`chain_keys`), so requests with a common prompt prefix map the same
+blocks, refcounted:
+
+- blocks are published only once their content is real
+  (:meth:`register_prefix`, after the owner's prefill);
+- :meth:`map_prefix` hands a later request the longest indexed chain;
+- a write into a block with refcount > 1 copies it first
+  (:meth:`write_token`), once per divergence; a write inside the covered
+  slots of a published block with refcount 1 unpublishes it;
+- :meth:`rollback_tokens` moves the written frontier back past rejected
+  speculation, accounting only: blocks and fired copies stay;
+- :meth:`free` returns a block to the free list only at refcount zero.
+
+Pure accounting: the executor's cache holds the data. The metrics gauges
+of the reference are not ported.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Optional, Sequence
+
+#: 61-bit Mersenne prime, the rolling-hash modulus (no PYTHONHASHSEED
+#: dependence)
+_HASH_MOD = (1 << 61) - 1
+_HASH_MUL = 1_000_003
+
+
+def _fold(h: int, values: Sequence[int]) -> int:
+    for v in values:
+        h = (h * _HASH_MUL + int(v) + 1) % _HASH_MOD
+    return h
+
+
+def chain_keys(tokens: Sequence[int], block_size: int) -> list:
+    """Content keys for the blocks of *tokens*: ``key[i]`` hashes every
+    token through block *i*, so a block matches only when its whole
+    prefix matches too. A final partial block's key also folds in its
+    length, so it matches only a tail of the same content and length."""
+    keys: list[int] = []
+    h = 0
+    n = len(tokens)
+    for start in range(0, n, block_size):
+        block = tokens[start:start + block_size]
+        h = _fold(h, block)
+        if len(block) < block_size:
+            h = _fold(h, (-1, len(block)))
+        keys.append(h)
+    return keys
+
+
+class KvPoolExhausted(Exception):
+    """The pool cannot satisfy an allocation (schedulers normally probe
+    with :meth:`KvBlockPool.can_alloc` and preempt instead)."""
 
 
 class KvBlockPool:
     """*num_blocks* blocks of *block_size* token slots, with per-owner
-    accounting. Owners are request ids. Thread-safe."""
+    accounting and optional refcounted prefix sharing. Owners are request
+    ids. Thread-safe."""
 
-    def __init__(self, num_blocks: int, block_size: int) -> None:
+    def __init__(self, num_blocks: int, block_size: int,
+                 sharing: bool = False) -> None:
         if num_blocks <= 0 or block_size <= 0:
             raise ValueError("num_blocks and block_size must be positive")
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.sharing = sharing
         self._lock = threading.Lock()
         self._free: list[int] = list(range(num_blocks))
         self._owned: dict[str, list[int]] = {}
         #: token slots holding real KV rows, per owner
         self._used_tokens: dict[str, int] = {}
+        #: block id -> refcount (allocated blocks only; shared >= 2)
+        self._refs: dict[int, int] = {}
+        #: prefix index: chain key -> block id, and block id -> (key,
+        #: token slots the key covers)
+        self._index: dict[int, int] = {}
+        self._block_key: dict[int, tuple] = {}
+        #: lifetime counters
+        self.cow_copies = 0
+        self.prefix_block_hits = 0
+        self.spec_rollback_tokens = 0
 
     def blocks_for_tokens(self, tokens: int) -> int:
         """Blocks needed to hold *tokens* token slots (ceil)."""
@@ -57,9 +119,108 @@ class KvBlockPool:
                 return None
             taken = self._free[:n_blocks]
             del self._free[:n_blocks]
+            for b in taken:
+                self._refs[b] = 1
             self._owned.setdefault(owner, []).extend(taken)
             self._used_tokens.setdefault(owner, 0)
             return taken
+
+    # -- prefix sharing -------------------------------------------------------
+    def probe_prefix(self, keys: Sequence[int]) -> int:
+        """How many leading blocks of *keys* the index could map now."""
+        if not self.sharing:
+            return 0
+        with self._lock:
+            return self._match_len_locked(keys)
+
+    def _match_len_locked(self, keys: Sequence[int]) -> int:
+        n = 0
+        for key in keys:
+            if key not in self._index:
+                break
+            n += 1
+        return n
+
+    def map_prefix(self, owner: str, keys: Sequence[int]) -> int:
+        """Map the longest indexed chain of *keys* as *owner*'s first
+        blocks (call before :meth:`alloc`), bumping each refcount; returns
+        the number of blocks mapped."""
+        if not self.sharing or not keys:
+            return 0
+        with self._lock:
+            if self._owned.get(owner):
+                raise ValueError(
+                    f"map_prefix must precede alloc for {owner!r}")
+            n = self._match_len_locked(keys)
+            if n == 0:
+                return 0
+            blocks = [self._index[k] for k in keys[:n]]
+            for b in blocks:
+                self._refs[b] += 1
+            self._owned.setdefault(owner, []).extend(blocks)
+            self._used_tokens.setdefault(owner, 0)
+            self.prefix_block_hits += n
+            return n
+
+    def register_prefix(self, owner: str, keys: Sequence[int],
+                        covered_tokens: int) -> int:
+        """Publish *owner*'s leading blocks under *keys* (block i under
+        key i) once its prefill has written them. *covered_tokens* (the
+        prompt length) is how many slots the keys describe: writes past a
+        key's coverage leave it valid. Keys already indexed, or blocks
+        already published, are skipped; returns the number published."""
+        if not self.sharing or not keys:
+            return 0
+        with self._lock:
+            owned = self._owned.get(owner, ())
+            published = 0
+            for i, key in enumerate(keys):
+                if i >= len(owned):
+                    break
+                block = owned[i]
+                if key in self._index or block in self._block_key:
+                    continue
+                covered = min(self.block_size,
+                              int(covered_tokens) - i * self.block_size)
+                if covered <= 0:
+                    break
+                self._index[key] = block
+                self._block_key[block] = (key, covered)
+                published += 1
+            return published
+
+    def write_token(self, owner: str, pos: int) -> Optional[bool]:
+        """Account one token write at sequence position *pos*. Into a
+        shared block (refcount > 1) it copies: a fresh block replaces it
+        in the owner's map and True is returned (None when the pool has no
+        block for the copy). Into an exclusive published block, inside
+        the key's covered slots, it unpublishes the block. False on every
+        write that does not copy."""
+        with self._lock:
+            owned = self._owned.get(owner)
+            if owned is None:
+                raise KeyError(f"unknown owner {owner!r}")
+            b_idx = int(pos) // self.block_size
+            if b_idx >= len(owned):
+                raise IndexError(
+                    f"{owner!r} writing pos {pos} past its "
+                    f"{len(owned)}-block reservation")
+            block = owned[b_idx]
+            if self._refs[block] > 1:
+                if not self._free:
+                    return None
+                fresh = self._free.pop(0)
+                self._refs[fresh] = 1
+                self._refs[block] -= 1
+                owned[b_idx] = fresh
+                self.cow_copies += 1
+                return True
+            entry = self._block_key.get(block)
+            if entry is not None and int(pos) % self.block_size \
+                    < entry[1]:
+                del self._block_key[block]
+                self._index.pop(entry[0], None)
+            return False
 
     def set_used_tokens(self, owner: str, tokens: int) -> None:
         """Record how many of *owner*'s slots hold real KV rows (capped at
@@ -70,19 +231,55 @@ class KvBlockPool:
             cap = len(self._owned[owner]) * self.block_size
             self._used_tokens[owner] = min(int(tokens), cap)
 
+    def rollback_tokens(self, owner: str, tokens: int) -> int:
+        """Move *owner*'s written frontier back to *tokens* after rejected
+        speculation. Accounting only: the blocks stay allocated (the next
+        accepted tokens rewrite the same slots) and a copy-on-write that
+        fired for a speculated write is not undone. A *tokens* at or above
+        the frontier is a no-op. Returns the slots rolled back."""
+        with self._lock:
+            if owner not in self._owned:
+                raise KeyError(f"unknown owner {owner!r}")
+            if tokens < 0:
+                raise ValueError("tokens must be >= 0")
+            cur = self._used_tokens.get(owner, 0)
+            new = min(cur, int(tokens))
+            rolled = cur - new
+            if rolled:
+                self._used_tokens[owner] = new
+                self.spec_rollback_tokens += rolled
+            return rolled
+
     def free(self, owner: str) -> int:
-        """Return every block *owner* holds; freeing an unknown owner is a
-        no-op. Returns the number of blocks freed."""
+        """Drop every block *owner* holds: each refcount falls by one and a
+        block returns to the free list (and leaves the index) only at zero.
+        Freeing an unknown owner is a no-op. Returns the blocks released."""
         with self._lock:
             blocks = self._owned.pop(owner, None)
             self._used_tokens.pop(owner, None)
             if not blocks:
                 return 0
-            self._free.extend(blocks)
-            self._free.sort()
-            return len(blocks)
+            released = []
+            for b in blocks:
+                refs = self._refs[b] - 1
+                if refs < 0:
+                    raise AssertionError(
+                        f"block {b} refcount went negative")
+                if refs == 0:
+                    del self._refs[b]
+                    entry = self._block_key.pop(b, None)
+                    if entry is not None:
+                        self._index.pop(entry[0], None)
+                    released.append(b)
+                else:
+                    self._refs[b] = refs
+            if released:
+                self._free.extend(released)
+                self._free.sort()
+            return len(released)
 
     def outstanding(self) -> int:
-        """Blocks currently allocated: 0 once every request is done."""
+        """Blocks currently allocated (a block mapped N times counts
+        once): 0 once every request is done."""
         with self._lock:
             return self.num_blocks - len(self._free)

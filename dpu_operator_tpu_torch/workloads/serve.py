@@ -1,4 +1,4 @@
-"""Continuous-batching serving: requests, the slot executor, the scheduler.
+"""Continuous-batching serving: requests, the executors, the scheduler.
 
 The port's core of ``dpu_operator_tpu/workloads/serve.py``:
 
@@ -7,16 +7,22 @@ The port's core of ``dpu_operator_tpu/workloads/serve.py``:
 - :class:`TorchSlotExecutor`, with the contract of ``JaxSlotExecutor``:
   slot i owns row i of a (slots, max_seq, H, Dh) cache and sits at its own
   position; ``begin`` prefills a whole prompt, ``prefill_chunk`` one chunk
-  of it, ``step`` decodes every slot once (greedy);
+  of it, ``step`` decodes every slot once (greedy), ``spec_step`` verifies
+  every slot's drafts at a fixed width in one pass;
+- :class:`SimExecutor` and :class:`PeriodicSimExecutor`, synthetic tokens
+  on the host: the only executors whose cache can alias blocks, so the
+  ones through which prefix sharing, copy-on-write and rollback run;
 - :class:`Scheduler`, whose iteration follows ``Scheduler._step_locked``:
   admission in class order (interactive before batch, FIFO within a class)
-  into a free slot with the whole sequence's KV blocks reserved, a chunked
-  prefill pass under a per-iteration token budget, one batched decode
-  pass, then completion and release of slot and blocks.
+  into a free slot with the whole sequence's KV blocks reserved (shared
+  prefix blocks mapped, not allocated), preempting batch requests for an
+  interactive one; a chunked prefill pass under a per-iteration token
+  budget; one batched decode pass, or a speculative verify pass when the
+  adaptive draft length says so; then completion and release.
 
-Not ported yet: preemption, speculative decoding, prefix sharing, the
-fault / retry engine, the degrade ladder, deadlines, tracing, metrics and
-the cost ledger, ``DecodeService`` and the HTTP ingress.
+Not ported yet: the fault / retry engine, the degrade ladder, deadlines,
+tracing spans, metrics and the cost ledger, ``DecodeService`` and the HTTP
+ingress.
 """
 
 from __future__ import annotations
@@ -24,15 +30,16 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import logging
-import time
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from .decode import decode_step, init_kv_cache, prefill, prefill_chunk
-from .kv_pool import KvBlockPool
+from .decode import (decode_step, init_kv_cache, prefill, prefill_chunk,
+                     verify_step)
+from .kv_pool import KvBlockPool, chain_keys
+from .spec import AdaptiveK, NgramDrafter, greedy_accept
 
 log = logging.getLogger(__name__)
 
@@ -62,12 +69,26 @@ class Request:
     state: str = QUEUED
     slot: Optional[int] = None
     tokens: list = dataclasses.field(default_factory=list)
+    admitted_s: Optional[float] = None
     first_token_s: Optional[float] = None
     finish_s: Optional[float] = None
+    preemptions: int = 0
     reject_reason: str = ""
-    #: chunked prefill: ids consumed so far and the target (prompt length)
+    #: chunked prefill: ids consumed so far, the target (prompt + kept
+    #: tokens) and where this admission started (past any shared prefix;
+    #: a preemption counts ``prefilled - prefill_start`` as discarded)
     prefilled: int = 0
     prefill_target: int = 0
+    prefill_start: int = 0
+    #: prefix sharing: the prompt's block chain keys, and the prompt
+    #: tokens covered by mapped shared blocks
+    prefix_keys: Optional[list] = dataclasses.field(default=None,
+                                                    repr=False)
+    shared_tokens: int = 0
+    #: when the current wait began (arrival, or the preemption), and the
+    #: decode iterations of the current residency
+    queued_since_s: Optional[float] = None
+    decode_iters: int = 0
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -83,14 +104,16 @@ class Request:
 @dataclasses.dataclass(frozen=True)
 class CostModel:
     """Modelled iteration costs in seconds, which advance the scheduler's
-    virtual clock when it runs without a real one: a decode iteration is
-    one weight sweep plus a per-sequence term, prefill is linear in
-    tokens. The defaults are the JAX package's and were not measured on
-    this port's card."""
+    virtual clock when it runs without a real one and price the adaptive
+    draft length: a decode iteration is one weight sweep plus a
+    per-sequence term, a verify iteration adds a term per scored draft,
+    prefill is linear in tokens. The defaults are the JAX package's and
+    were not measured on this port's card."""
 
     decode_base_s: float = 0.025
     decode_per_seq_s: float = 0.0005
     prefill_per_token_s: float = 0.0002
+    spec_verify_per_token_s: float = 0.0002
 
     def decode_s(self, batch: int) -> float:
         return self.decode_base_s + self.decode_per_seq_s * batch \
@@ -98,6 +121,12 @@ class CostModel:
 
     def prefill_s(self, tokens: int) -> float:
         return self.prefill_per_token_s * tokens
+
+    def verify_s(self, batch: int, k: int) -> float:
+        """One verify iteration scoring k drafts per sequence; k = 0 is
+        exactly ``decode_s``."""
+        return self.decode_s(batch) \
+            + self.spec_verify_per_token_s * batch * k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +136,11 @@ class ServeConfig:
     class's queue (past it requests are rejected); a positive
     *prefill_chunk_tokens* spends at most that many prompt tokens per
     iteration on prefill chunks interleaved with decode (0: whole-prompt
-    prefill at admission); *static* admits only into an empty batch."""
+    prefill at admission); *static* admits only into an empty batch;
+    *preemption* lets an interactive request evict batch requests;
+    *prefix_sharing* maps common prompt prefixes onto the same blocks
+    (with a prefix-aware executor); a positive *spec_k* speculates up to
+    that many drafts per sequence per iteration."""
 
     slots: int = 8
     kv_blocks: int = 256
@@ -115,6 +148,73 @@ class ServeConfig:
     queue_limit: int = 64
     prefill_chunk_tokens: int = 0
     static: bool = False
+    preemption: bool = True
+    prefix_sharing: bool = False
+    spec_k: int = 0
+
+
+class SimExecutor:
+    """Synthetic tokens, a pure function of (rid, position): the scheduling
+    harness executor. It stores no KV, so prefix sharing is accounting
+    alone and any chunk or verify width fits (0 = unbounded)."""
+
+    prefix_aware = True
+    chunk_capacity = 0
+    spec_width = 0
+
+    def begin(self, req: Request, slot: int) -> int:
+        # the continuation token: a re-admitted request re-prefills
+        # prompt + tokens and goes on from the stream it has
+        return self._token(req, len(req.tokens))
+
+    def prefill_chunk(self, req: Request, slot: int, offset: int,
+                      n: int) -> Optional[int]:
+        """The continuation token when this chunk completes the prompt,
+        else None."""
+        if offset + n >= req.prompt_len + len(req.tokens):
+            return self._token(req, len(req.tokens))
+        return None
+
+    def step(self, active: list) -> dict:
+        return {slot: self._token(req, len(req.tokens))
+                for slot, req in active}
+
+    def spec_step(self, active: list, drafts: dict) -> dict:
+        """Each row's drafts scored against the true stream by
+        :func:`greedy_accept`; returns ``{slot: [emitted tokens]}``."""
+        out = {}
+        for slot, req in active:
+            d = drafts.get(slot, [])
+            base = len(req.tokens)
+            truth = [self._token(req, base + i)
+                     for i in range(len(d) + 1)]
+            _, emitted = greedy_accept(d, truth)
+            out[slot] = emitted
+        return out
+
+    @staticmethod
+    def _token(req: Request, n: int) -> int:
+        acc = 0
+        for ch in req.rid:
+            acc = (acc * 131 + ord(ch)) % 50_021
+        return (acc + 7919 * n) % 50_021
+
+
+class PeriodicSimExecutor(SimExecutor):
+    """Synthetic stream whose tokens cycle with a fixed *period*: the
+    drafter-friendly traffic shape, where the n-gram drafter's acceptance
+    approaches 1 after one period."""
+
+    def __init__(self, period: int = 4) -> None:
+        if period < 1:
+            raise ValueError("period must be >= 1")
+        self.period = period
+
+    def _token(self, req: Request, n: int) -> int:  # type: ignore[override]
+        acc = 0
+        for ch in req.rid:
+            acc = (acc * 131 + ord(ch)) % 50_021
+        return (acc + 7919 * (n % self.period)) % 50_021
 
 
 class TorchSlotExecutor:
@@ -127,11 +227,9 @@ class TorchSlotExecutor:
 
     #: a dense slot row cannot alias blocks of another request
     prefix_aware = False
-    #: no speculative verify path in this executor yet
-    spec_width = None
 
     def __init__(self, params: dict, cfg: Any, slots: int,
-                 chunk_tokens: int = 0,
+                 chunk_tokens: int = 0, spec_k: int = 0,
                  device: "str | torch.device" = "cuda") -> None:
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -142,6 +240,9 @@ class TorchSlotExecutor:
         self.slots = slots
         #: fixed padded chunk width for prefill_chunk; None = no chunking
         self.chunk_capacity = int(chunk_tokens) if chunk_tokens else None
+        #: fixed verify width (drafts + 1) for spec_step; None = no
+        #: verify path (a speculating Scheduler refuses the executor)
+        self.spec_width = int(spec_k) + 1 if spec_k else None
         self.cache = init_kv_cache(cfg, slots, device=self.device)
         self.pos = np.zeros(slots, dtype=np.int32)
         self.last = np.zeros(slots, dtype=np.int32)
@@ -199,14 +300,16 @@ class TorchSlotExecutor:
         self.last[slot] = tok
         return tok
 
+    def _positions(self) -> torch.Tensor:
+        return torch.from_numpy(np.clip(self.pos, 0, self.cfg.max_seq - 1)
+                                ).to(self.device)
+
     def step(self, active: list) -> dict:
         """One decode iteration over every slot; returns ``{slot: token}``
         for the *active* ``(slot, request)`` pairs."""
         tokens = torch.from_numpy(self.last.astype(np.int64))
-        pos = torch.from_numpy(np.clip(self.pos, 0, self.cfg.max_seq - 1))
         logits, _ = decode_step(self.params, self.cfg, self.cache,
-                                tokens.to(self.device),
-                                pos.to(self.device))
+                                tokens.to(self.device), self._positions())
         # the one device-to-host copy of the iteration: every slot's argmax
         picked = logits.argmax(-1).cpu().numpy()
         out = {}
@@ -217,6 +320,42 @@ class TorchSlotExecutor:
             out[slot] = tok
         return out
 
+    def spec_step(self, active: list, drafts: dict) -> dict:
+        """One speculative iteration: every slot's row ``[last committed,
+        d_1..d_k]``, padded to ``spec_width`` with repeats of the committed
+        token, goes through one :func:`verify_step`, and the exact greedy
+        rule accepts on the host. A row whose drafts are all rejected still
+        emits the correction token; the K/V it wrote past the accepted
+        frontier is dead, overwritten before a causal mask admits it, and
+        rows past ``max_seq`` are not written. Returns ``{slot: [emitted
+        tokens]}`` for the *active* pairs."""
+        if not self.spec_width:
+            raise ValueError("TorchSlotExecutor needs spec_k > 0 for "
+                             "speculative decoding")
+        width = self.spec_width
+        tokens = np.tile(self.last.astype(np.int64)[:, None], (1, width))
+        n_drafted = {}
+        for slot, _req in active:
+            d = [int(t) for t in drafts.get(slot, ())][:width - 1]
+            n_drafted[slot] = len(d)
+            tokens[slot, 1:1 + len(d)] = d
+        logits, _ = verify_step(self.params, self.cfg, self.cache,
+                                torch.from_numpy(tokens).to(self.device),
+                                self._positions())
+        # the one device-to-host copy of the iteration: every slot's k + 1
+        # argmaxes
+        picked = logits.argmax(-1).cpu().numpy()
+        out = {}
+        for slot, _req in active:
+            k = n_drafted[slot]
+            _, emitted = greedy_accept(
+                [int(t) for t in tokens[slot, 1:1 + k]],
+                [int(t) for t in picked[slot, :k + 1]])
+            self.last[slot] = emitted[-1]
+            self.pos[slot] += len(emitted)
+            out[slot] = emitted
+        return out
+
 
 class Scheduler:
     """Iteration-level continuous-batching scheduler over an executor.
@@ -224,23 +363,51 @@ class Scheduler:
     Drive it with :meth:`step` (one iteration) or :meth:`run` (until
     drained). Without a *clock* time is virtual and advances by the cost
     model; with one (``time.monotonic``) latencies are measured. Every
-    admission, chunk, decode and completion is appended to :attr:`trace`.
+    admission, preemption, chunk, decode, speculation and completion is
+    appended to :attr:`trace` as the JAX scheduler writes it. *drafter*
+    proposes the drafts when ``config.spec_k > 0`` (default
+    :class:`NgramDrafter`).
     """
 
     def __init__(self, config: ServeConfig, executor: Any,
                  cost_model: Optional[CostModel] = None,
-                 clock: Optional[Callable[[], float]] = None) -> None:
+                 clock: Optional[Callable[[], float]] = None,
+                 drafter: Optional[Any] = None) -> None:
         self.config = config
         self.executor = executor
         self.cost = cost_model if cost_model is not None else CostModel()
         self._clock = clock
-        self.pool = KvBlockPool(config.kv_blocks, config.kv_block_size)
+        self.pool = KvBlockPool(config.kv_blocks, config.kv_block_size,
+                                sharing=config.prefix_sharing)
+        #: sharing needs an executor whose cache can alias blocks; mapping
+        #: without one would share rows a real cache never holds
+        self._share = (config.prefix_sharing
+                       and getattr(executor, "prefix_aware", False))
         self._chunked = config.prefill_chunk_tokens > 0 and not config.static
         if self._chunked and getattr(executor, "chunk_capacity",
                                      0) is None:
             raise ValueError(
                 "chunked prefill configured but the executor was built "
                 "without a chunk width (pass chunk_tokens)")
+        self._spec_on = config.spec_k > 0
+        if self._spec_on:
+            width = getattr(executor, "spec_width", None)
+            if width is None:
+                raise ValueError(
+                    "speculative decoding configured but the executor "
+                    "has no verify path (pass spec_k to "
+                    "TorchSlotExecutor)")
+            if width and width < config.spec_k + 1:
+                raise ValueError(
+                    f"executor verify width {width} cannot score "
+                    f"{config.spec_k} drafts (needs spec_k + 1 "
+                    "positions)")
+        self._drafter = drafter if drafter is not None else NgramDrafter()
+        #: the adaptive draft length, with the lifetime proposed /
+        #: accepted counts
+        self._spec = AdaptiveK(k_max=config.spec_k)
+        #: (iteration, row) verify events that carried drafts
+        self.spec_rows_total = 0
         self.now = 0.0 if clock is None else clock()
         #: future arrivals: (arrival_s, submission seq, request) min-heap
         self._pending: list[tuple] = []
@@ -256,7 +423,9 @@ class Scheduler:
         self.rejected: list[Request] = []
         self.failed: list[Request] = []
         self.iterations = 0
+        self.preemptions = 0
         self.prefill_chunks_total = 0
+        self.prefill_tokens_discarded = 0
         self.trace: list[tuple] = []
 
     # -- intake ---------------------------------------------------------------
@@ -289,7 +458,8 @@ class Scheduler:
             self._prefill_pass(it)
         else:
             for req in admitted:
-                self._advance(self.cost.prefill_s(req.prefill_target))
+                self._advance(self.cost.prefill_s(
+                    req.prefill_target - req.prefill_start))
                 try:
                     tok = self.executor.begin(req, req.slot)
                 except (ValueError, RuntimeError) as e:
@@ -300,12 +470,19 @@ class Scheduler:
         active = sorted((slot, req) for slot, req in self._active.items()
                         if req.state == RUNNING
                         and len(req.tokens) < req.output_len)
-        if active:
+        drafts = self._propose(active) if active and self._spec_on \
+            else None
+        if active and drafts:
+            self._spec_pass(it, active, drafts)
+        elif active:
             self._advance(self.cost.decode_s(len(active)))
             toks = self.executor.step(active)
             self._tick()
             for slot, req in active:
+                if self._share:
+                    self._write(it, req, req.prompt_len + len(req.tokens))
                 req.tokens.append(toks[slot])
+                req.decode_iters += 1
                 self.pool.set_used_tokens(
                     req.rid, req.prompt_len + len(req.tokens))
             self.trace.append(("decode", it, len(active)))
@@ -334,11 +511,75 @@ class Scheduler:
     def _queued_count(self) -> int:
         return sum(len(q) for q in self._queues.values())
 
+    def _write(self, it: int, req: Request, pos: int) -> None:
+        """Account a decode or verify write under sharing. A copy the full
+        pool cannot make proceeds uncopied rather than stall (a stalled
+        request frees nothing), and the trace says so."""
+        if self.pool.write_token(req.rid, pos) is None:
+            self.trace.append(("cow_uncopied", it, req.rid))
+
+    # -- speculative decoding -------------------------------------------------
+    def _propose(self, active: list) -> Optional[dict]:
+        """The speculate-or-decode decision and each row's drafts: the
+        adaptive k from the cost model and the acceptance EWMA; k = 0, or
+        no row with a draft, returns None (plain decode). The reference
+        also clamps k to 0 on the degrade ladder's no-speculation rung;
+        the ladder is not ported yet."""
+        k = self._spec.choose(self.cost, len(active))
+        if k <= 0:
+            return None
+        drafts: dict = {}
+        for slot, req in active:
+            # a row emits up to drafts + 1 tokens: never draft past the
+            # request's remaining output (or its KV reservation)
+            remaining = req.output_len - len(req.tokens)
+            if remaining <= 1:
+                continue
+            ids = list(req.prompt or ()) + list(req.tokens)
+            d = self._drafter.propose(ids, min(k, remaining - 1))
+            if d:
+                drafts[slot] = [int(t) for t in d]
+        return drafts or None
+
+    def _spec_pass(self, it: int, active: list, drafts: dict) -> None:
+        """One verify iteration: the executor scores every row's drafts in
+        one pass, and each row's accepted + 1 tokens commit. Under sharing
+        every speculated position is written at verify time (so
+        copy-on-write fires when the divergent write happens) and the
+        written frontier rolls back past the accepted tokens."""
+        k_iter = max(len(d) for d in drafts.values())
+        self._advance(self.cost.verify_s(len(active), k_iter))
+        emitted = self.executor.spec_step(active, drafts)
+        self._tick()
+        for slot, req in active:
+            toks = emitted[slot]
+            proposed = len(drafts.get(slot, ()))
+            accepted = len(toks) - 1
+            base = req.prompt_len + len(req.tokens)
+            if self._share:
+                for i in range(proposed + 1):
+                    self._write(it, req, base + i)
+                self.pool.set_used_tokens(req.rid, base + proposed + 1)
+            req.tokens.extend(toks)
+            req.decode_iters += 1
+            used = req.prompt_len + len(req.tokens)
+            if self._share and accepted < proposed:
+                self.pool.rollback_tokens(req.rid, used)
+            self.pool.set_used_tokens(req.rid, used)
+            if proposed:
+                self._spec.observe(proposed, accepted)
+                self.spec_rows_total += 1
+                self.trace.append(("spec", it, req.rid, proposed,
+                                   accepted))
+        self.trace.append(("decode", it, len(active)))
+
+    # -- admission ------------------------------------------------------------
     def _reject(self, req: Request, reason: str) -> None:
         req.state = REJECTED
         req.reject_reason = reason
         self.rejected.append(req)
-        self.trace.append(("reject", self.iterations + 1, req.rid, reason))
+        self.trace.append(("reject", self.iterations + 1, req.rid,
+                           req.slo_class, reason))
 
     def _ingest(self) -> None:
         """Move due arrivals into their class queue, rejecting duplicate
@@ -354,6 +595,7 @@ class Scheduler:
             elif len(self._queues[req.slo_class]) >= self.config.queue_limit:
                 self._reject(req, "queue_full")
             else:
+                req.queued_since_s = req.arrival_s
                 self._queues[req.slo_class].append(req)
                 self._live_rids.add(req.rid)
 
@@ -365,30 +607,121 @@ class Scheduler:
 
     def _admit(self, it: int) -> list:
         """Admission: the head request, in class order, into the lowest
-        free slot with its whole sequence's blocks reserved; stops at the
-        first head that does not fit. Returns the requests admitted."""
+        free slot with its whole sequence's blocks reserved; with sharing
+        its indexed prefix blocks are mapped and only the rest allocated.
+        An interactive head that does not fit preempts batch requests;
+        otherwise admission stops at the first head that does not fit.
+        Returns the requests admitted (prefill pending)."""
         if self.config.static and self._active:
             return []
         admitted: list[Request] = []
-        while self._free_slots:
+        while self._free_slots or self._can_preempt_for_head():
             req = self._head()
             if req is None:
                 break
             blocks = self.pool.blocks_for_tokens(req.total_tokens())
-            if self.pool.alloc(req.rid, blocks) is None:
+            keys: list = []
+            if self._share and req.prompt:
+                if req.prefix_keys is None:
+                    req.prefix_keys = chain_keys(req.prompt,
+                                                 self.pool.block_size)
+                # never map more than the reservation
+                keys = req.prefix_keys[:blocks]
+            fresh = blocks - self.pool.probe_prefix(keys)
+            if not self._free_slots or not self.pool.can_alloc(fresh):
+                if not (req.slo_class == INTERACTIVE
+                        and self.config.preemption
+                        and self._preempt_for(it, req, fresh)):
+                    break
+                # a victim may have held the last reference of an indexed
+                # block: size the fresh ask again
+                fresh = blocks - self.pool.probe_prefix(keys)
+                if not self._free_slots \
+                        or not self.pool.can_alloc(fresh):
+                    break
+            mapped = self.pool.map_prefix(req.rid, keys)
+            if self.pool.alloc(req.rid, blocks - mapped) is None:
+                self.pool.free(req.rid)  # roll the mapping back
                 break
+            req.shared_tokens = min(mapped * self.pool.block_size,
+                                    req.prompt_len)
+            if self._share and mapped and req.tokens:
+                # re-admission after a preemption: the kept tokens
+                # re-prefill past the prompt, possibly into a just-mapped
+                # shared tail block, so copy it before the executor writes
+                for pos in range(req.prompt_len,
+                                 req.prompt_len + len(req.tokens)):
+                    if self.pool.write_token(req.rid, pos) is None:
+                        log.warning("kv pool exhausted at CoW for %s "
+                                    "re-admission; divergence proceeds "
+                                    "uncopied", req.rid)
+                        break
             self._queues[req.slo_class].remove(req)
             slot = self._free_slots.pop(0)
             req.slot = slot
             req.state = RUNNING
+            req.admitted_s = self.now
+            req.queued_since_s = None
             req.prefill_target = req.prompt_len + len(req.tokens)
-            req.prefilled = 0
+            # shared coverage is KV already computed: prefill resumes past
+            # it, always leaving one token whose logits pick the next one
+            req.prefill_start = min(req.shared_tokens,
+                                    req.prefill_target - 1)
+            req.prefilled = req.prefill_start
             self._active[slot] = req
             admitted.append(req)
             self.trace.append(("admit", it, req.rid, req.slo_class, slot,
-                               blocks))
+                               blocks - mapped, mapped))
         return admitted
 
+    def _can_preempt_for_head(self) -> bool:
+        req = self._head()
+        return (req is not None and req.slo_class == INTERACTIVE
+                and self.config.preemption
+                and any(r.slo_class == BATCH
+                        for r in self._active.values()))
+
+    def _preempt_for(self, it: int, req: Request, blocks: int) -> bool:
+        """Evict batch requests, latest-admitted first, until *req* fits
+        (a free slot and *blocks* fresh blocks). A victim keeps its tokens
+        and goes back to the front of the batch queue; its KV is computed
+        again on re-admission. One caught mid-prefill leaves the chunk
+        queue, and its chunk progress since admission counts as discarded
+        prefill work. Returns whether *req* now fits."""
+        victims = sorted(
+            (r for r in self._active.values() if r.slo_class == BATCH),
+            key=lambda r: (-(r.admitted_s or 0.0), r.rid))
+        progressed = False
+        for victim in victims:
+            if self._free_slots and self.pool.can_alloc(blocks):
+                break
+            slot = victim.slot
+            self.pool.free(victim.rid)
+            del self._active[slot]
+            self._free_slots.append(slot)
+            self._free_slots.sort()
+            victim.slot = None
+            discarded = 0
+            phase = "decode"
+            if victim in self._prefilling:
+                self._prefilling.remove(victim)
+                phase = "prefill"
+                discarded = max(0, victim.prefilled - victim.prefill_start)
+                self.prefill_tokens_discarded += discarded
+            victim.decode_iters = 0
+            victim.queued_since_s = self.now
+            victim.prefilled = 0
+            victim.state = QUEUED
+            victim.preemptions += 1
+            self.preemptions += 1
+            self._queues[BATCH].insert(0, victim)
+            progressed = True
+            self.trace.append(("preempt", it, victim.rid, req.rid, phase,
+                               discarded))
+        return progressed and bool(self._free_slots) \
+            and self.pool.can_alloc(blocks)
+
+    # -- prefill --------------------------------------------------------------
     def _prefill_pass(self, it: int) -> None:
         """Spend this iteration's prefill budget over the chunk queue:
         interactive first, FIFO within a class, the head served to the end
@@ -426,7 +759,8 @@ class Scheduler:
 
     def _finish_prefill(self, it: int, req: Request,
                         tok: Optional[int]) -> None:
-        """The prompt is in the cache: append the first token and stamp
+        """The prompt is in the cache: publish its blocks in the prefix
+        index, account the first token's write, append the token and stamp
         TTFT. A missing token is the executor breaking its contract and
         fails the request (left active it would hold its slot forever)."""
         if tok is None:
@@ -436,11 +770,22 @@ class Scheduler:
             return
         self._tick()
         req.state = RUNNING
+        if self._share and req.prefix_keys:
+            # before the first token's write, which lands past the keys'
+            # coverage and so cannot unpublish them
+            self.pool.register_prefix(req.rid, req.prefix_keys,
+                                      req.prompt_len)
+        if self._share and self.pool.write_token(
+                req.rid, req.prompt_len + len(req.tokens)) is None:
+            log.warning("kv pool exhausted at CoW for %s; divergence "
+                        "proceeds uncopied", req.rid)
         if not req.tokens:
             req.first_token_s = self.now
+        req.decode_iters = 0
         req.tokens.append(tok)
         self.pool.set_used_tokens(req.rid, req.prompt_len + len(req.tokens))
 
+    # -- teardown -------------------------------------------------------------
     def _release(self, req: Request) -> None:
         """Free chunk-queue entry, slot and KV blocks: the one teardown
         that completion and failure share."""

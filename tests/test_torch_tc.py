@@ -58,6 +58,9 @@ def cuda():
     (BF16, 128, 512, False, "tc"),      # whole-prompt prefill
     (BF16, 128, 256, False, "tc"),      # a prefill chunk
     (BF16, 64, 300, False, "tc"),
+    (BF16, 128, 5, False, "tc"),        # speculative verify, k = 4
+    (BF16, 128, 2, False, "tc"),        # speculative verify, k = 1
+    (F32, 128, 4, False, "simt"),
     (BF16, 128, 1024, True, "tc"),      # the training forward
     (BF16, 64, 1000, True, "tc"),
     (BF16, 128, 1, True, "tc"),         # with the lse, one row is tiled
@@ -275,6 +278,28 @@ def test_cuda_tc_forward_at_offset_over_a_slot_row(cuda, tile, d, offset):
     got = attention_fwd(q, ck[2:3], cv[2:3], pos)
     want = attention_fwd_plain(q, ck[2:3], cv[2:3], pos)
     assert _scaled_err(got, want) <= TOL_BF16
+
+
+@pytest.mark.parametrize("width", [2, 5])
+def test_cuda_tc_forward_at_verify_width(cuda, tile, width):
+    """Speculative verify's shape: 8 slots of *width* rows, each at its own
+    position over the whole cache (rows past its end included, as a verify
+    near the end of a slot row gives them), against the plain version; a
+    slot launched alone equals its row of the 8-slot launch bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    h, d, max_seq = 12, 128, 1024
+    ck, cv = (torch.randn((8, max_seq, h, d), generator=g,
+                          device=cuda).to(BF16) for _ in range(2))
+    q = torch.randn((8, width, h, d), generator=g, device=cuda).to(BF16)
+    pos = torch.tensor([0, 1, 127, 128, 511, 1000, max_seq - 2,
+                        max_seq - 1], dtype=torch.int32, device=cuda)
+    got = attention_fwd(q, ck, cv, pos)
+    assert _scaled_err(got, attention_fwd_plain(q, ck, cv, pos)) \
+        <= TOL_BF16
+    for i in (0, 6):
+        one = attention_fwd(q[i:i + 1], ck[i:i + 1], cv[i:i + 1],
+                            pos[i:i + 1])
+        assert torch.equal(one, got[i:i + 1]), i
 
 
 @pytest.mark.parametrize("d", [64, 128])
