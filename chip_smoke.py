@@ -34,14 +34,25 @@ Phases, each of which passes or raises (a failure exits non-zero):
    (``NgramDrafter``), and by an oracle fed the plain run's streams with
    the last draft of each proposal corrupted; verify must run on the
    tensor-core forward, and each run is reported beside the plain one;
-6. train the flagship (bf16, batch 8 x 1024 tokens) through
+6. serve the same requests under faults, on the scheduler's virtual clock,
+   through ``ChaosExecutor(TorchSlotExecutor(...))``: (a) plain decode
+   under a prefill Oom, a decode-step reset, a poisoned rid, a deadline
+   missed at admission, one missed mid-stream, a cancel and late batch
+   arrivals the degradation ladder sheds, its trace equal entry for entry
+   to the same run over a host ``SimExecutor``; (b) speculation at k = 4
+   with the oracle drafter, four verify faults in a row walking the ladder
+   to ``no_spec``, after which no verify may run. Every executor
+   exception must be one the plan injected (or the poisoned rid's), every
+   completed stream must hold to the plain run's, no block may leak;
+7. train the flagship (bf16, batch 8 x 1024 tokens) through
    ``make_train_step`` and ``measure_train``: 1 warm-up and 5 timed AdamW
    steps, loss finite and falling, every gradient leaf finite and not all
    zero, the three training kernels launched 12 times a step, all on the
    tensor cores; one profiled step shows where the device time goes.
 
-A profile window between phases 5 and 6 shows where the time of a decode
-iteration, a verify iteration and a prefill chunk goes.
+A profile window between phases 6 and 7 shows where the time of a decode
+iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
+an empty kernel, the card's floor for one launch.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
@@ -233,6 +244,23 @@ def _rms_case(gen, rows: int, d: int, dtype) -> dict:
             lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-6)),
         "bound_ms": bound, "bound_by": by,
     }
+
+
+def _launch_floor() -> float:
+    """Device time of one launch of an empty kernel under the same
+    graph replay as the kernels' times: the card's floor for a launch."""
+    import torch
+    from dpu_operator_tpu_torch.ops import _build
+    lib = _build.library()
+
+    def launch():
+        _build.check(lib.launch_floor(torch.cuda.current_stream().cuda_stream),
+                     "launch_floor")
+
+    ms, eager = graph_ms(launch), cuda_ms(launch, 50)
+    log(f"[kernels] empty kernel (the launch floor): {ms * 1e3:.2f} us a "
+        f"launch under graph replay; eager call {eager * 1e3:.2f} us")
+    return ms
 
 
 def launched(fn):
@@ -481,6 +509,7 @@ def phase_kernels(cfg) -> list:
             f"verify took {cases[-1]['kernel']}, not the tensor cores")
     # RMSNorm at the training shape (batch 8 x 1024 tokens)
     cases.append(_rms_case(gen, 8 * s_max, d, bf16))
+    _launch_floor()
     for c in cases:
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
@@ -513,6 +542,18 @@ def _serve(params, cfg, reqs, slots: int, chunk: int, device: str,
         sched.submit(r)
     sched.run()
     return sched, ex
+
+
+def _require_fault_free(label: str, sched) -> None:
+    """A fault-free run on the card: the fault engine catches every
+    executor exception, so a launch that failed and then passed on retry
+    would otherwise go unseen. No retry, no failure, no step fault."""
+    faults = [t for t in sched.trace if t[0] in ("step_fault", "retry",
+                                                 "fail", "poison")]
+    require(sched.retries_total == 0 and sched.failed_total == 0
+            and not faults,
+            f"{label}: the executor faulted: retries {sched.retries_total} "
+            f"failed {sched.failed_total}, first fault tuples {faults[:3]}")
 
 
 def _requests(rng, n: int, vocab: int, plen: tuple, olen: tuple) -> list:
@@ -560,6 +601,7 @@ def phase_cpu_parity() -> None:
         require(r.tokens == want, f"tiny fp32 serve {r.rid}: stream "
                 f"{r.tokens} != generate {want}")
     require(sched.pool.outstanding() == 0, "tiny serve leaked KV blocks")
+    _require_fault_free("tiny fp32 serve", sched)
     log(f"[parity] tiny fp32 serve on the card: {len(reqs)} requests on 2 "
         "slots, chunk 16, every stream equals generate")
     _spec_preempt_parity(p_gpu, cfg)
@@ -627,6 +669,7 @@ def _spec_preempt_parity(params, cfg) -> None:
     require(any(t[0] == "spec" and t[2] == victim for t in trace[:pre]),
             f"{victim} was preempted before it speculated")
     require(sched.pool.outstanding() == 0, "tiny spec serve leaked KV blocks")
+    _require_fault_free("tiny fp32 spec serve", sched)
     spec = [t for t in trace if t[0] == "spec"]
     log(f"[parity] tiny fp32 spec serve on the card (k 3, 2 slots, 6 KV "
         f"blocks): {victim} preempted by {trace[pre][3]} mid-speculation "
@@ -709,9 +752,10 @@ def _margin(params, cfg, r) -> float:
     tokens before it."""
     import torch
     from dpu_operator_tpu_torch.workloads.model import forward
-    seq = torch.tensor([list(r.prompt) + r.tokens[:-1]], device="cuda")
+    dev = params["embed"].device
+    seq = torch.tensor([list(r.prompt) + r.tokens[:-1]], device=dev)
     logits = forward(params, cfg=cfg, tokens=seq)[0, r.prompt_len - 1:]
-    served = torch.tensor(r.tokens, device="cuda")
+    served = torch.tensor(r.tokens, device=dev)
     margin = logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]
     return float(margin.max())
 
@@ -732,10 +776,10 @@ def _serve_run(params, cfg, label: str, reqs: list, wbytes: int,
     wall = time.monotonic() - t0
     counts = launch_counts()
     log(f"[serve] {label}: launches during the run: {counts}")
-    require(len(sched.completed) == len(reqs) and not sched.failed
-            and not sched.rejected,
-            f"{label}: completed {len(sched.completed)} failed "
-            f"{len(sched.failed)} rejected {len(sched.rejected)}")
+    _require_fault_free(label, sched)
+    require(len(sched.completed) == len(reqs) and not sched.rejected,
+            f"{label}: completed {len(sched.completed)} rejected "
+            f"{len(sched.rejected)}")
     for r in reqs:
         require(len(r.tokens) == r.output_len,
                 f"{label} {r.rid}: {len(r.tokens)} tokens, wanted "
@@ -809,8 +853,9 @@ def _serve_run(params, cfg, label: str, reqs: list, wbytes: int,
 def phase_serve(cfg, params) -> dict:
     """The plain serve run, then the same requests with speculation (k 4)
     drafted by prompt lookup and by a corrupted oracle of the plain run's
-    streams, then plain again. Returns each run's numbers and the launches
-    of all four."""
+    streams, then plain again. Returns each run's numbers, the launches
+    of all four and the plain run's requests (the chaos runs' reference
+    streams)."""
     import torch
     from dpu_operator_tpu_torch.workloads.decode import generate
     from dpu_operator_tpu_torch.workloads.model import param_bytes
@@ -880,6 +925,310 @@ def phase_serve(cfg, params) -> dict:
                                      if k != "launches"}))
     launches = {k: sum(run["launches"][k] for run in runs.values())
                 for k in plain["launches"]}
+    return {"runs": runs, "launches": launches, "plain": reqs}
+
+
+# -- phase 6 ------------------------------------------------------------------
+#: the chaos runs' fault plans are seeded with this
+CHAOS_SEED = 7
+#: the cast of chaos run (a), by rid of phase 5's generator: a rid that
+#: fails every executor call; one whose deadline (s) its least finish time
+#: misses at admission; one admitted under its deadline (least finish
+#: 0.98 s) and overtaken by batched service; one cancelled after an
+#: iteration, mid-decode; and the sources of batch copies arriving at 1.0 s
+#: while the ladder sheds batch traffic (the SimExecutor rehearsal of the
+#: same plan puts each event there)
+POISONED = "req-05"
+ADMISSION_DEADLINE = ("req-13", 0.05)
+MID_STREAM_DEADLINE = ("req-03", 1.2)
+CANCELLED = ("req-07", 30)
+LATE_BATCH = ("req-01", "req-04", "req-06")
+LATE_AT_S = 1.0
+
+
+def _audited(base):
+    """*base* (the port's ``ChaosExecutor``) logging every exception its
+    calls raise, injected or not, for the injected-faults-only gate."""
+
+    class Audited(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.raised: list = []
+
+        def _call(self, name, fn, *args):
+            try:
+                return fn(*args)
+            except Exception as e:
+                self.raised.append((name, e))
+                raise
+
+        def begin(self, req, slot):
+            return self._call("begin", super().begin, req, slot)
+
+        def prefill_chunk(self, req, slot, offset, n):
+            return self._call("prefill_chunk", super().prefill_chunk, req,
+                              slot, offset, n)
+
+        def step(self, active):
+            return self._call("step", super().step, active)
+
+        def spec_step(self, active, drafts):
+            return self._call("spec_step", super().spec_step, active,
+                              drafts)
+
+    return Audited
+
+
+def _chaos_plan(spec: bool):
+    """Run (a): an Oom on the 4th chunk and a reset on the 3rd decode
+    step; run (b): resets on 4 verify passes in a row after 5 clean ones,
+    two rungs' worth of consecutive bad iterations."""
+    from dpu_operator_tpu_torch.testing import chaos
+    plan = chaos.FaultPlan(seed=CHAOS_SEED)
+    if spec:
+        plan.script("spec_step", chaos.Ok(times=5), chaos.Fail(times=4))
+    else:
+        plan.script("prefill_chunk", chaos.Ok(times=3), chaos.Oom())
+        plan.script("step", chaos.Ok(times=2), chaos.Fail())
+    return plan
+
+
+def _chaos_requests(plain: list, spec: bool) -> list:
+    """Fresh copies of phase 5's requests, arriving at 0; run (a) adds
+    its deadlines and the late batch copies."""
+    from dpu_operator_tpu_torch.workloads.serve import Request
+    reqs = [Request(rid=r.rid, prompt_len=r.prompt_len,
+                    output_len=r.output_len, prompt=r.prompt) for r in plain]
+    if spec:
+        return reqs
+    by_rid = {r.rid: r for r in reqs}
+    for rid, budget in (ADMISSION_DEADLINE, MID_STREAM_DEADLINE):
+        by_rid[rid].deadline_budget_s = budget
+    for i, rid in enumerate(LATE_BATCH):
+        src = by_rid[rid]
+        reqs.append(Request(rid=f"late-{i}", prompt_len=src.prompt_len,
+                            output_len=src.output_len, prompt=src.prompt,
+                            arrival_s=LATE_AT_S + 0.05 * i))
+    return reqs
+
+
+def _chaos_serve(executor, reqs: list, spec_k: int, drafter=None):
+    """The flagship's serve config on the virtual clock over *executor*,
+    cancelling run (a)'s request after its iteration."""
+    from dpu_operator_tpu_torch.workloads.serve import Scheduler, ServeConfig
+    sched = Scheduler(ServeConfig(slots=8, kv_blocks=512, kv_block_size=16,
+                                  prefill_chunk_tokens=256, spec_k=spec_k),
+                      executor, drafter=drafter)
+    for r in reqs:
+        sched.submit(r)
+    rid, at = CANCELLED
+    while sched.step():
+        if not spec_k and sched.iterations == at:
+            require(sched.cancel(rid), f"cancel({rid}) found nothing")
+    return sched
+
+
+def _injected_only(label: str, sched, ex) -> None:
+    """Every exception out of the executor answers a fault the plan
+    injected or a poisoned rid, and every step_fault / retry / poison
+    tuple answers one of them; a fault the plan did not inject fails the
+    phase with its text."""
+    from dpu_operator_tpu_torch.testing.chaos import ExecutorOom, PoisonedRid
+    kinds = {"Oom": ExecutorOom, "Fail": ConnectionResetError}
+    injected = iter(ex.plan.injected)
+    for method, e in ex.raised:
+        text = f"{method}: {type(e).__name__}: {e}"
+        if isinstance(e, PoisonedRid) and e.rid == POISONED:
+            continue
+        key, fault = next(injected, (None, None))
+        require(key == method and type(e) is kinds.get(fault)
+                and str(e).startswith("chaos:"),
+                f"{label}: a fault the plan did not inject: {text}")
+    require(next(injected, None) is None,
+            f"{label}: the plan injected faults the executor never raised")
+    kinds = [t[0] for t in sched.trace]
+    require("fail" not in kinds, f"{label}: a request failed: "
+            f"{[t for t in sched.trace if t[0] == 'fail']}")
+    require(kinds.count("retry") + kinds.count("poison") == len(ex.raised),
+            f"{label}: {len(ex.raised)} executor faults but "
+            f"{kinds.count('retry')} retries and {kinds.count('poison')} "
+            "poisonings")
+    batched = sum(m in ("step", "spec_step") for m, _ in ex.raised)
+    require(kinds.count("step_fault") == batched,
+            f"{label}: {batched} batched-pass faults but "
+            f"{kinds.count('step_fault')} step_fault tuples")
+
+
+def _streams_hold(label: str, params, cfg, sched, plain: list) -> None:
+    """Every completed stream equals phase 5's plain stream of its prompt,
+    or leaves it only at a bf16 near-tie (the teacher-forced margin)."""
+    by_prompt = {r.prompt: r for r in plain}
+    for r in sched.completed:
+        want = by_prompt[r.prompt].tokens
+        require(len(r.tokens) == r.output_len,
+                f"{label} {r.rid}: {len(r.tokens)} tokens of {r.output_len}")
+        if r.tokens != want:
+            first = next(i for i, (a, b) in enumerate(zip(r.tokens, want))
+                         if a != b)
+            worst = _margin(params, cfg, r)
+            log(f"[chaos] {label} {r.rid} (retries {r.retries}) leaves the "
+                f"plain stream at token {first}; worst teacher-forced margin "
+                f"{worst:.4f} (tol {SERVE_LOGIT_TOL})")
+            require(worst <= SERVE_LOGIT_TOL,
+                    f"{label} {r.rid}: a served token is {worst:.4f} below "
+                    "the best logit of a full forward")
+
+
+def _rung_before(trace: list, it: int) -> int:
+    """The ladder's rung during iteration *it* (a change is traced at the
+    end of the iteration that commits it)."""
+    rung = 0
+    for t in trace:
+        if t[0] == "rung" and t[1] < it:
+            rung = t[3]
+    return rung
+
+
+def _chaos_report(label: str, sched, ex, counts: dict) -> dict:
+    out = {
+        "run": label, "iterations": sched.iterations,
+        "virtual_s": sched.now,
+        **{k: getattr(sched, k) for k in (
+            "completed_total", "rejected_total", "failed_total",
+            "poisoned_total", "deadline_exceeded_total", "retries_total",
+            "prefill_tokens_discarded")},
+        "injected": ex.plan.injected,
+        "rungs": [t[1:] for t in sched.trace if t[0] == "rung"],
+        "mttr_s": sched.retry_recoveries,
+        "outcomes": {r.rid: r.reject_reason for r in sched.failed
+                     + sched.rejected},
+        "launches": counts,
+    }
+    log("[chaos] " + json.dumps(out))
+    return out
+
+
+def _gate_plain(label: str, sched, ex, reqs: list, counts: dict) -> None:
+    """Run (a)'s gates: its kernels, its trace against the same requests,
+    plan and cancel over a host ``SimExecutor`` of the same chunk width
+    (plain decode makes the trace independent of token values), and each
+    member of the cast where the plan puts it."""
+    from dpu_operator_tpu_torch.testing.chaos import ChaosExecutor
+    from dpu_operator_tpu_torch.workloads.serve import (RETRY_BUDGET,
+                                                        SimExecutor)
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0, f"{label}: {name} never launched")
+    for name in SERVE_NOT:
+        require(counts[name] == 0, f"{label}: {name} launched")
+    trace = sched.trace
+    sim = SimExecutor()
+    sim.chunk_capacity = ex.chunk_capacity
+    twin = _chaos_serve(_audited(ChaosExecutor)(
+        sim, plan=_chaos_plan(False)).poison(POISONED),
+        [r.fresh_copy() for r in reqs], 0).trace
+    diff = next((i for i, (a, b) in enumerate(zip(trace, twin)) if a != b),
+                min(len(trace), len(twin)))
+    require(trace == twin, f"{label}: the trace leaves the SimExecutor's at "
+            f"entry {diff}: {trace[diff:diff + 3]} vs {twin[diff:diff + 3]}")
+    log(f"[chaos] {label}: trace equals the SimExecutor run's, {len(trace)} "
+        "entries")
+    require(sorted(ex.plan.injected)
+            == [("prefill_chunk", "Oom"), ("step", "Fail")],
+            f"{label}: injected {ex.plan.injected}")
+    require(any(t[0] == "step_fault" and t[2] == "decode"
+                and t[4] == "ConnectionResetError" for t in trace),
+            f"{label}: no decode step fault")
+    require(any(t[0] == "poison"
+                and t[2:] == (POISONED, RETRY_BUDGET)
+                for t in trace), f"{label}: {POISONED} was not poisoned")
+    by_rid = {r.rid: r for r in reqs}
+    late = by_rid[ADMISSION_DEADLINE[0]]
+    require(late.reject_reason == "deadline_exceeded" and not late.tokens,
+            f"{label}: {late.rid} not excised at admission")
+    mid = by_rid[MID_STREAM_DEADLINE[0]]
+    require(mid.reject_reason == "deadline_exceeded"
+            and 0 < len(mid.tokens) < mid.output_len,
+            f"{label}: {mid.rid} not excised mid-stream "
+            f"({mid.reject_reason!r}, {len(mid.tokens)} tokens)")
+    gone = by_rid[CANCELLED[0]]
+    require(gone.reject_reason == "cancelled"
+            and 0 < len(gone.tokens) < gone.output_len,
+            f"{label}: {gone.rid} not cancelled mid-decode")
+    shed = [r.rid for r in sched.rejected
+            if r.reject_reason == "degraded_shed"]
+    require(shed, f"{label}: the ladder shed no batch arrival")
+    cast = {POISONED, ADMISSION_DEADLINE[0], MID_STREAM_DEADLINE[0],
+            CANCELLED[0], *shed}
+    require(sorted(r.rid for r in sched.completed)
+            == sorted(r.rid for r in reqs if r.rid not in cast),
+            f"{label}: a request outside the cast did not complete")
+    require(sched.retry_recoveries, f"{label}: no retried request completed")
+
+
+def _gate_spec(label: str, sched, ex, reqs: list, counts: dict) -> None:
+    """Run (b)'s gates: its kernels, every request complete, the four
+    verify faults, the ladder at ``no_spec`` or above, and no verify
+    iteration while it was there."""
+    from dpu_operator_tpu_torch.workloads.degrade import RUNG_NO_SPEC
+    for name in SPEC_KERNELS:
+        require(counts[name] > 0, f"{label}: {name} never launched")
+    require(len(sched.completed) == len(reqs),
+            f"{label}: {len(sched.completed)} of {len(reqs)} completed")
+    trace = sched.trace
+    faults = [t for t in trace if t[0] == "step_fault" and t[2] == "verify"]
+    require(len(faults) == 4, f"{label}: {len(faults)} verify faults")
+    require(max((t[3] for t in trace if t[0] == "rung"), default=0)
+            >= RUNG_NO_SPEC, f"{label}: the ladder never reached no_spec")
+    verified = sorted({t[1] for t in trace if t[0] == "spec"})
+    bad = [it for it in verified if _rung_before(trace, it) >= RUNG_NO_SPEC]
+    require(not bad, f"{label}: verify ran at rung >= no_spec in iterations "
+            f"{bad}")
+    log(f"[chaos] {label}: {len(verified)} verify iterations, none at rung "
+        f">= {RUNG_NO_SPEC}; "
+        f"{sum(t[0] == 'decode' for t in trace) - len(verified)} plain "
+        "decode iterations")
+
+
+def phase_chaos(params, cfg, plain: list) -> dict:
+    """Serving under faults on the flagship, on the virtual clock: (a)
+    plain decode under a prefill Oom, a decode reset, a poisoned rid, two
+    deadlines, a cancel and late batch arrivals the ladder sheds; (b)
+    speculation at k 4 with the oracle drafter, verify faults walking the
+    ladder past ``no_spec``. Both: injected faults only, streams held to
+    the plain run's, no leaked block. Returns each run's report and the
+    launches of both."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.testing.chaos import ChaosExecutor
+    from dpu_operator_tpu_torch.workloads.serve import TorchSlotExecutor
+    dev = params["embed"].device
+    runs = {}
+    for label, spec_k, gates in (("chaos plain", 0, _gate_plain),
+                                 ("chaos spec oracle", 4, _gate_spec)):
+        reqs = _chaos_requests(plain, bool(spec_k))
+        drafter = OracleDrafter({r.rid: list(r.tokens) for r in plain},
+                                {r.rid: r.prompt for r in plain},
+                                cfg.vocab) if spec_k else None
+        inner = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
+                                  spec_k=spec_k, device=dev)
+        ex = _audited(ChaosExecutor)(inner, plan=_chaos_plan(bool(spec_k)))
+        ex.poison(*(() if spec_k else (POISONED,)))
+        reset_launch_counts()
+        t0 = time.monotonic()
+        sched = _chaos_serve(ex, reqs, spec_k, drafter)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = launch_counts()
+        log(f"[chaos] {label}: {sched.iterations} iterations in {wall:.3f} s "
+            f"wall; launches during the run: {counts}")
+        _injected_only(label, sched, ex)
+        _streams_hold(label, params, cfg, sched, plain)
+        require(sched.pool.outstanding() == 0, f"{label}: KV blocks leaked")
+        gates(label, sched, ex, reqs, counts)
+        runs[label] = _chaos_report(label, sched, ex, counts)
+    launches = {k: sum(run["launches"][k] for run in runs.values())
+                for k in launch_counts()}
     return {"runs": runs, "launches": launches}
 
 
@@ -971,7 +1320,7 @@ def profile_calls(label: str, fn, n: int, warmup: int = 3) -> None:
         log(f"[profile]   {ms:8.4f} ms/call  {name[:90]}")
 
 
-# -- phase 6 ------------------------------------------------------------------
+# -- phase 7 ------------------------------------------------------------------
 def phase_train(cfg) -> dict:
     """The flagship's training path: ``measure_train`` (1 warm-up and 5
     timed steps at batch 8 x 1024) with the launch counters read around
@@ -1057,13 +1406,17 @@ def main() -> int:
     log(f"[serve] flagship bf16: {wbytes / 2 / 1e6:.1f}M parameters, "
         f"{wbytes / 1e6:.1f} MB, made on the card in "
         f"{time.monotonic() - t0:.1f} s")
-    counts = phase_serve(cfg, params)["launches"]  # the serve runs'
+    serve = phase_serve(cfg, params)
+    chaos = phase_chaos(params, cfg, serve["plain"])
+    # the serve and chaos runs' launches
+    counts = {k: serve["launches"][k] + chaos["launches"][k]
+              for k in serve["launches"]}
     profile_window(params, cfg)
     del params
     torch.cuda.empty_cache()
     train_counts = phase_train(cfg)["launches"]
-    # each kernel's launches on the main paths (the three serve runs and
-    # the train run), each read from zero
+    # each kernel's launches on the main paths (the four serve runs, the
+    # two chaos runs and the train run), each read from zero
     counts = {k: counts[k] + train_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],

@@ -49,6 +49,7 @@ _SIGNATURES = {
                          + [_I, _F, _F, _I, _I, _I, _P]),
     "attention_bwd_dkv": (_I, [_P] * 8 + [_I] * 4 + [_L] * 15
                           + [_I, _F, _F, _I, _I, _I, _P]),
+    "launch_floor": (_I, [_P]),
     "port_error_string": (ctypes.c_char_p, [_I]),
 }
 

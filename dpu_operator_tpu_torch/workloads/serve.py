@@ -18,10 +18,22 @@ The port's core of ``dpu_operator_tpu/workloads/serve.py``:
   prefix blocks mapped, not allocated), preempting batch requests for an
   interactive one; a chunked prefill pass under a per-iteration token
   budget; one batched decode pass, or a speculative verify pass when the
-  adaptive draft length says so; then completion and release.
+  adaptive draft length says so; then completion, deadlines and release,
+  and one signal to the degradation ladder (:mod:`.degrade`).
 
-Not ported yet: the fault / retry engine, the degrade ladder, deadlines,
-tracing spans, metrics and the cost ledger, ``DecodeService`` and the HTTP
+Serving under faults follows the reference's fault engine: an executor
+exception costs one request, never the scheduler. A batched pass that
+raises blames one victim (the rid the exception names, else the
+latest-admitted request); a contract breach (``ValueError`` /
+``TypeError``) fails its request; anything else retries with rebuild
+(blocks freed, tokens kept, prefill again on readmission after a seeded
+backoff on the scheduler's clock), and a request past its retry budget is
+excised as poisoned. Deadlines (``x-tpu-deadline-ms``) are enforced at
+admission, at chunk-queue re-entry and mid-stream; :meth:`Scheduler.cancel`
+abandons a live request.
+
+Not ported yet: tracing spans, metrics, flight records, watchdog Events
+and the cost ledger, ``headroom()``, ``DecodeService`` and the HTTP
 ingress.
 """
 
@@ -30,12 +42,16 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import logging
+import random
+import re
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.resilience import RetryPolicy
+from . import degrade
 from .decode import (decode_step, init_kv_cache, prefill, prefill_chunk,
                      verify_step)
 from .kv_pool import KvBlockPool, chain_keys
@@ -46,11 +62,40 @@ log = logging.getLogger(__name__)
 INTERACTIVE = "interactive"
 BATCH = "batch"
 
+#: per-request deadline header: a relative millisecond budget from arrival
+DEADLINE_HEADER = "x-tpu-deadline-ms"
+MAX_DEADLINE_MS = 86_400_000  # 24 h: anything longer is no deadline
+_DEADLINE_RE = re.compile(r"^[0-9]{1,8}$")
+
+
+def parse_deadline_ms(value: object) -> Optional[int]:
+    """Strict parse of the ``x-tpu-deadline-ms`` header: 1-8 ASCII digits
+    (no sign, point, whitespace or exponent) within [1 ms, 24 h]. Anything
+    else returns None, and the request carries no deadline."""
+    if not isinstance(value, str):
+        return None
+    if not _DEADLINE_RE.match(value):
+        return None
+    ms = int(value)
+    if ms < 1 or ms > MAX_DEADLINE_MS:
+        return None
+    return ms
+
+
+#: a request survives this many transient executor faults; each retry is
+#: held back by a full-jitter backoff from the base, doubling to the cap
+RETRY_BUDGET = 2
+RETRY_BACKOFF_BASE_S = 0.05
+RETRY_BACKOFF_CAP_S = 1.0
+#: the request size (tokens) whose KV blocks back one advertisable slot
+TYPICAL_TOKENS = 128
+
 QUEUED = "queued"
 PREFILLING = "prefilling"
 RUNNING = "running"
 DONE = "done"
 REJECTED = "rejected"
+#: admitted, then not served: executor failure, poisoned, deadline
 FAILED = "failed"
 
 
@@ -65,6 +110,11 @@ class Request:
     slo_class: str = BATCH
     arrival_s: float = 0.0
     prompt: Optional[tuple] = None
+    #: ``stream(event, value)``: ("token", tok) per generated token, then
+    #: one terminal ("done", n_tokens), ("rejected", reason), ("failed",
+    #: reason) or ("deadline_exceeded", n_tokens); it must not block
+    stream: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False)
     # runtime state, owned by the scheduler
     state: str = QUEUED
     slot: Optional[int] = None
@@ -89,6 +139,24 @@ class Request:
     #: decode iterations of the current residency
     queued_since_s: Optional[float] = None
     decode_iters: int = 0
+    #: optional deadline: a relative budget (``parse_deadline_ms``), made
+    #: an absolute instant on the scheduler's clock at ingest
+    deadline_budget_s: Optional[float] = None
+    deadline_s: Optional[float] = None
+    #: retry-with-rebuild: transient faults survived, the instant before
+    #: which the request is not readmitted, and when the last fault hit
+    retries: int = 0
+    retry_at: float = 0.0
+    last_fault_s: Optional[float] = None
+
+    def fresh_copy(self) -> "Request":
+        """The request's spec alone (id, lengths, class, arrival, prompt,
+        deadline budget), without the runtime state or the stream."""
+        return Request(rid=self.rid, prompt_len=self.prompt_len,
+                       output_len=self.output_len,
+                       slo_class=self.slo_class,
+                       arrival_s=self.arrival_s, prompt=self.prompt,
+                       deadline_budget_s=self.deadline_budget_s)
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -223,7 +291,14 @@ class TorchSlotExecutor:
     Slot *i* owns row *i* of the cache and its own position (``pos``).
     Greedy decoding. Inactive slots decode too, harmlessly: their row is
     dead until the next ``begin`` or chunk rewrites it, and their writes
-    land at or above every position a later occupant has filled."""
+    land at or above every position a later occupant has filled.
+
+    A call that raises commits no slot state: ``pos`` and ``last`` move
+    only after the forward has returned. Rows it wrote before raising lie
+    at or past each slot's frontier, so the next call rewrites them (the
+    same tokens at the same positions), and a retried request is prefilled
+    again, prompt and kept tokens, into whatever slot it is readmitted
+    to."""
 
     #: a dense slot row cannot alias blocks of another request
     prefix_aware = False
@@ -363,10 +438,10 @@ class Scheduler:
     Drive it with :meth:`step` (one iteration) or :meth:`run` (until
     drained). Without a *clock* time is virtual and advances by the cost
     model; with one (``time.monotonic``) latencies are measured. Every
-    admission, preemption, chunk, decode, speculation and completion is
-    appended to :attr:`trace` as the JAX scheduler writes it. *drafter*
-    proposes the drafts when ``config.spec_k > 0`` (default
-    :class:`NgramDrafter`).
+    admission, preemption, chunk, decode, speculation, fault, retry, rung
+    change and outcome is appended to :attr:`trace` as the JAX scheduler
+    writes it. *drafter* proposes the drafts when ``config.spec_k > 0``
+    (default :class:`NgramDrafter`).
     """
 
     def __init__(self, config: ServeConfig, executor: Any,
@@ -421,11 +496,33 @@ class Scheduler:
         self._free_slots: list[int] = list(range(config.slots))
         self.completed: list[Request] = []
         self.rejected: list[Request] = []
+        #: admitted, then not served (executor error, poisoned, deadline)
         self.failed: list[Request] = []
+        self.completed_total = 0
+        self.rejected_total = 0
+        self.failed_total = 0
+        self.poisoned_total = 0
+        self.deadline_exceeded_total = 0
+        self.retries_total = 0
         self.iterations = 0
         self.preemptions = 0
         self.prefill_chunks_total = 0
         self.prefill_tokens_discarded = 0
+        #: retry backoff from a seeded rng, so the jitter, and with it
+        #: every readmission order, replays the reference's exactly
+        self._retry_policy = RetryPolicy(
+            max_attempts=RETRY_BUDGET + 1,
+            base=RETRY_BACKOFF_BASE_S,
+            cap=RETRY_BACKOFF_CAP_S,
+            rng=random.Random(0x5E17E))
+        #: fed one signal per iteration: an executor fault this step, or
+        #: a firing serve-SLO alert (``slo_alert_fn``)
+        self.ladder = degrade.DegradationLadder()
+        self.slo_alert_fn: Optional[Callable[[], bool]] = None
+        self._fault_this_step = False
+        #: (rid, seconds) from a retried request's last fault to its
+        #: completion: the serve-path MTTR samples
+        self.retry_recoveries: list[tuple[str, float]] = []
         self.trace: list[tuple] = []
 
     # -- intake ---------------------------------------------------------------
@@ -448,6 +545,19 @@ class Scheduler:
                 return False  # real clock: nothing due yet
             self.now = max(self.now, self._pending[0][0])
             self._ingest()
+        elif (self._clock is None and not self._active
+                and not self._prefilling and self._head() is None):
+            # every queued request is held back (retry backoff, or the
+            # ladder's interactive-only rung) and nothing runs: move
+            # virtual time to the nearest wake-up so backoffs and
+            # hold-downs expire, or by one decode quantum without one
+            targets = [r.retry_at for q in self._queues.values()
+                       for r in q if r.retry_at > self.now]
+            if self._pending and self._pending[0][0] > self.now:
+                targets.append(self._pending[0][0])
+            self.now = min(targets) if targets \
+                else self.now + self.cost.decode_base_s
+            self._ingest()
         self.iterations += 1
         it = self.iterations
         admitted = self._admit(it)
@@ -462,8 +572,9 @@ class Scheduler:
                     req.prefill_target - req.prefill_start))
                 try:
                     tok = self.executor.begin(req, req.slot)
-                except (ValueError, RuntimeError) as e:
-                    self._fail(it, req, e)
+                except Exception as e:  # noqa: BLE001 — one request's
+                    # fault, never the scheduler's
+                    self._executor_fault(it, req, e, "prefill")
                     continue
                 req.prefilled = req.prefill_target
                 self._finish_prefill(it, req, tok)
@@ -476,20 +587,33 @@ class Scheduler:
             self._spec_pass(it, active, drafts)
         elif active:
             self._advance(self.cost.decode_s(len(active)))
-            toks = self.executor.step(active)
+            try:
+                toks = self.executor.step(active)
+            except Exception as e:  # noqa: BLE001 — the batch loses one
+                # iteration and one victim retries
+                toks = None
+                self._step_fault(it, "decode", active, e)
             self._tick()
-            for slot, req in active:
-                if self._share:
-                    self._write(it, req, req.prompt_len + len(req.tokens))
-                req.tokens.append(toks[slot])
-                req.decode_iters += 1
-                self.pool.set_used_tokens(
-                    req.rid, req.prompt_len + len(req.tokens))
-            self.trace.append(("decode", it, len(active)))
+            if toks is not None:
+                for slot, req in active:
+                    if self._share:
+                        self._write(it, req,
+                                    req.prompt_len + len(req.tokens))
+                    req.tokens.append(toks[slot])
+                    req.decode_iters += 1
+                    self.pool.set_used_tokens(
+                        req.rid, req.prompt_len + len(req.tokens))
+                    self._notify(req, "token", toks[slot])
+                self.trace.append(("decode", it, len(active)))
         for slot in sorted(self._active):
             req = self._active[slot]
             if len(req.tokens) >= req.output_len:
                 self._complete(it, req)
+            elif req.deadline_s is not None and self.now > req.deadline_s:
+                # mid-stream: after completion, so a request holding all
+                # its tokens completes rather than expires
+                self._deadline_exceed(it, req)
+        self._degrade_pass(it)
         return True
 
     def run(self, max_steps: int = 1_000_000) -> int:
@@ -518,13 +642,26 @@ class Scheduler:
         if self.pool.write_token(req.rid, pos) is None:
             self.trace.append(("cow_uncopied", it, req.rid))
 
+    def _notify(self, req: Request, event: str, value: object) -> None:
+        """Call the request's stream; a failing sink is dropped, never
+        allowed to take the scheduler down."""
+        if req.stream is None:
+            return
+        try:
+            req.stream(event, value)
+        except Exception:  # noqa: BLE001 — the client's fault
+            log.warning("stream callback for %s failed on %r", req.rid,
+                        event, exc_info=True)
+            req.stream = None
+
     # -- speculative decoding -------------------------------------------------
     def _propose(self, active: list) -> Optional[dict]:
         """The speculate-or-decode decision and each row's drafts: the
-        adaptive k from the cost model and the acceptance EWMA; k = 0, or
-        no row with a draft, returns None (plain decode). The reference
-        also clamps k to 0 on the degrade ladder's no-speculation rung;
-        the ladder is not ported yet."""
+        adaptive k from the cost model and the acceptance EWMA; k = 0, no
+        row with a draft, or the ladder at its no-speculation rung returns
+        None (plain decode)."""
+        if self.ladder.rung >= degrade.RUNG_NO_SPEC:
+            return None
         k = self._spec.choose(self.cost, len(active))
         if k <= 0:
             return None
@@ -546,10 +683,16 @@ class Scheduler:
         one pass, and each row's accepted + 1 tokens commit. Under sharing
         every speculated position is written at verify time (so
         copy-on-write fires when the divergent write happens) and the
-        written frontier rolls back past the accepted tokens."""
+        written frontier rolls back past the accepted tokens. A pass that
+        raises commits nothing and retries one victim."""
         k_iter = max(len(d) for d in drafts.values())
         self._advance(self.cost.verify_s(len(active), k_iter))
-        emitted = self.executor.spec_step(active, drafts)
+        try:
+            emitted = self.executor.spec_step(active, drafts)
+        except Exception as e:  # noqa: BLE001 — as the decode pass
+            self._step_fault(it, "verify", active, e)
+            self._tick()
+            return
         self._tick()
         for slot, req in active:
             toks = emitted[slot]
@@ -566,6 +709,8 @@ class Scheduler:
             if self._share and accepted < proposed:
                 self.pool.rollback_tokens(req.rid, used)
             self.pool.set_used_tokens(req.rid, used)
+            for tok in toks:
+                self._notify(req, "token", tok)
             if proposed:
                 self._spec.observe(proposed, accepted)
                 self.spec_rows_total += 1
@@ -578,21 +723,32 @@ class Scheduler:
         req.state = REJECTED
         req.reject_reason = reason
         self.rejected.append(req)
+        self.rejected_total += 1
         self.trace.append(("reject", self.iterations + 1, req.rid,
                            req.slo_class, reason))
+        self._notify(req, "rejected", reason)
 
     def _ingest(self) -> None:
         """Move due arrivals into their class queue, rejecting duplicate
-        ids, reservations larger than the whole pool and arrivals past the
-        queue bound."""
+        ids, reservations larger than the whole pool, batch arrivals while
+        the ladder sheds them, and arrivals past the queue bound. A
+        deadline budget becomes an absolute instant here."""
         while self._pending and self._pending[0][0] <= self.now:
             _, _, req = heapq.heappop(self._pending)
             if req.rid in self._live_rids:
                 self._reject(req, "duplicate_rid")
-            elif self.pool.blocks_for_tokens(req.total_tokens()) \
+                continue
+            if self.pool.blocks_for_tokens(req.total_tokens()) \
                     > self.pool.num_blocks:
                 self._reject(req, "kv_too_large")
-            elif len(self._queues[req.slo_class]) >= self.config.queue_limit:
+                continue
+            if req.deadline_budget_s is not None and req.deadline_s is None:
+                req.deadline_s = req.arrival_s + req.deadline_budget_s
+            if req.slo_class == BATCH \
+                    and self.ladder.rung >= degrade.RUNG_SHED_BATCH:
+                self._reject(req, "degraded_shed")
+                continue
+            if len(self._queues[req.slo_class]) >= self.config.queue_limit:
                 self._reject(req, "queue_full")
             else:
                 req.queued_since_s = req.arrival_s
@@ -600,18 +756,26 @@ class Scheduler:
                 self._live_rids.add(req.rid)
 
     def _head(self) -> Optional[Request]:
+        """The first admittable request in class order, skipping requests
+        held back by a retry backoff and, at the ladder's interactive-only
+        rung, the whole batch queue (they stay queued)."""
         for cls in (INTERACTIVE, BATCH):
-            if self._queues[cls]:
-                return self._queues[cls][0]
+            if cls == BATCH \
+                    and self.ladder.rung >= degrade.RUNG_INTERACTIVE_ONLY:
+                continue
+            for r in self._queues[cls]:
+                if r.retry_at <= self.now:
+                    return r
         return None
 
     def _admit(self, it: int) -> list:
         """Admission: the head request, in class order, into the lowest
         free slot with its whole sequence's blocks reserved; with sharing
         its indexed prefix blocks are mapped and only the rest allocated.
-        An interactive head that does not fit preempts batch requests;
-        otherwise admission stops at the first head that does not fit.
-        Returns the requests admitted (prefill pending)."""
+        A head whose least finish time already misses its deadline is
+        excised. An interactive head that does not fit preempts batch
+        requests; otherwise admission stops at the first head that does
+        not fit. Returns the requests admitted (prefill pending)."""
         if self.config.static and self._active:
             return []
         admitted: list[Request] = []
@@ -619,6 +783,10 @@ class Scheduler:
             req = self._head()
             if req is None:
                 break
+            if req.deadline_s is not None \
+                    and self._eta_s(req) > req.deadline_s:
+                self._deadline_exceed(it, req)
+                continue
             blocks = self.pool.blocks_for_tokens(req.total_tokens())
             keys: list = []
             if self._share and req.prompt:
@@ -725,13 +893,17 @@ class Scheduler:
     def _prefill_pass(self, it: int) -> None:
         """Spend this iteration's prefill budget over the chunk queue:
         interactive first, FIFO within a class, the head served to the end
-        of its prompt before the next. A request whose last chunk lands
+        of its prompt before the next. A request whose deadline has passed
+        is excised instead of served. A request whose last chunk lands
         takes its first token now and joins this iteration's decode."""
         budget = self.config.prefill_chunk_tokens
         cap = self.executor.chunk_capacity or budget
         order = ([r for r in self._prefilling if r.slo_class == INTERACTIVE]
                  + [r for r in self._prefilling if r.slo_class == BATCH])
         for req in order:
+            if req.deadline_s is not None and self.now > req.deadline_s:
+                self._deadline_exceed(it, req)
+                continue
             while budget > 0:
                 remaining = req.prefill_target - req.prefilled
                 if remaining <= 0:
@@ -741,8 +913,10 @@ class Scheduler:
                 try:
                     tok = self.executor.prefill_chunk(req, req.slot,
                                                       req.prefilled, n)
-                except (ValueError, RuntimeError) as e:
-                    self._fail(it, req, e)
+                except Exception as e:  # noqa: BLE001 — the request's
+                    # fault alone: left queued it would raise every
+                    # iteration
+                    self._executor_fault(it, req, e, "prefill")
                     break
                 req.prefilled += n
                 self.pool.set_used_tokens(req.rid, req.prefilled)
@@ -784,11 +958,167 @@ class Scheduler:
         req.decode_iters = 0
         req.tokens.append(tok)
         self.pool.set_used_tokens(req.rid, req.prompt_len + len(req.tokens))
+        self._notify(req, "token", tok)
+
+    # -- cancel ---------------------------------------------------------------
+    def cancel(self, rid: str) -> bool:
+        """Abandon a live request wherever it is (pending, queued,
+        prefilling or decoding), freeing its slot and blocks. Returns
+        whether anything was cancelled."""
+        for i, (_, _, r) in enumerate(self._pending):
+            if r.rid == rid:
+                self._pending.pop(i)
+                heapq.heapify(self._pending)
+                self._record_cancel(r)
+                return True
+        req = None
+        for q in self._queues.values():
+            for r in q:
+                if r.rid == rid:
+                    req = r
+                    q.remove(r)
+                    break
+        if req is None:
+            req = next((r for r in self._active.values() if r.rid == rid),
+                       None)
+        if req is None:
+            return False
+        self._release(req)
+        self._record_cancel(req)
+        return True
+
+    def _record_cancel(self, req: Request) -> None:
+        req.state = REJECTED
+        req.reject_reason = "cancelled"
+        self.rejected.append(req)
+        self.rejected_total += 1
+        self.trace.append(("cancel", self.iterations, req.rid))
+
+    # -- the fault engine -----------------------------------------------------
+    def _eta_s(self, req: Request) -> float:
+        """The least finish time of *req* admitted now: its remaining
+        prefill plus one uncontended decode iteration a remaining token.
+        Real service is slower, so a deadline this misses is missed."""
+        prefill_tokens = max(
+            0, req.prompt_len + len(req.tokens) - req.prefilled)
+        remaining = max(0, req.output_len - len(req.tokens))
+        return (self.now + self.cost.prefill_s(prefill_tokens)
+                + remaining * self.cost.decode_s(1))
+
+    def _step_fault(self, it: int, phase: str, active: list,
+                    exc: Exception) -> None:
+        """A batched pass raised: blame ONE victim, the rid the exception
+        names (``exc.rid``) when it is in the batch, else the
+        latest-admitted request (least progress, cheapest rebuild), and
+        retry it with rebuild. The rest of the batch loses one
+        iteration."""
+        self._fault_this_step = True
+        rid = getattr(exc, "rid", None)
+        victim = next((r for _, r in active if r.rid == rid), None)
+        if victim is None:
+            victim = max((r for _, r in active),
+                         key=lambda r: ((r.admitted_s or 0.0), r.rid))
+        self.trace.append(("step_fault", it, phase, victim.rid,
+                           type(exc).__name__))
+        self._retry_request(it, victim, exc, phase)
+
+    def _executor_fault(self, it: int, req: Request, exc: Exception,
+                        phase: str) -> None:
+        """One request's executor call raised: a contract breach
+        (``ValueError`` / ``TypeError``: a bad spec, no prompt ids) can
+        never succeed and fails the request; anything else is presumed
+        transient and retries with rebuild."""
+        self._fault_this_step = True
+        if isinstance(exc, (ValueError, TypeError)):
+            self._fail(it, req, exc)
+        else:
+            self._retry_request(it, req, exc, phase)
+
+    def _retry_request(self, it: int, req: Request, exc: Exception,
+                       phase: str) -> None:
+        """Retry with rebuild: the victim takes a preemption's
+        recomputable eviction (blocks freed, tokens kept, prefill again on
+        readmission) and goes back to the front of its class queue, held
+        back until a backoff on the scheduler's clock expires. A request
+        past its retry budget is poisoned instead."""
+        req.retries += 1
+        req.last_fault_s = self.now
+        if req.retries > RETRY_BUDGET:
+            self._poison_request(it, req, exc)
+            return
+        log.warning("executor %s fault for %s (retry %d/%d, rebuilding): "
+                    "%s", phase, req.rid, req.retries,
+                    RETRY_BUDGET, exc)
+        self.pool.free(req.rid)
+        if req.slot is not None:
+            self._active.pop(req.slot, None)
+            self._free_slots.append(req.slot)
+            self._free_slots.sort()
+            req.slot = None
+        if req in self._prefilling:
+            self._prefilling.remove(req)
+            self.prefill_tokens_discarded += max(
+                0, req.prefilled - req.prefill_start)
+        req.decode_iters = 0
+        req.queued_since_s = self.now
+        req.prefilled = 0
+        req.state = QUEUED
+        req.retry_at = self.now \
+            + self._retry_policy.backoff(req.retries - 1)
+        self._queues[req.slo_class].insert(0, req)
+        self.retries_total += 1
+        self.trace.append(("retry", it, req.rid, req.retries))
+
+    def _poison_request(self, it: int, req: Request,
+                        exc: Exception) -> None:
+        """Excise a request that failed past its retry budget (the same
+        rid failing on every attempt is a poisoned request, not a sick
+        executor): slot and blocks freed, outcome ``poisoned``."""
+        log.warning("request %s poisoned after %d retries (excising): %s",
+                    req.rid, req.retries - 1, exc)
+        self._release(req)
+        req.state = FAILED
+        req.reject_reason = "poisoned"
+        self.failed.append(req)
+        self.failed_total += 1
+        self.poisoned_total += 1
+        self.trace.append(("poison", it, req.rid, req.retries - 1))
+        self._notify(req, "failed", "poisoned")
+
+    def _deadline_exceed(self, it: int, req: Request) -> None:
+        """Excise a request that can no longer meet its deadline, wherever
+        it is (queued, prefilling, decoding), keeping the tokens it has."""
+        q = self._queues[req.slo_class]
+        if req in q:
+            q.remove(req)
+        self._release(req)
+        req.state = FAILED
+        req.reject_reason = "deadline_exceeded"
+        self.failed.append(req)
+        self.failed_total += 1
+        self.deadline_exceeded_total += 1
+        self.trace.append(("deadline", it, req.rid, len(req.tokens)))
+        self._notify(req, "deadline_exceeded", len(req.tokens))
+
+    def _degrade_pass(self, it: int) -> None:
+        """Feed the ladder this iteration's signal (an executor fault, or
+        a firing serve-SLO alert) and trace a committed rung change."""
+        bad = self._fault_this_step
+        self._fault_this_step = False
+        if not bad and self.slo_alert_fn is not None:
+            try:
+                bad = bool(self.slo_alert_fn())
+            except Exception:  # noqa: BLE001 — a broken probe must not
+                # stop the step loop
+                log.warning("serve slo_alert_fn failed", exc_info=True)
+        change = self.ladder.observe(self.now, bad)
+        if change is not None:
+            self.trace.append(("rung", it, change.old, change.new))
 
     # -- teardown -------------------------------------------------------------
     def _release(self, req: Request) -> None:
         """Free chunk-queue entry, slot and KV blocks: the one teardown
-        that completion and failure share."""
+        that completion, failure, poisoning, deadlines and cancel share."""
         if req in self._prefilling:
             self._prefilling.remove(req)
         if req.slot is not None:
@@ -800,18 +1130,52 @@ class Scheduler:
         self._live_rids.discard(req.rid)
 
     def _fail(self, it: int, req: Request, exc: Exception) -> None:
-        """A request the executor cannot serve fails alone."""
+        """A request the executor cannot serve fails alone, with outcome
+        ``executor_error``."""
         log.warning("executor failed for %s (failing the request): %s",
                     req.rid, exc)
         self._release(req)
         req.state = FAILED
-        req.reject_reason = str(exc)
+        req.reject_reason = "executor_error"
         self.failed.append(req)
+        self.failed_total += 1
         self.trace.append(("fail", it, req.rid))
+        self._notify(req, "failed", "executor_error")
 
     def _complete(self, it: int, req: Request) -> None:
         self._release(req)
         req.state = DONE
         req.finish_s = self.now
+        if req.retries and req.last_fault_s is not None:
+            self.retry_recoveries.append(
+                (req.rid, self.now - req.last_fault_s))
         self.completed.append(req)
+        self.completed_total += 1
         self.trace.append(("complete", it, req.rid, len(req.tokens)))
+        self._notify(req, "done", len(req.tokens))
+
+    # -- capacity -------------------------------------------------------------
+    def _advertisable(self, free_slots: int, free_blocks: int) -> int:
+        """Free slots derated so each is backed by the KV blocks of a
+        typical request, then by the ladder: a quarter of the slots from
+        the shrink-slots rung, none at interactive-only."""
+        typical = self.pool.blocks_for_tokens(TYPICAL_TOKENS)
+        slots = min(free_slots, free_blocks // max(typical, 1))
+        if self.ladder.rung >= degrade.RUNG_INTERACTIVE_ONLY:
+            return 0
+        if self.ladder.rung >= degrade.RUNG_SHRINK_SLOTS:
+            return min(slots, max(1, self.config.slots // 4))
+        return slots
+
+    def capacity(self) -> dict:
+        """What the device plugin advertises: slots that could take a
+        request now, derated by :meth:`_advertisable`."""
+        free_slots = len(self._free_slots)
+        free_blocks = self.pool.free_blocks()
+        return {
+            "slots": self.config.slots,
+            "freeSlots": free_slots,
+            "freeKvBlocks": free_blocks,
+            "advertisableSlots": self._advertisable(free_slots,
+                                                    free_blocks),
+        }
