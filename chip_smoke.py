@@ -19,12 +19,18 @@ Phases, each of which passes or raises (a failure exits non-zero):
    256-row chunk at offset 256 must equal rows 256-511 of the whole 512-row
    prefill bit for bit, and slot 0's decode row launched alone must equal
    its row of the 8-slot launch bit for bit; speculative verify's shape (8
-   slots x 5 rows at random positions) takes the tensor-core forward;
+   slots x 5 rows at random positions) takes the tensor-core forward. Over
+   the same cache quantized to int8 (KV8), the decode, verify and chunk
+   shapes take the KV8 kernels, held to ``attention_kv8_plain`` (slot 0's
+   KV8 decode row alone equals its row of the 8-slot launch); the W8A8
+   products at the decode shapes are timed beside the bf16 GEMMs;
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
    streams equal ``generate``; then a tiny fp32 serve that speculates
    (oracle drafts, the last one corrupted) and preempts a batch request
-   mid-speculation, every stream equal to ``generate``; then one tiny fp32
+   mid-speculation, every stream equal to ``generate``; then verify over a
+   KV8 cache (bf16-free and W8A8 weights) with corrupted oracle drafts,
+   its stream equal to ``generate(kv_int8=True)``; then one tiny fp32
    train step whose loss and gradients match the CPU's;
 5. serve the flagship (bf16, about 391M parameters, random weights from a
    seed) through ``Scheduler`` and ``TorchSlotExecutor``: 16 requests on 8
@@ -48,7 +54,14 @@ Phases, each of which passes or raises (a failure exits non-zero):
    ``make_train_step`` and ``measure_train``: 1 warm-up and 5 timed AdamW
    steps, loss finite and falling, every gradient leaf finite and not all
    zero, the three training kernels launched 12 times a step, all on the
-   tensor cores; one profiled step shows where the device time goes.
+   tensor cores; one profiled step shows where the device time goes;
+8. the quantized serving path of the flagship: ``quantize_decode_params``
+   on the card, W8A8 prefill logits correlated above 0.99 with bf16, a
+   W8A8 + KV8 stream's agreement with bf16 (reported), a decode_step loop
+   equal to ``generate(kv_int8=True)``, a KV8 chunked prefill that
+   decodes; ``measure_decode``'s rows B1 bf16, B1 W8A8 and B8 W8A8 + KV8;
+   phase 5's requests served on the W8A8 tree between two bf16 runs; the
+   KV8 kernels must launch; a profile of the quantized decode iterations.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -60,6 +73,7 @@ device JSON line.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -122,6 +136,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream():
+    """The one stream :func:`graph_ms` warms its calls on. cuBLAS keeps a
+    workspace (32 MiB on Hopper) for every stream it has run on, for the
+    life of the process: a new stream per call would pile them up (0.67 GB
+    after phase 3's W8A8 products, read as the train phase's peak
+    memory)."""
+    import torch
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     """Device time per call: *reps* calls captured in one CUDA graph,
     replayed between two CUDA events, so no host launch cost is counted.
@@ -129,7 +154,7 @@ def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
     the 50 MB L2, as on the serving path, where each input was just
     written by the op before)."""
     import torch
-    side = torch.cuda.Stream()
+    side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
@@ -449,6 +474,116 @@ def _decode_row_alone(q, ck, cv, pos) -> None:
     require(err <= TOL["bfloat16"], f"decode vs the plain split: {err:.3g}")
 
 
+def _kv8_case(label: str, q, kv8: tuple, pos) -> dict:
+    """A KV8 kernel against :func:`attention_kv8_plain` on the same inputs,
+    with its time, the plain version's, the library yardstick's (SDPA with
+    the same mask over a bf16 copy of the dequantized K / V; making the
+    copy is not timed) and its bound: int8 K / V at 1 byte an element plus
+    the fp32 scale per (key, head), q and the output in q's type, or the
+    score and PV operations at the bf16 rate, the larger."""
+    import torch
+    import torch.nn.functional as F
+    from dpu_operator_tpu_torch.ops import (attention_fwd_kv8,
+                                            attention_kv8_plain)
+    kq, ks, vq, vs = kv8
+    got, kernel = launched(lambda: attention_fwd_kv8(q, kq, ks, vq, vs, pos))
+    ref = attention_kv8_plain(q, kq, ks, vq, vs, pos)
+    torch.cuda.synchronize()
+    max_abs, scaled = scaled_err(got, ref)
+    b, sq, h, d = q.shape
+    skv = kq.shape[1]
+    pos_h = pos.cpu().numpy().astype(np.int64)
+    pairs = sum(min(int(p) + i + 1, skv) for p in pos_h for i in range(sq))
+    keys = sum(min(int(p) + sq, skv) for p in pos_h)
+    dname = str(q.dtype).replace("torch.", "")
+    bound, by = _bound(2 * b * sq * h * d * q.element_size()
+                       + 2 * keys * h * (d + 4), 4.0 * pairs * h * d, dname)
+    rows = torch.as_tensor(pos_h, device="cuda")[:, None] \
+        + torch.arange(sq, device="cuda")
+    mask = (torch.arange(skv, device="cuda")[None, None, :]
+            <= rows[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    kt, vt = ((t.float() * sc).to(q.dtype).transpose(1, 2)
+              for t, sc in ((kq, ks), (vq, vs)))
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    def run():
+        return attention_fwd_kv8(q, kq, ks, vq, vs, pos)
+
+    return {
+        "name": f"{kernel}[{label}]", "kernel": kernel, "dtype": dname,
+        "source": "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
+        "max_abs_err": max_abs, "scaled_err": scaled,
+        "ms": graph_ms(run), "eager_ms": cuda_ms(run, 20),
+        "plain_ms": cuda_ms(lambda: attention_kv8_plain(q, kq, ks, vq, vs,
+                                                        pos), 3, warmup=1),
+        "library_ms": graph_ms(lib), "bound_ms": bound, "bound_by": by,
+    }
+
+
+def _kv8_decode_row_alone(q, kv8: tuple, pos) -> None:
+    """The KV8 decode kernels' invariant, as the bf16 decode kernels':
+    slot 0's row launched alone equals its row of the 8-slot launch under
+    ``torch.equal``, and a second launch gives the same output."""
+    import torch
+    from dpu_operator_tpu_torch.ops import attention_fwd_kv8
+    batch, kernel = launched(lambda: attention_fwd_kv8(q, *kv8, pos))
+    one = attention_fwd_kv8(q[:1], *(t[:1] for t in kv8), pos[:1])
+    again = attention_fwd_kv8(q, *kv8, pos)
+    torch.cuda.synchronize()
+    same, repeat = torch.equal(one, batch[:1]), torch.equal(again, batch)
+    log(f"[kernels] KV8 decode ({kernel}): slot 0 alone equals its row of "
+        f"the {q.shape[0]}-slot launch bit for bit: {same}; a second launch "
+        f"equal: {repeat}")
+    require(same, "slot 0's KV8 decode row differs between B = 1 and the "
+            "8-slot launch")
+    require(repeat, "two KV8 decode launches on the same inputs differ")
+
+
+def _int8_gemm_log(gen, cfg) -> None:
+    """The W8A8 products at the flagship's decode shapes (8 rows): the
+    padded int8 GEMM (``model._int8_mm``: ``torch._int_mm`` on 32 rows,
+    the weight column-major as the int8 tree stores it, and row-major),
+    the whole W8A8 product (activation quantization, int8 GEMM, fp32
+    rescale) and the bf16 GEMM it replaces, each under graph replay,
+    beside the weight bytes over the HBM rate. A measurement, not a
+    check."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import (_logits,
+                                                         _quantize_weight)
+    from dpu_operator_tpu_torch.workloads.model import (_act_quant, _int8_mm,
+                                                        _mm, int8_weight)
+    hbm = card_peaks()["hbm_bytes_per_s"]
+    d, f = cfg.d_model, cfg.d_ff
+    for k, n, what in ((d, 3 * d, "wqkv"), (d, d, "wo"), (d, f, "w1"),
+                       (f, d, "w2"), (d, cfg.vocab, "logits")):
+        x = torch.randn((8, k), generator=gen, device="cuda").to(torch.bfloat16)
+        xq, _ = _act_quant(x)
+        if what == "logits":   # the tied embedding (V, D), contracted over D
+            w = torch.randn((n, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            leaf = _quantize_weight(w, axis=1)
+            col, row = leaf["q"].t(), leaf["q"].t().contiguous()
+            full, plain = (lambda: _logits(x, leaf)), (lambda: x @ w.t())
+        else:
+            w = torch.randn((k, n), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            leaf = int8_weight(**_quantize_weight(w))
+            col, row = leaf["q"], leaf["q"].contiguous()
+            full, plain = (lambda: _mm(x, leaf)), (lambda: x @ w)
+        t_col = graph_ms(lambda: _int8_mm(xq, col))
+        t_row = graph_ms(lambda: _int8_mm(xq, row))
+        log(f"[kernels] W8A8 {what} 8x{k}x{n}: _int_mm (padded to 32 rows) "
+            f"{t_col * 1e3:.2f} us column-major weight, {t_row * 1e3:.2f} us "
+            f"row-major; whole W8A8 product {graph_ms(full) * 1e3:.2f} us; "
+            f"bf16 GEMM {graph_ms(plain) * 1e3:.2f} us; weight bytes over "
+            f"HBM: int8 {k * n / hbm * 1e6:.2f} us, bf16 "
+            f"{2 * k * n / hbm * 1e6:.2f} us")
+
+
 def phase_kernels(cfg) -> list:
     import torch
     gen = torch.Generator(device="cuda")
@@ -507,9 +642,24 @@ def phase_kernels(cfg) -> list:
                             cv, pv))
     require(cases[-1]["kernel"] == "attention_fwd_tc",
             f"verify took {cases[-1]['kernel']}, not the tensor cores")
+    # the int8 cache (KV8): the same cache quantized as decode stores it,
+    # the same queries and positions (decode, verify, chunk)
+    from dpu_operator_tpu_torch.workloads.decode import _kv_quant
+    (ckq, cks), (cvq, cvs) = _kv_quant(ck), _kv_quant(cv)
+    kv8 = (ckq, cks, cvq, cvs)
+    cases.append(_kv8_case(f"decode 8x1 vs 8x{s_max}x{shape}", qd, kv8, pos))
+    cases.append(_kv8_case(f"verify 8x5 vs 8x{s_max}x{shape}", qv, kv8, pv))
+    cases.append(_kv8_case(
+        f"chunk 1x256x{shape}@256 vs slot row of 8x{s_max}", qc,
+        tuple(t[3:4] for t in kv8), off))
+    _kv8_decode_row_alone(qd, kv8, pos)
     # RMSNorm at the training shape (batch 8 x 1024 tokens)
     cases.append(_rms_case(gen, 8 * s_max, d, bf16))
     _launch_floor()
+    _int8_gemm_log(gen, cfg)
+    log("[kernels] library for attention_kv8_*: SDPA with the same mask over "
+        "a bf16 copy of the dequantized K / V, the copy made outside the "
+        "timing")
     for c in cases:
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
@@ -605,6 +755,7 @@ def phase_cpu_parity() -> None:
     log(f"[parity] tiny fp32 serve on the card: {len(reqs)} requests on 2 "
         "slots, chunk 16, every stream equals generate")
     _spec_preempt_parity(p_gpu, cfg)
+    _spec_kv8_parity(p_gpu, cfg)
     _train_parity(cfg, p_cpu)
 
 
@@ -678,6 +829,51 @@ def _spec_preempt_parity(params, cfg) -> None:
         "accepted; every stream equals generate")
 
 
+def _spec_kv8_parity(params, cfg) -> None:
+    """The twin of tests/test_spec.py's ``kv8`` verify identity on the card
+    (tiny fp32), with bf16-free weights and with the W8A8 tree: verify over
+    a KV8 cache at k 4, the last oracle draft of each proposal corrupted,
+    emits exactly ``generate(kv_int8=True)``'s stream. Verify takes the
+    KV8 tiled kernel, generate's decode steps the KV8 decode kernels."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts
+    from dpu_operator_tpu_torch.workloads.decode import (
+        generate, prefill, quantize_decode_params, verify_step)
+    from dpu_operator_tpu_torch.workloads.spec import greedy_accept
+    prompt, out_len, k = [3, 7, 11, 5, 2, 9, 4], 24, 4
+    for mode, p in (("kv8", params),
+                    ("int8 + kv8", quantize_decode_params(params))):
+        ref = generate(p, cfg, torch.tensor([prompt]), out_len,
+                       device="cuda", kv_int8=True)[0].tolist()
+        before = launch_counts()
+        cache, logits = prefill(p, cfg, torch.tensor([prompt]), kv_int8=True)
+        toks, pos, rows = [int(logits[0].argmax())], len(prompt), 0
+        while len(toks) < out_len:
+            drafts = list(ref[len(toks):len(toks) + min(k, out_len
+                                                         - len(toks) - 1)])
+            if drafts:
+                drafts[-1] = (drafts[-1] + 1) % cfg.vocab
+            row = [toks[-1]] + drafts + [toks[-1]] * (k - len(drafts))
+            logits, cache = verify_step(
+                p, cfg, cache, torch.tensor([row]),
+                torch.tensor([pos], dtype=torch.int32))
+            arg = logits.argmax(-1)[0].tolist()
+            _, emitted = greedy_accept(drafts, arg[:len(drafts) + 1])
+            toks.extend(emitted)
+            pos += len(emitted)
+            rows += 1
+        tiled = launch_counts()["attention_kv8_tiled"] \
+            - before["attention_kv8_tiled"]
+        require(toks[:out_len] == ref, f"tiny fp32 {mode} verify stream "
+                f"{toks[:out_len]} != generate(kv_int8=True) {ref}")
+        require(tiled == rows * cfg.n_layers,
+                f"{mode} verify: {tiled} KV8 tiled launches for {rows} "
+                "verify passes")
+        log(f"[parity] tiny fp32 {mode} verify on the card (k {k}, last "
+            f"draft corrupted): {rows} verify passes on the KV8 tiled "
+            f"kernel, stream equals generate(kv_int8=True)")
+
+
 def _train_parity(cfg, p_cpu) -> None:
     """One fp32 train step of the tiny config on the card and on the CPU
     from the same weights and batch: loss within 1e-4, every gradient leaf
@@ -748,13 +944,17 @@ def _timed_executor(cfg):
 
 def _margin(params, cfg, r) -> float:
     """The worst teacher-forced margin of *r*'s served tokens: how far
-    each lies below the best logit of a full forward over prompt + the
-    tokens before it."""
+    each lies below the best logit of ``verify_step`` over prompt + the
+    tokens before it, in a fresh cache (one forward of the served model,
+    bf16 or int8 tree)."""
     import torch
-    from dpu_operator_tpu_torch.workloads.model import forward
-    dev = params["embed"].device
+    from dpu_operator_tpu_torch.workloads.decode import (
+        init_kv_cache, params_device, verify_step)
+    dev = params_device(params)
     seq = torch.tensor([list(r.prompt) + r.tokens[:-1]], device=dev)
-    logits = forward(params, cfg=cfg, tokens=seq)[0, r.prompt_len - 1:]
+    full, _ = verify_step(params, cfg, init_kv_cache(cfg, 1, device=dev),
+                          seq, 0)
+    logits = full[0, r.prompt_len - 1:]
     served = torch.tensor(r.tokens, device=dev)
     margin = logits.max(-1).values - logits.gather(1, served[:, None])[:, 0]
     return float(margin.max())
@@ -1383,6 +1583,184 @@ def phase_train(cfg) -> dict:
     return out
 
 
+# -- phase 8 ------------------------------------------------------------------
+#: measure_decode's rows (bench.py's three decode sections): label, batch,
+#: int8 weights, int8 cache, chain length (B8 at 3/4 of B1's, as bench.py)
+DECODE_ROWS = (("B1 bf16", 1, False, False, 48),
+               ("B1 W8A8", 1, True, False, 48),
+               ("B8 W8A8 + KV8", 8, True, True, 36))
+
+
+def _quant_checks(params, qparams, cfg) -> None:
+    """W8A8 against bf16 on the flagship, and the KV8 invariants: prefill
+    logits correlated above 0.99 (tests/test_decode.py's gate), the
+    W8A8 + KV8 stream's agreement with bf16 reported, a decode_step loop
+    equal to ``generate(kv_int8=True)`` token for token, and a KV8 chunked
+    prefill whose continuation decodes to finite logits."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import (
+        decode_step, generate, init_kv_cache, prefill, prefill_chunk)
+    rng = np.random.default_rng(88)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).cuda()
+    _, lb = prefill(params, cfg, prompt)
+    _, lq = prefill(qparams, cfg, prompt)
+    corr = float(np.corrcoef(lb.cpu().numpy().ravel(),
+                             lq.cpu().numpy().ravel())[0, 1])
+    log(f"[quant] W8A8 prefill logits (2 x 64 tokens) against bf16: "
+        f"correlation {corr:.6f} (gate > 0.99), max |diff| "
+        f"{float((lb - lq).abs().max()):.4f}")
+    require(corr > 0.99, f"W8A8 prefill logits correlate {corr} with bf16")
+    steps = 32
+    sb = generate(params, cfg, prompt, steps, device="cuda")
+    sq = generate(qparams, cfg, prompt, steps, device="cuda", kv_int8=True)
+    log(f"[quant] W8A8 + KV8 greedy stream against bf16 (random weights, "
+        f"reported): {float((sb == sq).float().mean()):.3f} of {sq.numel()} "
+        f"tokens agree; first difference at token "
+        f"{[next((i for i in range(steps) if sb[b, i] != sq[b, i]), steps) for b in range(2)]}")
+    cache, logits = prefill(qparams, cfg, prompt, kv_int8=True)
+    pos = torch.full((2,), prompt.shape[1], dtype=torch.int32, device="cuda")
+    out = []
+    for i in range(steps):
+        tok = logits.argmax(-1)
+        out.append(tok)
+        logits, cache = decode_step(qparams, cfg, cache, tok, pos + i)
+    require(torch.equal(torch.stack(out, 1), sq),
+            "a W8A8 + KV8 decode_step loop differs from generate(kv_int8)")
+    cache = init_kv_cache(cfg, 8, device="cuda", kv_int8=True)
+    ids = rng.integers(0, cfg.vocab, 300)
+    for off in (0, 256):
+        chunk = np.zeros(256, np.int64)
+        n = min(256, len(ids) - off)
+        chunk[:n] = ids[off:off + n]
+        cache, lc = prefill_chunk(qparams, cfg, cache, 2,
+                                  torch.from_numpy(chunk), off, n)
+    last = torch.zeros(8, dtype=torch.int64, device="cuda")
+    last[2] = lc.argmax()
+    pos8 = torch.zeros(8, dtype=torch.int32, device="cuda")
+    pos8[2] = len(ids)
+    step, _ = decode_step(qparams, cfg, cache, last, pos8)
+    require(bool(torch.isfinite(step).all()),
+            "KV8 decode after a chunked prefill gave non-finite logits")
+    log(f"[quant] decode_step loop ({steps} steps) equals "
+        "generate(kv_int8=True) token for token; a KV8 chunked prefill "
+        "(300 tokens in 2 chunks of 256 into slot 2 of 8) decodes to finite "
+        "logits")
+
+
+def _quant_profile(qparams, cfg) -> None:
+    """Where a quantized decode iteration's time goes: the W8A8 executor's
+    decode iteration (8 slots holding 512-token prompts, bf16 cache) and a
+    W8A8 + KV8 ``decode_step`` over the same 8 slots. A measurement, not a
+    check."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import (
+        decode_step, init_kv_cache, prefill_chunk)
+    from dpu_operator_tpu_torch.workloads.serve import (Request,
+                                                        TorchSlotExecutor)
+    ex = TorchSlotExecutor(qparams, cfg, slots=8, chunk_tokens=256,
+                           device="cuda")
+    cache = init_kv_cache(cfg, 8, device="cuda", kv_int8=True)
+    rng = np.random.default_rng(99)
+    active = []
+    for slot in range(8):
+        ids = tuple(int(t) for t in rng.integers(0, cfg.vocab, 512))
+        req = Request(rid=f"p{slot}", prompt_len=512, output_len=64,
+                      prompt=ids)
+        for off in (0, 256):
+            ex.prefill_chunk(req, slot, off, 256)
+            prefill_chunk(qparams, cfg, cache, slot,
+                          torch.tensor(ids[off:off + 256]), off, 256)
+        active.append((slot, req))
+    tokens = torch.from_numpy(ex.last.astype(np.int64)).cuda()
+    pos = torch.full((8,), 512, dtype=torch.int32, device="cuda")
+    profile_calls("W8A8 decode iteration (8 slots, bf16 cache)",
+                  lambda: ex.step(active), 10)
+    profile_calls("W8A8 + KV8 decode_step (8 slots at 512)",
+                  lambda: decode_step(qparams, cfg, cache, tokens, pos), 10)
+
+
+def phase_quant(cfg) -> dict:
+    """The quantized serving path of the flagship (bf16, random weights
+    from the seed of phases 5-6): ``quantize_decode_params`` on the card,
+    :func:`_quant_checks`, ``measure_decode``'s three rows, then phase 5's
+    16 requests served on the W8A8 tree through ``Scheduler`` and
+    ``TorchSlotExecutor`` (bf16 cache, as the executor keeps it) between
+    two bf16 runs of the same requests, and :func:`_quant_profile`. The
+    KV8 kernels must launch. Returns the rows, the serve runs and the
+    launches of the phase's main path."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.decode import (
+        generate, quantize_decode_params)
+    from dpu_operator_tpu_torch.workloads.model import init_params, param_bytes
+    from dpu_operator_tpu_torch.workloads.perf import measure_decode
+    from dpu_operator_tpu_torch.workloads.serve import Request
+    params = init_params(0, cfg, device="cuda")
+    reset_launch_counts()
+    t0 = time.monotonic()
+    qparams = quantize_decode_params(params)
+    torch.cuda.synchronize()
+    wb, qb = param_bytes(params), param_bytes(qparams)
+    log(f"[quant] quantize_decode_params on the card in "
+        f"{time.monotonic() - t0:.2f} s: {qb / 1e6:.1f} MB of int8 tree "
+        f"against {wb / 1e6:.1f} MB in bf16")
+    _quant_checks(params, qparams, cfg)
+    rows = {}
+    for label, batch, quantized, kv_int8, steps in DECODE_ROWS:
+        r = measure_decode(cfg, batch=batch, steps=steps, iters=2, best_of=1,
+                           quantized=quantized, kv_int8=kv_int8,
+                           device="cuda")
+        rows[label] = r
+        log(f"[quant] measure_decode {label}: {r['tokens_per_s']:.1f} "
+            f"tokens/s, {r['ms_per_token']:.3f} ms a step against the "
+            f"{r['bound']} bound {r['roofline_ms_per_token']:.4f} ms (HBM "
+            f"{r['hbm_ms_per_token']:.4f} ms), roofline_frac "
+            f"{r['roofline_frac']:.4f}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[quant] launches of the checks and measure_decode: {counts}")
+    for name in ("attention_kv8_decode", "attention_kv8_tiled"):
+        require(counts[name] > 0, f"{name} never launched on the KV8 path")
+
+    reqs = _requests(np.random.default_rng(2026), 16, cfg.vocab, (128, 512),
+                     (32, 64))
+    generate(qparams, cfg, torch.tensor([reqs[0].prompt[:64]]), 4,
+             device="cuda")
+
+    def fresh():
+        return [Request(rid=r.rid, prompt_len=r.prompt_len,
+                        output_len=r.output_len, prompt=r.prompt)
+                for r in reqs]
+
+    runs, served = {}, {}
+    for label, p, nbytes in (("bf16", params, wb), ("w8a8", qparams, qb),
+                             ("w8a8 again", qparams, qb),
+                             ("bf16 again", params, wb)):
+        served[label] = fresh()
+        runs[label] = _serve_run(p, cfg, f"quant {label}", served[label],
+                                 nbytes)
+    for rid in ("req-00", "req-09"):
+        for label in ("w8a8", "w8a8 again"):
+            r = next(x for x in served[label] if x.rid == rid)
+            worst = _margin(qparams, cfg, r)
+            log(f"[quant] {label} {rid}: worst teacher-forced margin under "
+                f"the W8A8 model {worst:.4f} (tol {SERVE_LOGIT_TOL})")
+            require(worst <= SERVE_LOGIT_TOL,
+                    f"{label} {rid}: a served token is {worst:.4f} below the "
+                    "best logit of the W8A8 model")
+    log("[quant] serve tokens/s, bf16 / w8a8 / w8a8 again / bf16 again: "
+        + " / ".join(f"{runs[k]['tokens_per_s']:.1f}" for k in runs))
+    for run in runs.values():
+        counts = {k: counts[k] + run["launches"][k] for k in counts}
+    _quant_profile(qparams, cfg)
+    out = {"measure_decode": rows,
+           "serve": {k: {n: v for n, v in run.items() if n != "launches"}
+                     for k, run in runs.items()},
+           "launches": counts}
+    log("[quant] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1415,9 +1793,13 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     train_counts = phase_train(cfg)["launches"]
+    torch.cuda.empty_cache()
+    quant_counts = phase_quant(cfg)["launches"]
     # each kernel's launches on the main paths (the four serve runs, the
-    # two chaos runs and the train run), each read from zero
-    counts = {k: counts[k] + train_counts[k] for k in counts}
+    # two chaos runs, the train run and the quantized phase), each read
+    # from zero
+    counts = {k: counts[k] + train_counts[k] + quant_counts[k]
+              for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"], "launches": counts[c["kernel"]],

@@ -1,11 +1,14 @@
 // Helpers shared by the port's hand-written kernels (sm_90a, plain C ABI).
 //
 // Element types are float (dtype code 0) and __nv_bfloat16 (dtype code 1);
-// every kernel computes in fp32 and rounds once on the way out.
+// every kernel computes in fp32 and rounds once on the way out. The int8 KV
+// cache (KV8) is read as int8_t, converted to fp32 exactly.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace port {
 
@@ -22,6 +25,9 @@ template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
+  return static_cast<float>(v);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);

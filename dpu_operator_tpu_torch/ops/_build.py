@@ -45,6 +45,8 @@ _SIGNATURES = {
                           + [_L] * 12 + [_I, _F, _I, _I, _I, _P]),
     "attention_decode": (_I, [_P] * 6 + [_I] * 4 + [_L] * 12
                          + [_I, _F, _I, _I, _P]),
+    "attention_kv8": (_I, [_P] * 8 + [_I] * 5 + [_L] * 18
+                      + [_I, _F, _I, _I, _I, _P]),
     "attention_bwd_dq": (_I, [_P] * 7 + [_I] * 4 + [_L] * 15
                          + [_I, _F, _F, _I, _I, _I, _P]),
     "attention_bwd_dkv": (_I, [_P] * 8 + [_I] * 4 + [_L] * 15

@@ -32,6 +32,17 @@ partials in chunk order (:func:`_decode_chunks`;
 :func:`attention_decode_plain` is the same split in plain PyTorch). A
 launch that fails raises: no route falls back to another.
 
+The int8 KV cache (KV8): :func:`attention_fwd_kv8` attends q over int8
+K / V with one fp32 scale per (key, head), the cache of
+``dpu_operator_tpu/workloads/decode.py`` ``init_kv_cache(kv_int8=True)``,
+whose attention (the ``"k_q"`` branches of ``_verify_one`` and
+``prefill_chunk``) is XLA there. One query row takes the KV8 decode
+kernels (split over keys as the decode kernels are), more rows the tiled
+KV8 kernel; both take two passes over the keys, so that P * v_s is rounded
+to the input type with P the row's normalized softmax, where the reference
+rounds it. Its plain version is :func:`attention_kv8_plain`. No bf16 copy
+of the cache is made.
+
 Training: :func:`flash_attention_vjp` (a :class:`FlashAttentionFn`) saves
 the per-row logsumexp of :func:`attention_fwd_lse`; its backward computes
 ``delta = rowsum(dO * O)`` with a torch op (as the JAX package does, outside
@@ -223,6 +234,46 @@ def attention_decode_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)[:, None]
 
 
+def attention_kv8_plain(q: torch.Tensor, k_q: torch.Tensor,
+                        k_s: torch.Tensor, v_q: torch.Tensor,
+                        v_s: torch.Tensor,
+                        q_pos0: Optional[torch.Tensor] = None,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention over the int8 KV cache in plain PyTorch: the JAX function
+    of ``decode.py::_verify_one``'s ``"k_q"`` branch (:247-256). q (B, Sq,
+    H, D); k_q, v_q (B, Skv, H, D) int8; k_s, v_s (B, Skv, H, 1) fp32. The
+    scores are ``(q . k_q) * k_s / sqrt(D)`` in fp32, masked causally at
+    the per-row offset (row i of batch b at ``q_pos0[b] + i``, -1e9 as
+    there), softmax in fp32, then ``out = sum_j round(P_j * v_s_j) *
+    v_q_j`` with the product rounded to q's type (the reference's
+    ``att_v``) and the sum rounded once to q's type. Each dot product is a
+    reduction over the contiguous last dimension (key blocks of
+    ``BLOCK_K``) and the softmax is per row, so a row's result does not
+    depend on the other rows of its batch."""
+    b, sq, h, d = q.shape
+    skv = k_q.shape[1]
+    pos = _positions(q, q_pos0).long()
+    rows = pos[:, None] + torch.arange(sq, device=q.device)      # (B, Sq)
+    qf = q.float().permute(0, 2, 1, 3).unsqueeze(3)             # (B,H,Sq,1,D)
+    blocks = [slice(j, j + BLOCK_K) for j in range(0, skv, BLOCK_K)]
+    s = torch.cat([(qf * k_q[:, sl].float().permute(0, 2, 1, 3)
+                    .unsqueeze(2)).sum(-1) for sl in blocks], -1)
+    s = s * k_s[..., 0].float().permute(0, 2, 1)[:, :, None] \
+        / math.sqrt(d)                                           # (B,H,Sq,Skv)
+    if causal:
+        keys = torch.arange(skv, device=q.device)
+        ok = keys[None, None, :] <= rows[:, :, None]             # (B, Sq, Skv)
+        s = torch.where(ok[:, None], s, -1e9)
+    p = torch.softmax(s, -1)
+    pv = (p * v_s[..., 0].float().permute(0, 2, 1)[:, :, None]
+          ).to(q.dtype).float()
+    out = torch.zeros((b, h, sq, d), device=q.device)
+    for sl in blocks:
+        vt = v_q[:, sl].float().permute(0, 2, 3, 1).unsqueeze(2)  # (B,H,1,D,K)
+        out = out + (pv[..., sl].unsqueeze(3) * vt).sum(-1)
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
 def _check_cuda(what: str, *ts: torch.Tensor) -> None:
     q = ts[0]
     if q.dtype not in _DTYPE_CODES:
@@ -303,6 +354,71 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention_fwd.launches = 0  # type: ignore[attr-defined]
 attention_fwd.decode_launches = 0  # type: ignore[attr-defined]
 attention_fwd.tc_launches = 0  # type: ignore[attr-defined]
+
+
+def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                      v_q: torch.Tensor, v_s: torch.Tensor,
+                      q_pos0: Optional[torch.Tensor] = None,
+                      causal: bool = True) -> torch.Tensor:
+    """Attention of q (B, Sq, H, D) over the int8 KV cache: k_q, v_q (B,
+    Skv, H, D) int8 with k_s, v_s (B, Skv, H, 1) fp32 scales, row i of
+    batch b at absolute position ``q_pos0[b] + i`` (default 0), as
+    :func:`attention_fwd`. The function of :func:`attention_kv8_plain`.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the KV8
+    kernels (one query row: the KV8 decode kernels, split over keys; more
+    rows: the tiled KV8 kernel, which converts int8 rows as it stages them)
+    or raises. Returns a new contiguous (B, Sq, H, D)
+    tensor in q's type."""
+    b, sq, h, d = q.shape
+    if (k_q.shape[0] != b or k_q.shape[2:] != (h, d)
+            or v_q.shape != k_q.shape
+            or k_s.shape != (*k_q.shape[:3], 1) or v_s.shape != k_s.shape):
+        raise ValueError(f"attention_fwd_kv8: shapes q {tuple(q.shape)} "
+                         f"k_q {tuple(k_q.shape)} k_s {tuple(k_s.shape)} "
+                         f"v_q {tuple(v_q.shape)} v_s {tuple(v_s.shape)}")
+    if q.device.type == "cpu":
+        return attention_kv8_plain(q, k_q, k_s, v_q, v_s, q_pos0, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_fwd_kv8: unsupported device {q.device}")
+    _check_cuda("attention_fwd_kv8", q)
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8 \
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise TypeError("attention_fwd_kv8: k_q, v_q must be int8 and k_s, "
+                        f"v_s fp32, got {k_q.dtype} {v_q.dtype} "
+                        f"{k_s.dtype} {v_s.dtype}")
+    if any(t.device != q.device for t in (k_q, k_s, v_q, v_s)):
+        raise ValueError("attention_fwd_kv8: inputs on different devices")
+    q, k_q, v_q = (t if _aligned(t) else t.contiguous() for t in (q, k_q, v_q))
+    pos = _positions(q, q_pos0).contiguous()
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    skv = k_q.shape[1]
+    decode = sq == 1
+    # the decode kernels' fp32 scratch: each chunk's partial (m, l, acc[D])
+    # and its (max, sum)
+    part = torch.empty((b, h, _decode_chunks(skv - 1, skv), d + 4),
+                       dtype=torch.float32, device=q.device) if decode \
+        else None
+    rc = _build.library().attention_kv8(
+        q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+        v_s.data_ptr(), out.data_ptr(), pos.data_ptr(),
+        None if part is None else part.data_ptr(), b, sq, skv, h, d,
+        *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
+        _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
+        int(decode),  # route: 1 the decode kernels, 0 the tiled kernel
+        DECODE_CHUNK, torch.cuda.current_stream(q.device).cuda_stream)
+    attention_fwd_kv8.launches += 1
+    if decode:
+        attention_fwd_kv8.decode_launches += 1
+    _build.check(rc, "attention_fwd_kv8")
+    return out
+
+
+#: launches of both KV8 routes, and of the decode kernels alone
+attention_fwd_kv8.launches = 0  # type: ignore[attr-defined]
+attention_fwd_kv8.decode_launches = 0  # type: ignore[attr-defined]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

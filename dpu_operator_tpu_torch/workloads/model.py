@@ -15,7 +15,12 @@ are not ported yet.
 
 Parameters are a plain dict shaped like the JAX tree: ``embed (V, D)``,
 ``pos (max_seq, D)``, ``out_norm (D,)`` and ``layers``, a list of dicts
-with ``ln1, wqkv (D, 3D), wo (D, D), ln2, w1 (D, F), w2 (F, D)``.
+with ``ln1, wqkv (D, 3D), wo (D, D), ln2, w1 (D, F), w2 (F, D)``. The
+serving path's int8 tree (``decode.quantize_decode_params``) has the same
+shape with ``{"q": int8, "scale": fp32}`` leaves for ``embed`` and the four
+projections; :func:`layer` multiplies through :func:`_mm`, which takes the
+W8A8 product for such a leaf, so decode runs the same block over either
+tree.
 """
 
 from __future__ import annotations
@@ -89,22 +94,44 @@ def _to_tensor(a: Any, dtype: torch.dtype,
     return t.to(device=device, dtype=dtype)
 
 
+def int8_weight(q: torch.Tensor, scale: torch.Tensor) -> dict:
+    """A quantized projection leaf ``{"q": int8 (K, N), "scale": fp32
+    (1, N)}`` with q stored column-major (strides (1, K)): the right
+    operand of the int8 product (``torch._int_mm``), whose cuBLASLt route
+    on the card takes that layout only. Shape and values are the JAX
+    leaf's."""
+    return {"q": q.t().contiguous().t(), "scale": scale}
+
+
+#: the projections of a layer (int8 leaves in a quantized tree)
+PROJECTIONS = ("wqkv", "wo", "w1", "w2")
+
+
 def params_from_numpy(tree: dict, cfg: TransformerConfig,
                       device: "str | torch.device" = "cuda") -> dict:
     """The port's parameters from a JAX ``init_params`` tree whose leaves
     were converted with ``np.asarray``: same values, ``cfg.dtype``, on
-    *device*."""
+    *device*. A quantized tree (``quantize_decode_params``) comes across as
+    it is: each ``{"q", "scale"}`` leaf keeps int8 and fp32."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(a: Any) -> torch.Tensor:
         return _to_tensor(a, cfg.dtype, dev)
 
+    def weight(a: Any, projection: bool) -> Any:
+        if not isinstance(a, dict):
+            return conv(a)
+        q = _to_tensor(a["q"], torch.int8, dev)
+        scale = _to_tensor(a["scale"], torch.float32, dev)
+        return int8_weight(q, scale) if projection \
+            else {"q": q, "scale": scale}
+
     return {
-        "embed": conv(tree["embed"]),
+        "embed": weight(tree["embed"], projection=False),
         "pos": conv(tree["pos"]),
         "out_norm": conv(tree["out_norm"]),
-        "layers": [{name: conv(lp[name]) for name in
+        "layers": [{name: weight(lp[name], name in PROJECTIONS) for name in
                     ("ln1", "wqkv", "wo", "ln2", "w1", "w2")}
                    for lp in tree["layers"]],
     }
@@ -140,16 +167,14 @@ def init_params(seed: int, cfg: TransformerConfig,
     return params
 
 
-def param_bytes(params: dict) -> int:
-    """Bytes of every parameter tensor."""
-    total = 0
-    for name, t in params.items():
-        if name == "layers":
-            total += sum(x.numel() * x.element_size()
-                         for lp in t for x in lp.values())
-        else:
-            total += t.numel() * t.element_size()
-    return total
+def param_bytes(params: Any) -> int:
+    """Bytes of every parameter tensor, each at its own width (an int8
+    leaf's q at 1 byte an element, its scale at 4)."""
+    if isinstance(params, dict):
+        return sum(param_bytes(t) for t in params.values())
+    if isinstance(params, list):
+        return sum(param_bytes(t) for t in params)
+    return params.numel() * params.element_size()
 
 
 def split_heads(qkv: torch.Tensor, cfg: TransformerConfig) -> tuple:
@@ -158,9 +183,52 @@ def split_heads(qkv: torch.Tensor, cfg: TransformerConfig) -> tuple:
                  for t in qkv.split(cfg.d_model, dim=-1))
 
 
+def _is_q(w: object) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def _act_quant(x: torch.Tensor) -> tuple:
+    """Symmetric int8 over the last dim: (int8 values, fp32 scales with
+    the last dim 1). ``torch.round`` rounds half to even, as ``jnp.round``
+    does."""
+    xf = x.float()
+    xs = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq, xs
+
+
+#: rows a CUDA ``torch._int_mm`` needs at least (it takes more than 16)
+_INT_MM_ROWS = 32
+
+
+def _int8_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq (..., K) int8 times wq (K, N) int8 -> (..., N) int32, exact. On
+    the card ``torch._int_mm`` takes 2-D operands with more than 16 rows
+    (K and N multiples of 8): the rows are flattened, and fewer than 17
+    are padded with zero rows, which change no value of an exact
+    product."""
+    lead = xq.shape[:-1]
+    a = xq.reshape(-1, xq.shape[-1])
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = torch.cat([a, a.new_zeros((_INT_MM_ROWS - m, a.shape[1]))])
+    return torch._int_mm(a, wq)[:m].reshape(*lead, wq.shape[1])
+
+
+def _mm(x: torch.Tensor, w: "torch.Tensor | dict") -> torch.Tensor:
+    """x @ w for a plain weight, or the W8A8 product for an int8 leaf
+    (JAX ``decode._mm``): int8 activations times int8 weights, rescaled by
+    the activation and weight scales in fp32 and rounded to x's type."""
+    if not _is_q(w):
+        return x @ w
+    xq, xs = _act_quant(x)
+    acc = _int8_mm(xq, w["q"])
+    return (acc.float() * xs * w["scale"]).to(x.dtype)
+
+
 def mlp(h: torch.Tensor, lp: dict) -> torch.Tensor:
     """tanh-GELU MLP (``jax.nn.gelu`` defaults to the tanh form)."""
-    return F.gelu(h @ lp["w1"], approximate="tanh") @ lp["w2"]
+    return _mm(F.gelu(_mm(h, lp["w1"]), approximate="tanh"), lp["w2"])
 
 
 def logits_of(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -173,10 +241,12 @@ def layer(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
           attend: Callable[..., torch.Tensor]) -> torch.Tensor:
     """One pre-norm block on x (B, S, D). *attend(q, k, v)* maps the
     layer's (B, S, H, Dh) projections to the attention output: over the
-    same tokens in :func:`forward`, over the KV cache in decode."""
+    same tokens in :func:`forward`, over the KV cache in decode. Each
+    product with a projection is :func:`_mm`'s: ``@``, or W8A8 for an
+    int8 leaf."""
     h = fused_rmsnorm(x, lp["ln1"])
-    o = attend(*split_heads(h @ lp["wqkv"], cfg))
-    x = x + o.flatten(2) @ lp["wo"]
+    o = attend(*split_heads(_mm(h, lp["wqkv"]), cfg))
+    x = x + _mm(o.flatten(2), lp["wo"])
     return x + mlp(fused_rmsnorm(x, lp["ln2"]), lp)
 
 

@@ -52,8 +52,8 @@ import torch
 from .. import resolve_device
 from ..utils.resilience import RetryPolicy
 from . import degrade
-from .decode import (decode_step, init_kv_cache, prefill, prefill_chunk,
-                     verify_step)
+from .decode import (decode_step, init_kv_cache, params_device, prefill,
+                     prefill_chunk, verify_step)
 from .kv_pool import KvBlockPool, chain_keys
 from .spec import AdaptiveK, NgramDrafter, greedy_accept
 
@@ -307,8 +307,8 @@ class TorchSlotExecutor:
                  chunk_tokens: int = 0, spec_k: int = 0,
                  device: "str | torch.device" = "cuda") -> None:
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, "
+        if params_device(params).type != self.device.type:
+            raise ValueError(f"params live on {params_device(params)}, "
                              f"not {self.device}")
         self.params = params
         self.cfg = cfg

@@ -3,7 +3,9 @@
 bf16 at head dim 64 or 128 takes the ``wgmma`` forward (with and without
 the logsumexp), dQ and dK/dV kernels; fp32 and head dim 32 keep the
 CUDA-core kernels, and the one-row decode shape takes the decode kernels,
-split over keys. On the CPU these tests hold the routing functions, the
+split over keys; attention over the int8 KV cache (KV8) takes the KV8
+decode kernels or the tiled KV8 kernel. On the CPU these tests hold the
+routing functions, the
 tile-height rule and the decode chunk rule, and the properties the forward
 and decode kernels are built around (a row's result does not depend on its
 tile, nor on the batch it is decoded in) on the plain versions at the
@@ -26,8 +28,11 @@ from dpu_operator_tpu_torch.ops import (attention_bwd_dkv,
                                         attention_decode_plain,
                                         attention_delta, attention_fwd,
                                         attention_fwd_lse,
-                                        attention_fwd_plain, launch_counts,
+                                        attention_fwd_kv8,
+                                        attention_fwd_plain,
+                                        attention_kv8_plain, launch_counts,
                                         reset_launch_counts)
+from dpu_operator_tpu_torch.workloads import decode
 
 #: the module (the package's ``flash_attention`` name is the function)
 fa = importlib.import_module("dpu_operator_tpu_torch.ops.flash_attention")
@@ -439,3 +444,61 @@ def test_cuda_decode_row_does_not_depend_on_the_batch(cuda, dtype):
                             pos[i:i + 1])
         assert torch.equal(one, batch[i:i + 1]), i
     assert torch.equal(batch, attention_fwd(q, ck, cv, pos))
+
+
+# -- the int8 KV cache (KV8) and the W8A8 product, on the card ----------------
+
+def _kv8_inputs(dev, dtype, b, sq, skv, h, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    (kq, ks), (vq, vs) = (decode._kv_quant(rnd(b, skv, h, d))
+                          for _ in range(2))
+    return rnd(b, sq, h, d).to(dtype), kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,pos0", [(1, (0, 127, 128, 1023)),
+                                     (5, (0, 126, 600, 1019)),
+                                     (256, (0, 256, 500, 768))])
+def test_cuda_kv8_kernels_match_plain(cuda, dtype, tol, d, sq, pos0):
+    """One query row takes the KV8 decode kernels, more rows the tiled
+    KV8 kernel; each within the limits of chip_smoke.py of
+    ``attention_kv8_plain`` (both round P * v_s with P normalized)."""
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, 4, sq, 1024, 3, d, 41)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    before = launch_counts()
+    got = attention_fwd_kv8(q, kq, ks, vq, vs, pos)
+    moved = [n for n, c in launch_counts().items() if c != before[n]]
+    assert moved == ["attention_kv8_decode" if sq == 1
+                     else "attention_kv8_tiled"]
+    assert _scaled_err(got, attention_kv8_plain(q, kq, ks, vq, vs, pos)) \
+        <= tol
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_cuda_kv8_decode_row_does_not_depend_on_the_batch(cuda, dtype):
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, 8, 1, 1024, 12, 128, 43)
+    pos = torch.tensor([511, 3, 1023, 128, 0, 700, 64, 900],
+                       dtype=torch.int32, device=cuda)
+    full = attention_fwd_kv8(q, kq, ks, vq, vs, pos)
+    for i in (0, 2, 5):
+        one = attention_fwd_kv8(*(t[i:i + 1] for t in (q, kq, ks, vq, vs)),
+                                pos[i:i + 1])
+        assert torch.equal(one, full[i:i + 1]), i
+
+
+def test_cuda_w8a8_product_is_exact(cuda):
+    """The padded int8 product on the card equals the int32 product, for a
+    column-major weight (the int8 tree's layout, and that of the
+    transposed embedding the logits take) and a row-major one."""
+    g = torch.Generator().manual_seed(47)
+    xq = torch.randint(-127, 128, (2, 4, 64), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (64, 48), generator=g, dtype=torch.int8)
+    want = (xq.int().reshape(8, 64) @ w.int()).reshape(2, 4, 48)
+    for right in (w.t().contiguous().t(), w):
+        got = decode._int8_mm(xq.to(cuda), right.to(cuda))
+        assert torch.equal(got.cpu(), want)
