@@ -19,7 +19,8 @@ Phases, each of which passes or raises (a failure exits non-zero):
    256-row chunk at offset 256 must equal rows 256-511 of the whole 512-row
    prefill bit for bit, and slot 0's decode row launched alone must equal
    its row of the 8-slot launch bit for bit; speculative verify's shape (8
-   slots x 5 rows at random positions) takes the tensor-core forward. Over
+   slots x 5 rows at random positions) and the flash bench's (4 x 2048 x
+   8 x 128, causal) take the tensor-core forward. Over
    the same cache quantized to int8 (KV8), the decode, verify and chunk
    shapes take the KV8 kernels, held to ``attention_kv8_plain`` (slot 0's
    KV8 decode row alone equals its row of the 8-slot launch); the W8A8
@@ -61,7 +62,21 @@ Phases, each of which passes or raises (a failure exits non-zero):
    equal to ``generate(kv_int8=True)``, a KV8 chunked prefill that
    decodes; ``measure_decode``'s rows B1 bf16, B1 W8A8 and B8 W8A8 + KV8;
    phase 5's requests served on the W8A8 tree between two bf16 runs; the
-   KV8 kernels must launch; a profile of the quantized decode iterations.
+   KV8 kernels must launch; a profile of the quantized decode iterations;
+9. measurement and calibration of the flagship: ``calibrate_cost_model``
+   three times (every field finite and positive, each fit beside the JAX
+   defaults, the spread), the chunk budget of ``chunked_config``, the
+   virtual-clock ``bench_serving`` over the first fit (no block leaked),
+   then ``wall_open_loop``: ``open_loop_arrivals`` at 0.8 of the modelled
+   capacity over 10 s of virtual time (seeded prompt ids) through
+   ``run_open_loop`` over ``TorchSlotExecutor``: its record must equal a
+   ``SimExecutor`` run's
+   key for key, RMSNorm, the tensor-core forward and split decode must
+   launch, no block may leak and the first 4 completed streams must hold
+   to the teacher-forced margin; it is reported in wall tokens/s beside
+   the virtual ones. Last ``measure_flash_attention`` at 4 x 2048 x 8 x
+   128 bf16 causal beside SDPA and the bound (phase 3 holds the kernel
+   against its plain version at that shape).
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -73,10 +88,10 @@ device JSON line.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -104,6 +119,8 @@ SPEC_KERNELS = ("fused_rmsnorm", "attention_fwd_tc")
 TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq_tc",
                  "attention_bwd_dkv_tc")
 SERVE_NOT = ("attention_fwd_tiled",)
+#: phase 9's flash bench shape (B, S, H, D), bf16 causal (bench.py's)
+FLASH_BENCH = (4, 2048, 8, 128)
 TRAIN_NOT = ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv")
 
 
@@ -187,13 +204,14 @@ def scaled_err(got, ref) -> tuple:
 
 
 def card_peaks() -> dict:
-    """This card's data-sheet rates (``perf.CARD_PEAKS``): the bounds
+    """This card's data-sheet rates (``perf.card_peaks``, the entry
+    ``measure_decode`` and ``measure_flash_attention`` read): the bounds
     need them."""
-    import torch
-    from dpu_operator_tpu_torch.workloads.perf import CARD_PEAKS
-    name = torch.cuda.get_device_name(0)
-    require(name in CARD_PEAKS, f"no data-sheet rates for {name!r}")
-    return CARD_PEAKS[name]
+    from dpu_operator_tpu_torch.workloads import perf
+    try:
+        return perf.card_peaks(0)
+    except ValueError as e:
+        raise PhaseError(str(e)) from e
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -203,19 +221,14 @@ def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {name}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip().splitlines()
-    except (OSError, subprocess.TimeoutExpired) as e:
-        raise PhaseError(f"nvidia-smi failed: {e}") from e
-    require(bool(smi), "nvidia-smi printed nothing")
-    print(smi[0], flush=True)
+    from dpu_operator_tpu_torch.workloads.perf import nvidia_smi_line
+    smi = nvidia_smi_line()
+    require(smi is not None, "nvidia-smi failed or printed nothing")
+    print(smi, flush=True)
     card_peaks()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return {"name": name, "smi": smi[0]}
+    return {"name": name, "smi": smi}
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -655,6 +668,16 @@ def phase_kernels(cfg) -> list:
     _kv8_decode_row_alone(qd, kv8, pos)
     # RMSNorm at the training shape (batch 8 x 1024 tokens)
     cases.append(_rms_case(gen, 8 * s_max, d, bf16))
+    # the flash bench's shape (phase 9's measure_flash_attention):
+    # 4 x 2048 x 8 x 128, causal from position 0
+    fb = [rnd(*FLASH_BENCH) for _ in range(3)]
+    cases.append(_attn_case(gen, "flash bench " + "x".join(
+        map(str, FLASH_BENCH)), *fb, torch.zeros(FLASH_BENCH[0],
+                                                dtype=torch.int32,
+                                                device="cuda")))
+    require(cases[-1]["kernel"] == "attention_fwd_tc",
+            f"the flash bench took {cases[-1]['kernel']}, not the tensor "
+            "cores")
     _launch_floor()
     _int8_gemm_log(gen, cfg)
     log("[kernels] library for attention_kv8_*: SDPA with the same mask over "
@@ -878,7 +901,6 @@ def _train_parity(cfg, p_cpu) -> None:
     """One fp32 train step of the tiny config on the card and on the CPU
     from the same weights and batch: loss within 1e-4, every gradient leaf
     within 1e-4 (:func:`scaled_err` against the CPU's)."""
-    import dataclasses
     from dpu_operator_tpu_torch.workloads.model import make_example_batch
     from dpu_operator_tpu_torch.workloads.train import (make_train_step,
                                                         param_leaves)
@@ -1761,6 +1783,191 @@ def phase_quant(cfg) -> dict:
     return out
 
 
+# -- phase 9 ------------------------------------------------------------------
+#: the open loop over the real executor: this much virtual time of
+#: arrivals (the reference's horizon is 60 s; cut to fit the script's time)
+OPEN_LOOP_HORIZON_S = 10.0
+#: served tokens held to the teacher-forced margin: the first completed
+MARGIN_REQUESTS = 4
+
+
+def _cost_line(cm) -> str:
+    return (f"decode_base {cm.decode_base_s * 1e3:.4f} ms, decode_per_seq "
+            f"{cm.decode_per_seq_s * 1e3:.6f} ms, prefill_per_token "
+            f"{cm.prefill_per_token_s * 1e3:.5f} ms, spec_verify_per_token "
+            f"{cm.spec_verify_per_token_s * 1e3:.6f} ms; decode_s(1) "
+            f"{cm.decode_s(1) * 1e3:.4f} ms, decode_s(8) "
+            f"{cm.decode_s(8) * 1e3:.4f} ms, prefill_s(32) "
+            f"{cm.prefill_s(32) * 1e3:.4f} ms, verify_s(8, 4) "
+            f"{cm.verify_s(8, 4) * 1e3:.4f} ms")
+
+
+def _calibrate(cfg) -> list:
+    """``calibrate_cost_model`` of the flagship on the card three times:
+    each fit beside the JAX defaults, and each field's spread."""
+    from dpu_operator_tpu_torch.workloads.serve import (CostModel,
+                                                        calibrate_cost_model)
+    fits = [calibrate_cost_model(cfg, device="cuda") for _ in range(3)]
+    for i, cm in enumerate(fits):
+        log(f"[measure] calibrated CostModel {i + 1} of 3: {_cost_line(cm)}")
+    log(f"[measure] the JAX defaults: {_cost_line(CostModel())}")
+    for f in dataclasses.fields(CostModel):
+        vals = [getattr(cm, f.name) for cm in fits]
+        require(all(np.isfinite(v) and v > 0 for v in vals),
+                f"calibrated {f.name} not finite and positive: {vals}")
+        log(f"[measure] spread of {f.name} over the 3 fits: "
+            f"{min(vals) * 1e3:.6f} - {max(vals) * 1e3:.6f} ms "
+            f"(max / min {max(vals) / min(vals):.3f})")
+    return fits
+
+
+def _virtual_bench(cm, config) -> dict:
+    """``bench_serving`` over the calibrated model (virtual clock,
+    ``SimExecutor``): tokens/s, TTFT and ITL per load, the batching
+    speedup, no leak."""
+    from dpu_operator_tpu_torch.workloads.serve import bench_serving
+    t0 = time.monotonic()
+    rec = bench_serving(seed=0, loads=(0.5, 0.8, 1.1), cost_model=cm,
+                        config=config)
+    for load, row in rec["loads"].items():
+        log(f"[measure] virtual bench load {load} ({row['offered_rps']} "
+            f"requests/s, {row['requests']} requests): "
+            f"{row['tokens_per_s']} tokens/s, TTFT p50 / p99 "
+            f"{row['ttft_p50_s']} / {row['ttft_p99_s']} s, ITL p50 / p99 "
+            f"{row['itl_p50_s']} / {row['itl_p99_s']} s, rejected "
+            f"{row['rejected']}, KV occupancy max {row['kv_occupancy_max']}")
+        require(row["kv_blocks_leaked"] == 0,
+                f"virtual bench load {load} leaked KV blocks")
+    cvs = rec["continuous_vs_static"]
+    for mode in ("continuous", "static"):
+        require(cvs[mode]["kv_blocks_leaked"] == 0,
+                f"virtual bench {mode} batching leaked KV blocks")
+    log(f"[measure] virtual bench: modelled peak "
+        f"{rec['peak_tokens_per_s_modeled']} tokens/s; continuous vs static "
+        f"{cvs['continuous']['tokens_per_s']} / "
+        f"{cvs['static']['tokens_per_s']} tokens/s = speedup "
+        f"{cvs['speedup']}; host time {time.monotonic() - t0:.1f} s")
+    return rec
+
+
+def _real_open_loop(params, cfg, cm, config) -> dict:
+    """``wall_open_loop``: arrivals at 0.8 of the modelled capacity for
+    :data:`OPEN_LOOP_HORIZON_S` of virtual time, with seeded prompt ids,
+    served by ``TorchSlotExecutor`` on the card; its record must equal a
+    ``SimExecutor`` run's on the same arrivals (the function raises
+    otherwise), the serving kernels must launch, no block may leak.
+    Returns ``wall_open_loop``'s result with the run's launches."""
+    from dpu_operator_tpu_torch.ops import launch_counts
+    from dpu_operator_tpu_torch.workloads.serve import WALL_LOAD, wall_open_loop
+    before = launch_counts()
+    ol = wall_open_loop(params, cfg, cm, config, OPEN_LOOP_HORIZON_S)
+    after = launch_counts()
+    counts = {k: after[k] - before[k] for k in after}
+    real = ol["record"]
+    log(f"[measure] open loop over TorchSlotExecutor: {real['requests']} "
+        f"arrivals at {ol['offered_rps']:.3f} requests/s ({WALL_LOAD} of "
+        f"the modelled capacity) over {OPEN_LOOP_HORIZON_S} s of virtual "
+        f"time (the reference's horizon of 60 s cut to fit the script); "
+        f"{config.slots} slots, chunk budget {config.prefill_chunk_tokens} "
+        f"(executor width {ol['chunk_width']}), prefix sharing off (the "
+        "executor is not prefix-aware)")
+    log(f"[measure] open loop launches: {counts}")
+    log(f"[measure] open loop record: {json.dumps(real)}")
+    require(real["kv_blocks_leaked"] == 0, "open loop leaked KV blocks")
+    require(real["completed"] == real["requests"],
+            f"open loop completed {real['completed']} of {real['requests']}")
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0,
+                f"open loop: kernel {name} never launched")
+    log(f"[measure] open loop: {real['tokens']} tokens in {ol['wall_s']:.3f}"
+        f" s of wall = {ol['wall_tokens_per_s']:.1f} tokens/s on the card, "
+        f"against {real['tokens_per_s']} tokens/s of virtual time (makespan "
+        f"{real['makespan_s']} s); TTFT p50 / p99 {real['ttft_p50_s']} / "
+        f"{real['ttft_p99_s']} s virtual; the record equals the "
+        "SimExecutor's key for key")
+    return {**ol, "launches": counts}
+
+
+def phase_measure(cfg) -> dict:
+    """Measurement and calibration of the flagship (bf16, random weights
+    from seed 0): :func:`_calibrate`, the chunk budget, the virtual bench
+    over the first fit, the open loop over the real executor, then
+    ``measure_flash_attention`` at :data:`FLASH_BENCH` beside SDPA
+    (causal) and phase 3's case at that shape. The launch counters are
+    set to 0 before the phase's main path and read after it; the served
+    tokens' margins are checked after that. Returns the phase's numbers
+    and launches."""
+    import torch
+    import torch.nn.functional as F
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.model import init_params
+    from dpu_operator_tpu_torch.workloads.perf import measure_flash_attention
+    from dpu_operator_tpu_torch.workloads.serve import (chunked_config,
+                                                        prefill_budget_tokens)
+    t_phase = time.monotonic()
+    reset_launch_counts()
+    fits = _calibrate(cfg)
+    cm = fits[0]
+    config = chunked_config(cm)
+    log(f"[measure] prefill_budget_tokens(first fit, {config.slots} slots) = "
+        f"{prefill_budget_tokens(cm, config.slots)}; chunked_config: "
+        f"{config}")
+    rec = _virtual_bench(cm, config)
+    params = init_params(0, cfg, device="cuda")
+    ol = _real_open_loop(params, cfg, cm, config)
+    b, s, h, d = FLASH_BENCH
+    fp = measure_flash_attention(b=b, s=s, h=h, d=d, iters=200, best_of=3,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[measure] launches of the phase's main path: {counts}")
+    done = sorted((r for r in ol["served"] if r.finish_s is not None),
+                  key=lambda r: (r.finish_s, r.rid))[:MARGIN_REQUESTS]
+    for r in done:
+        worst = _margin(params, cfg, r)
+        log(f"[measure] open loop {r.rid} (prompt {r.prompt_len}, "
+            f"{len(r.tokens)} tokens): worst teacher-forced margin "
+            f"{worst:.4f} (tol {SERVE_LOGIT_TOL})")
+        require(worst <= SERVE_LOGIT_TOL, f"open loop {r.rid}: a served "
+                f"token is {worst:.4f} below the best logit")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    qt, kt, vt = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
+    sdpa = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=5, replays=4)
+    peaks = card_peaks()
+    flops = 4.0 * b * h * s * s * d / 2.0
+    nbytes = 4.0 * b * s * h * d * 2
+    log(f"[measure] measure_flash_attention {b}x{s}x{h}x{d} bf16 causal: "
+        f"{fp.call_ms:.4f} ms a call (chained slope), "
+        f"{fp.tflops_causal:.1f} TFLOP/s, frac_of_peak "
+        f"{fp.frac_of_peak:.4f} of {fp.peak_tflops:.0f}; SDPA (is_causal) "
+        f"{sdpa:.4f} ms under graph replay; bound: {flops / 1e9:.2f} GFLOP "
+        f"at {peaks['bfloat16'] / 1e12:.0f} TFLOP/s = "
+        f"{flops / peaks['bfloat16'] * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB at "
+        f"{peaks['hbm_bytes_per_s'] / 1e12:.2f} TB/s = "
+        f"{nbytes / peaks['hbm_bytes_per_s'] * 1e3:.4f} ms (phase 3's case "
+        "at this shape holds the kernel against its plain version and "
+        "times both)")
+    out = {"cost_models": [dataclasses.asdict(cm) for cm in fits],
+           "prefill_chunk_tokens": config.prefill_chunk_tokens,
+           "virtual": {load: {k: row[k] for k in (
+               "offered_rps", "requests", "tokens_per_s", "ttft_p50_s",
+               "ttft_p99_s", "itl_p50_s", "itl_p99_s")}
+               for load, row in rec["loads"].items()},
+           "continuous_speedup": rec["continuous_vs_static"]["speedup"],
+           "open_loop": ol["record"], "open_loop_wall_s": ol["wall_s"],
+           "open_loop_wall_tokens_per_s": ol["wall_tokens_per_s"],
+           "flash": {"call_ms": fp.call_ms,
+                     "tflops_causal": fp.tflops_causal,
+                     "frac_of_peak": fp.frac_of_peak, "sdpa_ms": sdpa},
+           "seconds": time.monotonic() - t_phase, "launches": counts}
+    log("[measure] " + json.dumps({k: v for k, v in out.items()
+                                   if k != "launches"}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1795,11 +2002,13 @@ def main() -> int:
     train_counts = phase_train(cfg)["launches"]
     torch.cuda.empty_cache()
     quant_counts = phase_quant(cfg)["launches"]
+    torch.cuda.empty_cache()
+    measure_counts = phase_measure(cfg)["launches"]
     # each kernel's launches on the main paths (the four serve runs, the
-    # two chaos runs, the train run and the quantized phase), each read
-    # from zero
+    # two chaos runs, the train run, the quantized phase and the
+    # measurement phase), each read from zero
     counts = {k: counts[k] + train_counts[k] + quant_counts[k]
-              for k in counts}
+              + measure_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"], "launches": counts[c["kernel"]],

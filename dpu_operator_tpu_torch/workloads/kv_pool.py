@@ -101,6 +101,27 @@ class KvBlockPool:
         with self._lock:
             return len(self._free)
 
+    def used_blocks(self) -> int:
+        with self._lock:
+            return self.num_blocks - len(self._free)
+
+    def occupancy(self) -> float:
+        """Fraction of the pool physically allocated, a shared block
+        counted once (0.0 once every request is done)."""
+        with self._lock:
+            return (self.num_blocks - len(self._free)) / self.num_blocks
+
+    def logical_blocks(self) -> int:
+        """Blocks summed over owners (a block mapped by three requests
+        counts three times): the occupancy without sharing."""
+        with self._lock:
+            return sum(len(b) for b in self._owned.values())
+
+    def shared_blocks(self) -> int:
+        """Physical blocks referenced by two owners or more."""
+        with self._lock:
+            return sum(1 for r in self._refs.values() if r >= 2)
+
     def can_alloc(self, n_blocks: int) -> bool:
         with self._lock:
             return len(self._free) >= n_blocks

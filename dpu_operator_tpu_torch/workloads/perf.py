@@ -1,25 +1,29 @@
-"""Model-FLOP accounting, train-step timing and decode throughput on the
-card.
+"""Model-FLOP accounting, train-step timing, attention and decode
+throughput on the card.
 
 The port's trimmed copy of ``dpu_operator_tpu/workloads/perf.py``:
 ``param_count``, ``train_step_flops``, ``attention_flops`` and
 ``FLAGSHIP_BATCH`` as there; :func:`measure_train`, timed with CUDA events
 after a warm-up step (a CUDA event pair around eagerly enqueued steps
-excludes nothing but the host's lead over the card); and, for the serving
-path, ``marginal_time`` / ``best_marginal_time`` and ``measure_decode``
-(JAX ``decode.py:540``), whose two-length slope cancels what a generation
-costs besides its decode steps (prefill, the first host round trip).
+excludes nothing but the host's lead over the card); and
+``marginal_time`` / ``best_marginal_time`` as one helper, which times
+:func:`measure_flash_attention` (calls chained q -> out -> q) and
+``measure_decode`` (JAX ``decode.py:540``): a two-length slope cancels
+every fixed cost of a call (prefill, the first host round trip). The
+card's rates are :data:`CARD_PEAKS`'s, read through :func:`card_peaks`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import time
 from typing import Callable, Optional
 
 import torch
 
 from .. import resolve_device
+from ..ops.flash_attention import flash_attention
 from .decode import generate, quantize_decode_params
 from .model import (TransformerConfig, init_params, make_example_batch,
                     param_bytes)
@@ -37,6 +41,11 @@ CARD_PEAKS = {
 
 #: the JAX package's flagship batch (``perf.FLAGSHIP_BATCH``)
 FLAGSHIP_BATCH = 8
+
+#: :func:`measure_train` and :func:`measure_flash_attention` on the CPU:
+#: the JAX package's stand-in peak (``perf._CPU_FALLBACK_TFLOPS``), a smoke
+#: constant that gives a CPU run finite ratios. No device's rate.
+CPU_PEAK_FLOPS = 0.2e12
 
 #: :func:`measure_decode` on the CPU: the JAX package's stand-ins
 #: (``perf._CPU_FALLBACK_HBM_GBPS``, ``decode._CPU_DECODE_EFFECTIVE_TFLOPS``),
@@ -73,6 +82,29 @@ def attention_flops(b: int, s: int, h: int, d: int, causal: bool) -> float:
     return full / 2.0 if causal else full
 
 
+def card_peaks(device: "str | torch.device" = "cuda") -> dict:
+    """The :data:`CARD_PEAKS` entry of the CUDA card *device*, by its exact
+    name; a card the table does not know raises (no rate is guessed)."""
+    name = torch.cuda.get_device_name(device)
+    if name not in CARD_PEAKS:
+        raise ValueError(f"no data-sheet rates for {name!r} in CARD_PEAKS")
+    return CARD_PEAKS[name]
+
+
+def nvidia_smi_line() -> Optional[str]:
+    """nvidia-smi's ``name, power.limit`` of the first card (the power
+    limit a measurement must be read beside), or None where nvidia-smi is
+    missing or prints nothing."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out[0] if out else None
+
+
 def peak_tflops(device_name: str) -> Optional[float]:
     """The card's dense bf16 peak in TFLOP/s from :data:`CARD_PEAKS`, or
     None for a card the table does not know."""
@@ -91,45 +123,55 @@ class TrainPerf:
     params: int
     steps_timed: int
     losses: list             # warm-up step first
-    peak_memory_bytes: int
+    peak_memory_bytes: Optional[int]   # None on the CPU
 
 
 def measure_train(cfg: TransformerConfig, batch: int = FLAGSHIP_BATCH,
                   steps: int = 5, device: "str | torch.device" = "cuda",
                   seed: int = 0) -> TrainPerf:
-    """Train-step time on a CUDA card: random parameters from *seed*, the
-    example batch of :func:`make_example_batch` at ``cfg.max_seq``, one
-    warm-up step, then *steps* steps between two CUDA events. Raises on
-    any device but CUDA: a CPU time is no measurement of the card."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError(f"measure_train times a CUDA card, not {dev}")
+    """Train-step time: random parameters from *seed*, the example batch
+    of :func:`make_example_batch` at ``cfg.max_seq``, one warm-up step,
+    then *steps* steps between two CUDA events on the card. On the CPU
+    (small sizes, for tests) the steps are timed on the host clock and
+    MFU is taken against :data:`CPU_PEAK_FLOPS`, a smoke constant."""
+    dev = resolve_device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"measure_train: unsupported device {dev}")
+    cuda = dev.type == "cuda"
     step, init_state, place = make_train_step(cfg, dev)
     params, opt = init_state(seed)
     data = place(make_example_batch(cfg, batch=batch))
-    torch.cuda.reset_peak_memory_stats(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     params, opt, loss = step(params, opt, data)   # warm-up
     losses = [loss]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
     for _ in range(steps):
         params, opt, loss = step(params, opt, data)
         losses.append(loss)
-    end.record()
-    torch.cuda.synchronize(dev)
-    dt = start.elapsed_time(end) / 1e3 / steps
+    if cuda:
+        end.record()
+        torch.cuda.synchronize(dev)
+        dt = start.elapsed_time(end) / 1e3 / steps
+        name = torch.cuda.get_device_name(dev)
+        peak = peak_tflops(name)
+    else:
+        dt = (time.perf_counter() - t0) / steps
+        name, peak = "cpu", CPU_PEAK_FLOPS / 1e12
     seq = cfg.max_seq
     achieved = train_step_flops(cfg, batch, seq) / dt / 1e12
-    name = torch.cuda.get_device_name(dev)
-    peak = peak_tflops(name)
     return TrainPerf(
         device=name, step_ms=dt * 1e3, tokens_per_s=batch * seq / dt,
         model_tflops=achieved, peak_tflops=peak,
         mfu=None if peak is None else achieved / peak,
         params=param_count(cfg), steps_timed=steps,
         losses=[float(x) for x in losses],
-        peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+        else None)
 
 
 def _marginal_step_s(make_chained: Callable[[int], Callable[[], None]],
@@ -160,10 +202,64 @@ def _marginal_step_s(make_chained: Callable[[int], Callable[[], None]],
     return best
 
 
+@dataclasses.dataclass
+class FlashPerf:
+    device: str
+    call_ms: float
+    tflops_causal: float
+    frac_of_peak: float
+    peak_tflops: float
+
+
+def measure_flash_attention(b: int = 4, s: int = 2048, h: int = 8,
+                            d: int = 128, iters: int = 400, best_of: int = 3,
+                            device: "str | torch.device" = "cuda"
+                            ) -> FlashPerf:
+    """The attention forward's time per call (JAX
+    ``perf.measure_flash_attention``): causal :func:`flash_attention` over
+    bf16 q, k, v of (b, s, h, d) from seed 0, calls chained q -> out -> q,
+    timed by the slope of chains of ``max(2, iters // 5)`` and *iters* calls
+    (:func:`_marginal_step_s`, 5 repeats, best of *best_of*), each chain
+    ending in ``torch.cuda.synchronize()`` on the card. TFLOP/s count
+    :func:`attention_flops` (causal: halved) against the card's bf16
+    peak from :func:`card_peaks`; on the CPU against
+    :data:`CPU_PEAK_FLOPS`, a smoke constant."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        name = torch.cuda.get_device_name(dev)
+        peak = card_peaks(dev)["bfloat16"]
+    elif dev.type == "cpu":
+        name, peak = "cpu", CPU_PEAK_FLOPS
+    else:
+        raise ValueError(f"measure_flash_attention: unsupported device "
+                         f"{dev}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+
+    def make_chained(n: int) -> Callable[[], None]:
+        def go() -> None:
+            out = q
+            for _ in range(n):
+                out = flash_attention(out, k, v, causal=True)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return go
+
+    dt = _marginal_step_s(make_chained, n_short=max(2, iters // 5),
+                          n_long=iters, repeats=5, best_of=best_of)
+    tflops = attention_flops(b, s, h, d, causal=True) / dt / 1e12
+    return FlashPerf(device=name, call_ms=dt * 1e3, tflops_causal=tflops,
+                     frac_of_peak=tflops / (peak / 1e12),
+                     peak_tflops=peak / 1e12)
+
+
 def measure_decode(cfg: TransformerConfig, batch: int = 8, steps: int = 64,
                    iters: int = 4, best_of: int = 3,
                    quantized: bool = False, kv_int8: bool = False,
-                   device: "str | torch.device" = "cuda") -> dict:
+                   device: "str | torch.device" = "cuda",
+                   max_sane_frac: Optional[float] = None) -> dict:
     """Steady-state decode throughput (JAX ``decode.measure_decode``):
     seconds per decode step as the slope of greedy :func:`generate` runs of
     ``max(4, steps // 4)`` and *steps* tokens (:func:`_marginal_step_s`,
@@ -185,14 +281,13 @@ def measure_decode(cfg: TransformerConfig, batch: int = 8, steps: int = 64,
     ``measure_decode`` charges. ``roofline_frac`` is the larger of the
     two times over the measured step; ``bound`` says which. On the CPU
     the rates are the stated constants :data:`CPU_DECODE_HBM_BYTES_PER_S`
-    and :data:`CPU_DECODE_FLOPS`."""
+    and :data:`CPU_DECODE_FLOPS`. A *max_sane_frac* makes a
+    ``roofline_frac`` outside ``(0, max_sane_frac]`` raise ``ValueError``
+    (a slope that collapsed), instead of returning it."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         name = torch.cuda.get_device_name(dev)
-        if name not in CARD_PEAKS:
-            raise ValueError(f"measure_decode: no data-sheet rates for "
-                             f"{name!r} in CARD_PEAKS")
-        peaks = CARD_PEAKS[name]
+        peaks = card_peaks(dev)
         hbm = peaks["hbm_bytes_per_s"]
         rate = peaks[str(cfg.dtype).replace("torch.", "")]
     elif dev.type == "cpu":
@@ -227,6 +322,12 @@ def measure_decode(cfg: TransformerConfig, batch: int = 8, steps: int = 64,
              + 4.0 * cfg.n_layers * batch * keys * cfg.d_model)
     compute_s = flops / rate
     min_s = max(hbm_s, compute_s)
+    if max_sane_frac is not None \
+            and not 0.0 < min_s / per_step <= max_sane_frac:
+        raise ValueError(
+            f"degenerate decode measurement: roofline_frac "
+            f"{min_s / per_step:.3g} outside (0, {max_sane_frac}] "
+            f"(step {per_step:.3g} s against a bound of {min_s:.3g} s)")
     return {"batch": batch, "steps": steps,
             "ms_per_token": per_step * 1e3,
             "tokens_per_s": batch / per_step,

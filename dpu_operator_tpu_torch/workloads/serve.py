@@ -32,6 +32,15 @@ excised as poisoned. Deadlines (``x-tpu-deadline-ms``) are enforced at
 admission, at chunk-queue re-entry and mid-stream; :meth:`Scheduler.cancel`
 abandons a live request.
 
+The serving bench follows the reference's: seeded open-loop arrivals
+(:func:`open_loop_arrivals`, :func:`prefix_heavy_arrivals`) run to drain on
+the virtual clock (:func:`run_open_loop`) over a :class:`CostModel` that
+:func:`calibrate_cost_model` fits to the port's own iterations, and the
+records built from such runs (:func:`bench_serving`,
+:func:`compare_batching`, :func:`bench_prefix_sharing`,
+:func:`bench_spec_decoding`); :func:`wall_open_loop` serves the same
+arrivals through :class:`TorchSlotExecutor` on the wall clock.
+
 Not ported yet: tracing spans, metrics, flight records, watchdog Events
 and the cost ledger, ``headroom()``, ``DecodeService`` and the HTTP
 ingress.
@@ -44,6 +53,7 @@ import heapq
 import logging
 import random
 import re
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -51,10 +61,12 @@ import torch
 
 from .. import resolve_device
 from ..utils.resilience import RetryPolicy
+from ..utils.stats import nearest_rank
 from . import degrade
 from .decode import (decode_step, init_kv_cache, params_device, prefill,
                      prefill_chunk, verify_step)
 from .kv_pool import KvBlockPool, chain_keys
+from .model import TransformerConfig, init_params
 from .spec import AdaptiveK, NgramDrafter, greedy_accept
 
 log = logging.getLogger(__name__)
@@ -175,8 +187,9 @@ class CostModel:
     virtual clock when it runs without a real one and price the adaptive
     draft length: a decode iteration is one weight sweep plus a
     per-sequence term, a verify iteration adds a term per scored draft,
-    prefill is linear in tokens. The defaults are the JAX package's and
-    were not measured on this port's card."""
+    prefill is linear in tokens. The defaults are the JAX package's, not
+    a measurement of this port; :func:`calibrate_cost_model` fits one to
+    the port's iterations on a device."""
 
     decode_base_s: float = 0.025
     decode_per_seq_s: float = 0.0005
@@ -219,6 +232,39 @@ class ServeConfig:
     preemption: bool = True
     prefix_sharing: bool = False
     spec_k: int = 0
+
+
+#: the bound on one iteration (a full-batch decode plus the prefill
+#: stacked on it) that sizes the prefill budget, and the budget's floor
+ITL_BOUND_S = 0.05
+PREFILL_FLOOR_TOKENS = 16
+#: :func:`chunked_config`'s width: enough slots that the KV pool, not the
+#: slot count, binds
+CHUNKED_SLOTS = 24
+
+
+def prefill_budget_tokens(cost_model: CostModel, slots: int) -> int:
+    """The per-iteration prefill budget (tokens) from a cost model: the
+    most prompt tokens whose prefill, stacked on a full-batch decode
+    iteration, keeps the iteration under :data:`ITL_BOUND_S`; never below
+    :data:`PREFILL_FLOOR_TOKENS`, so prefill progresses even when one
+    decode iteration already exceeds the bound."""
+    spare = ITL_BOUND_S - cost_model.decode_s(slots)
+    if cost_model.prefill_per_token_s <= 0:
+        return PREFILL_FLOOR_TOKENS
+    return max(PREFILL_FLOOR_TOKENS,
+               int(spare / cost_model.prefill_per_token_s))
+
+
+def chunked_config(cost_model: CostModel) -> ServeConfig:
+    """The serving shape the reference's bench records: chunked prefill
+    with the budget of :func:`prefill_budget_tokens`, prefix sharing on,
+    :data:`CHUNKED_SLOTS` slots over the default pool."""
+    return ServeConfig(
+        slots=CHUNKED_SLOTS,
+        prefill_chunk_tokens=prefill_budget_tokens(cost_model,
+                                                   CHUNKED_SLOTS),
+        prefix_sharing=True)
 
 
 class SimExecutor:
@@ -1179,3 +1225,406 @@ class Scheduler:
             "advertisableSlots": self._advertisable(free_slots,
                                                     free_blocks),
         }
+
+
+# -- open-loop traffic and the serving bench ---------------------------------
+
+#: :func:`open_loop_arrivals`' inclusive prompt and output length ranges,
+#: from which the modelled capacity takes its means
+PROMPT_LENS = (16, 128)
+OUTPUT_LENS = (8, 128)
+#: :func:`prefix_heavy_arrivals`' traffic: common prefixes (100 tokens,
+#: off the block boundary, so the partial tail block's copy-on-write
+#: runs), a unique tail of 0-32 tokens (empty tails repeat a bare prefix)
+#: and 8-64 output tokens, ids under a 50 000-token vocabulary
+PREFIX_COUNT = 4
+PREFIX_LEN = 100
+TAIL_LENS = (0, 32)
+PREFIX_OUTPUT_LENS = (8, 64)
+PREFIX_VOCAB = 50_000
+#: offered loads (fractions of the modelled capacity) of the sharing and
+#: the speculation benches, and the speculation bench's draft length and
+#: token period
+SHARING_LOAD = 0.8
+SPEC_LOAD = 0.6
+SPEC_K = 4
+SPEC_PERIOD = 4
+#: :func:`calibrate_cost_model`'s batch for the decode slope and the
+#: verify pass, its prompt length, and the verify pass's drafts
+CALIBRATION_SLOTS = 8
+CALIBRATION_PROMPT_LEN = 32
+CALIBRATION_SPEC_K = 4
+#: :func:`wall_open_loop`'s offered load
+WALL_LOAD = 0.8
+
+
+def _mean(lens: tuple) -> float:
+    return (lens[0] + lens[1]) / 2.0
+
+
+def open_loop_arrivals(seed: int, rate_rps: float, horizon_s: float,
+                       interactive_frac: float = 0.5,
+                       id_prefix: str = "r") -> list:
+    """Seeded Poisson arrivals up to *horizon_s*: lengths uniform over
+    :data:`PROMPT_LENS` and :data:`OUTPUT_LENS`, the class a Bernoulli
+    draw. Open loop: arrivals do not wait for service, so queueing
+    collapse shows. The draws are the reference's, in its order, so both
+    packages make the same list."""
+    rng = random.Random(seed)
+    out: list[Request] = []
+    t = 0.0
+    while True:
+        t += rng.expovariate(rate_rps)
+        if t > horizon_s:
+            return out
+        out.append(Request(
+            rid=f"{id_prefix}{len(out)}",
+            prompt_len=rng.randint(*PROMPT_LENS),
+            output_len=rng.randint(*OUTPUT_LENS),
+            slo_class=INTERACTIVE if rng.random() < interactive_frac
+            else BATCH,
+            arrival_s=t))
+
+
+def prefix_heavy_arrivals(seed: int, rate_rps: float,
+                          horizon_s: float) -> list:
+    """Seeded shared-system-prompt traffic: each prompt is one of
+    :data:`PREFIX_COUNT` common prefixes plus a unique tail, as real token
+    ids, so the pool's content keys find the sharing unaided; half the
+    requests interactive."""
+    rng = random.Random(seed)
+    prefixes = [tuple(rng.randrange(PREFIX_VOCAB) for _ in range(PREFIX_LEN))
+                for _ in range(PREFIX_COUNT)]
+    out: list[Request] = []
+    t = 0.0
+    while True:
+        t += rng.expovariate(rate_rps)
+        if t > horizon_s:
+            return out
+        tail = tuple(rng.randrange(PREFIX_VOCAB)
+                     for _ in range(rng.randint(*TAIL_LENS)))
+        prompt = prefixes[rng.randrange(PREFIX_COUNT)] + tail
+        out.append(Request(
+            rid=f"p{len(out)}",
+            prompt_len=len(prompt),
+            output_len=rng.randint(*PREFIX_OUTPUT_LENS),
+            slo_class=INTERACTIVE if rng.random() < 0.5 else BATCH,
+            arrival_s=t, prompt=prompt))
+
+
+def run_open_loop(config: ServeConfig, cost_model: CostModel,
+                  arrivals: list,
+                  executor_factory: Optional[Callable[[], Any]]
+                  = None) -> dict:
+    """One open-loop experiment on the virtual clock, run to drain: the
+    reference's serving record, key for key and rounded alike. Tokens/s is
+    generated tokens over the makespan. *executor_factory* makes the
+    executor (a fresh one: executors keep per-slot state); default
+    :class:`SimExecutor`."""
+    sched = Scheduler(config,
+                      executor=(executor_factory()
+                                if executor_factory is not None
+                                else SimExecutor()),
+                      cost_model=cost_model)
+    for req in arrivals:
+        sched.submit(req)
+    occupancies: list[float] = []
+    shared_peak = 0
+    while sched.step():
+        occupancies.append(sched.pool.occupancy())
+        if config.prefix_sharing:
+            shared_peak = max(shared_peak, sched.pool.shared_blocks())
+    done = sched.completed
+    tokens = sum(len(r.tokens) for r in done)
+    ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
+    makespan = max((r.finish_s for r in done), default=0.0)
+    # each request's mean inter-token latency
+    itls = [(r.finish_s - r.first_token_s) / max(len(r.tokens) - 1, 1)
+            for r in done if r.first_token_s is not None
+            and r.finish_s is not None and len(r.tokens) > 1]
+    spec = sched._spec
+    return {
+        "requests": len(arrivals),
+        "completed": len(done),
+        "rejected": len(sched.rejected),
+        "preemptions": sched.preemptions,
+        "tokens": tokens,
+        "makespan_s": round(makespan, 4),
+        "tokens_per_s": round(tokens / makespan, 2) if makespan else 0.0,
+        "ttft_p50_s": round(nearest_rank(ttfts, 0.50), 4),
+        "ttft_p99_s": round(nearest_rank(ttfts, 0.99), 4),
+        "itl_p50_s": round(nearest_rank(itls, 0.50), 4),
+        "itl_p99_s": round(nearest_rank(itls, 0.99), 4),
+        "kv_occupancy_mean": round(
+            sum(occupancies) / len(occupancies), 4) if occupancies
+        else 0.0,
+        "kv_occupancy_max": round(max(occupancies), 4) if occupancies
+        else 0.0,
+        "kv_blocks_leaked": sched.pool.outstanding(),
+        "kv_blocks_shared_peak": shared_peak,
+        "kv_cow_copies": sched.pool.cow_copies,
+        "kv_prefix_block_hits": sched.pool.prefix_block_hits,
+        "prefill_chunks": sched.prefill_chunks_total,
+        "prefill_tokens_discarded": sched.prefill_tokens_discarded,
+        "trace_events": len(sched.trace),
+        "spec_proposed": spec.proposed_total,
+        "spec_accepted": spec.accepted_total,
+        "spec_acceptance_rate": round(spec.acceptance_rate(), 4),
+        "spec_mean_accepted_k": round(
+            spec.accepted_total / max(sched.spec_rows_total, 1), 4),
+        "spec_kv_rollback_tokens": sched.pool.spec_rollback_tokens,
+    }
+
+
+def _per_request_s(cm: CostModel, slots: int, prompt_mean: float,
+                   output_mean: float) -> float:
+    """Modelled service time of one request at a full batch: its prefill
+    plus its share of every decode iteration it is in."""
+    return (cm.prefill_s(prompt_mean)
+            + output_mean * cm.decode_s(slots) / slots)
+
+
+def _open_loop_request_s(cm: CostModel, slots: int) -> float:
+    return _per_request_s(cm, slots, _mean(PROMPT_LENS), _mean(OUTPUT_LENS))
+
+
+def open_loop_capacity_rps(cm: CostModel, slots: int) -> float:
+    """The modelled capacity, in requests per second, of a *slots*-wide
+    scheduler under :func:`open_loop_arrivals`: the load 1.0 of
+    :func:`bench_serving`."""
+    return 1.0 / _open_loop_request_s(cm, slots)
+
+
+def compare_batching(config: ServeConfig, cost_model: CostModel,
+                     arrivals: list) -> dict:
+    """Continuous against static batching (a batch admitted only once the
+    last one drained) on the same arrivals, both with an unbounded queue
+    so that neither rejects what the other serves."""
+    cont_cfg = dataclasses.replace(config, queue_limit=1_000_000)
+    cont = run_open_loop(cont_cfg, cost_model,
+                         [r.fresh_copy() for r in arrivals])
+    static_cfg = dataclasses.replace(cont_cfg, static=True,
+                                     preemption=False)
+    stat = run_open_loop(static_cfg, cost_model,
+                         [r.fresh_copy() for r in arrivals])
+    ratio = (cont["tokens_per_s"] / stat["tokens_per_s"]
+             if stat["tokens_per_s"] else float("inf"))
+    return {"continuous": cont, "static": stat,
+            "speedup": round(ratio, 3)}
+
+
+def bench_prefix_sharing(seed: int = 0,
+                         cost_model: Optional[CostModel] = None,
+                         config: Optional[ServeConfig] = None,
+                         horizon_s: float = 40.0) -> dict:
+    """The same seeded prefix-heavy arrivals at :data:`SHARING_LOAD` with
+    sharing on and off: the peak physical KV occupancy each reaches, with
+    the shared-block and copy-on-write counters. *config* defaults to
+    :func:`chunked_config`."""
+    cm = cost_model or CostModel()
+    base = config or chunked_config(cm)
+    rate = SHARING_LOAD / _per_request_s(
+        cm, base.slots, PREFIX_LEN + _mean(TAIL_LENS),
+        _mean(PREFIX_OUTPUT_LENS))
+    arrivals = prefix_heavy_arrivals(seed, rate, horizon_s)
+    on = run_open_loop(dataclasses.replace(base, prefix_sharing=True),
+                       cm, [r.fresh_copy() for r in arrivals])
+    off = run_open_loop(dataclasses.replace(base, prefix_sharing=False),
+                        cm, [r.fresh_copy() for r in arrivals])
+    return {
+        "offered_load": SHARING_LOAD,
+        "offered_rps": round(rate, 3),
+        "prefix_len": PREFIX_LEN,
+        "with_sharing": on,
+        "without_sharing": off,
+        "kv_blocks_shared": on["kv_blocks_shared_peak"],
+        "occupancy_max_with": on["kv_occupancy_max"],
+        "occupancy_max_without": off["kv_occupancy_max"],
+        "occupancy_cut": round(off["kv_occupancy_max"]
+                               - on["kv_occupancy_max"], 4),
+    }
+
+
+def bench_spec_decoding(seed: int = 0, horizon_s: float = 40.0,
+                        cost_model: Optional[CostModel] = None) -> dict:
+    """The same seeded arrivals at :data:`SPEC_LOAD` through
+    :class:`PeriodicSimExecutor` (tokens cycle every :data:`SPEC_PERIOD`,
+    so prompt lookup drafts well) on the default :class:`ServeConfig`,
+    with speculation at :data:`SPEC_K` and without: acceptance, mean
+    accepted k, ITL p50 and tokens/s of each, and the blocks both
+    leaked."""
+    cm = cost_model or CostModel()
+    base = ServeConfig()
+    rate = SPEC_LOAD / _open_loop_request_s(cm, base.slots)
+    arrivals = open_loop_arrivals(seed, rate, horizon_s, id_prefix="S")
+    on = run_open_loop(
+        dataclasses.replace(base, spec_k=SPEC_K), cm,
+        [r.fresh_copy() for r in arrivals],
+        executor_factory=lambda: PeriodicSimExecutor(SPEC_PERIOD))
+    off = run_open_loop(
+        base, cm, [r.fresh_copy() for r in arrivals],
+        executor_factory=lambda: PeriodicSimExecutor(SPEC_PERIOD))
+    return {
+        "offered_load": SPEC_LOAD,
+        "offered_rps": round(rate, 3),
+        "spec_k": SPEC_K,
+        "period": SPEC_PERIOD,
+        "with_speculation": on,
+        "baseline": off,
+        "acceptance_rate": on["spec_acceptance_rate"],
+        "mean_accepted_k": on["spec_mean_accepted_k"],
+        "itl_p50_s_spec": on["itl_p50_s"],
+        "itl_p50_s_baseline": off["itl_p50_s"],
+        "itl_p50_delta_s": round(off["itl_p50_s"] - on["itl_p50_s"], 4),
+        "itl_p50_speedup": round(off["itl_p50_s"] / on["itl_p50_s"], 3)
+        if on["itl_p50_s"] else 0.0,
+        "tokens_per_s_speedup": round(
+            on["tokens_per_s"] / off["tokens_per_s"], 3)
+        if off["tokens_per_s"] else 0.0,
+        "kv_blocks_leaked": (on["kv_blocks_leaked"]
+                             + off["kv_blocks_leaked"]),
+    }
+
+
+def calibrate_cost_model(cfg: TransformerConfig,
+                         device: "str | torch.device" = "cuda") -> CostModel:
+    """Fit :class:`CostModel` to the port's own iterations of *cfg* on
+    *device* (the reference's fit): each of ``prefill`` of a
+    :data:`CALIBRATION_PROMPT_LEN`-token prompt, ``decode_step`` at batch 1
+    and at :data:`CALIBRATION_SLOTS`, and ``verify_step`` of that many rows
+    of :data:`CALIBRATION_SPEC_K` drafts, each over a fresh
+    ``init_kv_cache``, runs once untimed and then 8 times on the host
+    clock, each call ending in ``torch.cuda.synchronize()`` on the card.
+    The decode slope between the two batches is the per-sequence term (at
+    least 1e-6 s), the rest of batch 1 the base; prefill and the verify
+    slope per (sequence, draft) are clamped at 1e-7 s. Random parameters
+    from seed 0."""
+    dev = resolve_device(device)
+    slots, prompt_len = CALIBRATION_SLOTS, CALIBRATION_PROMPT_LEN
+    params = init_params(0, cfg, device=dev)
+
+    def timed(fn: Callable[[], object], iters: int = 8) -> float:
+        def call() -> None:
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        call()  # untimed: first-use allocations and library handles
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        return (time.perf_counter() - t0) / iters
+
+    prompt = torch.ones((1, prompt_len), dtype=torch.int64, device=dev)
+    prefill_s = timed(lambda: prefill(params, cfg, prompt))
+
+    def one_decode(batch: int) -> float:
+        cache = init_kv_cache(cfg, batch, device=dev)
+        toks = torch.zeros((batch,), dtype=torch.int64, device=dev)
+        pos = torch.full((batch,), prompt_len, dtype=torch.int32,
+                         device=dev)
+        return timed(lambda: decode_step(params, cfg, cache, toks, pos))
+
+    d1, dn = one_decode(1), one_decode(slots)
+    per_seq = max((dn - d1) / max(slots - 1, 1), 1e-6)
+    base = max(d1 - per_seq, 1e-6)
+    k = CALIBRATION_SPEC_K
+    cache = init_kv_cache(cfg, slots, device=dev)
+    toks = torch.zeros((slots, k + 1), dtype=torch.int64, device=dev)
+    pos = torch.full((slots,), prompt_len, dtype=torch.int32, device=dev)
+    verify = timed(lambda: verify_step(params, cfg, cache, toks, pos))
+    return CostModel(
+        decode_base_s=base, decode_per_seq_s=per_seq,
+        prefill_per_token_s=max(prefill_s / prompt_len, 1e-7),
+        spec_verify_per_token_s=max((verify - dn) / (slots * k), 1e-7))
+
+
+def bench_serving(seed: int = 0, loads: tuple = (0.5, 0.8, 1.1),
+                  cost_model: Optional[CostModel] = None,
+                  config: Optional[ServeConfig] = None,
+                  horizon_s: float = 60.0) -> dict:
+    """The serving record: open-loop arrivals at each offered load (a
+    fraction of the modelled capacity), then continuous against static
+    batching on batch-only arrivals at the capacity itself, where static
+    batching's drained-batch stalls bind. Virtual time over the cost
+    model, seeded: the record is reproducible."""
+    config = config or ServeConfig()
+    cm = cost_model or CostModel()
+    # a request's share of the prefill time as well as of every decode
+    # iteration: without the prefill, "0.5 load" overloads any backend
+    # where prefill dominates
+    capacity_rps = open_loop_capacity_rps(cm, config.slots)
+    out: dict = {
+        "seed": seed,
+        "slots": config.slots,
+        "kv_blocks": config.kv_blocks,
+        "kv_block_size": config.kv_block_size,
+        "prefill_chunk_tokens": config.prefill_chunk_tokens,
+        "prefix_sharing": config.prefix_sharing,
+        "cost_model": {
+            "decode_base_ms": round(cm.decode_base_s * 1e3, 4),
+            "decode_per_seq_ms": round(cm.decode_per_seq_s * 1e3, 4),
+            "prefill_per_token_ms": round(cm.prefill_per_token_s * 1e3, 5),
+        },
+        "peak_tokens_per_s_modeled": round(
+            capacity_rps * _mean(OUTPUT_LENS), 1),
+        "loads": {},
+    }
+    for load in loads:
+        rate = load * capacity_rps
+        arrivals = open_loop_arrivals(seed, rate, horizon_s,
+                                      id_prefix=f"L{load}-")
+        out["loads"][str(load)] = dict(
+            offered_load=load, offered_rps=round(rate, 3),
+            **run_open_loop(config, cm, arrivals))
+    out["continuous_vs_static"] = compare_batching(
+        config, cm, open_loop_arrivals(seed + 1, capacity_rps, horizon_s,
+                                       interactive_frac=0.0,
+                                       id_prefix="C-"))
+    return out
+
+
+def wall_open_loop(params: dict, cfg: TransformerConfig,
+                   cost_model: CostModel, config: ServeConfig,
+                   horizon_s: float) -> dict:
+    """The open loop served for real: :func:`open_loop_arrivals` (seed 0)
+    at :data:`WALL_LOAD` of the modelled capacity over *horizon_s* of
+    virtual time, each request given prompt ids drawn from seed 0 in
+    [0, vocab), run through :func:`run_open_loop` over
+    :class:`TorchSlotExecutor` on *params*' device with prefix sharing off
+    (the executor is not prefix-aware) and timed on the wall clock. The
+    schedule depends on lengths alone, so the record must equal a
+    :class:`SimExecutor` run's on the same arrivals; ``RuntimeError``
+    otherwise. Returns the record, the wall seconds, the wall tokens/s,
+    the offered rate, the executor's chunk width and the served
+    requests."""
+    config = dataclasses.replace(config, prefix_sharing=False)
+    rate = WALL_LOAD * open_loop_capacity_rps(cost_model, config.slots)
+    arrivals = open_loop_arrivals(0, rate, horizon_s, id_prefix="OL-")
+    rng = np.random.default_rng(0)
+    for r in arrivals:
+        r.prompt = tuple(int(t) for t in rng.integers(0, cfg.vocab,
+                                                      r.prompt_len))
+    # the executor pads every chunk to its width, which one slot row must
+    # hold; no chunk is longer than its prompt, so capping the width at
+    # max_seq leaves the budget's schedule as it is
+    width = min(config.prefill_chunk_tokens, cfg.max_seq)
+    dev = params_device(params)
+    sim = run_open_loop(config, cost_model,
+                        [r.fresh_copy() for r in arrivals])
+    served = [r.fresh_copy() for r in arrivals]
+    t0 = time.perf_counter()
+    real = run_open_loop(
+        config, cost_model, served,
+        executor_factory=lambda: TorchSlotExecutor(
+            params, cfg, slots=config.slots, chunk_tokens=width,
+            device=dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if real != sim:
+        diff = {k: (real[k], sim[k]) for k in real if real[k] != sim[k]}
+        raise RuntimeError(f"the real executor's record differs from the "
+                           f"SimExecutor's on the same arrivals: {diff}")
+    return {"record": real, "wall_s": wall,
+            "wall_tokens_per_s": real["tokens"] / wall,
+            "offered_rps": rate, "chunk_width": width, "served": served}

@@ -201,6 +201,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import dpu_operator_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import bench_torch\n"
         "print(sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m == 'dpu_operator_tpu'"
         " or m.startswith('dpu_operator_tpu.')))\n")
@@ -212,7 +213,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), REPO / "chip_smoke.py", REPO / "bench_torch.py"]))
 def test_no_source_of_the_port_names_jax(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):

@@ -29,7 +29,8 @@ from dpu_operator_tpu_torch.ops import (
     fused_rmsnorm, fused_rmsnorm_plain, launch_counts)
 from dpu_operator_tpu_torch.workloads import model
 from dpu_operator_tpu_torch.workloads.checkpoint import TrainCheckpointer
-from dpu_operator_tpu_torch.workloads.perf import (measure_train,
+from dpu_operator_tpu_torch.workloads.perf import (CPU_PEAK_FLOPS,
+                                                   measure_train,
                                                    param_count, peak_tflops,
                                                    train_step_flops)
 from dpu_operator_tpu_torch.workloads.train import (make_train_step,
@@ -400,8 +401,16 @@ def test_map_params_keeps_the_tree_and_its_leaf_order():
 
 
 def test_measure_train_refuses_the_cpu():
-    with pytest.raises(ValueError, match="CUDA"):
-        measure_train(TINY, batch=2, steps=1, device="cpu")
+    """No CPU time passes for the card's: on the CPU (the port bench's
+    small sizes) the steps run on the host clock and the record says
+    "cpu", holds no peak memory and takes the stated smoke peak, not a
+    card's; every device but CUDA and the CPU is refused."""
+    perf = measure_train(TINY, batch=2, steps=1, device="cpu")
+    assert perf.device == "cpu" and perf.peak_memory_bytes is None
+    assert perf.peak_tflops == CPU_PEAK_FLOPS / 1e12
+    assert perf.step_ms > 0 and len(perf.losses) == 2
+    with pytest.raises(ValueError, match="unsupported device"):
+        measure_train(TINY, batch=2, steps=1, device="meta")
 
 
 # -- (i) the CUDA kernels ------------------------------------------------------------
