@@ -21,10 +21,14 @@ Phases, each of which passes or raises (a failure exits non-zero):
    its row of the 8-slot launch bit for bit; speculative verify's shape (8
    slots x 5 rows at random positions) and the flash bench's (4 x 2048 x
    8 x 128, causal) take the tensor-core forward. Over
-   the same cache quantized to int8 (KV8), the decode, verify and chunk
-   shapes take the KV8 kernels, held to ``attention_kv8_plain`` (slot 0's
-   KV8 decode row alone equals its row of the 8-slot launch); the W8A8
-   products at the decode shapes are timed beside the bf16 GEMMs;
+   the same cache quantized to int8 (KV8), the decode and verify shapes
+   take the KV8 cluster kernel and the 256-row chunk the KV8 tensor-core
+   kernel in bf16 (fp32: the cluster kernel, and the tiled KV8 kernel for
+   the chunk), each held to ``attention_kv8_plain`` beside the earlier
+   design's time (slot 0's KV8 decode row alone equals its row of the
+   8-slot launch, and each verify row equals a one-row launch at its
+   position); the W8A8 products at the decode shapes are timed beside the
+   bf16 GEMMs;
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
    streams equal ``generate``; then a tiny fp32 serve that speculates
@@ -62,7 +66,8 @@ Phases, each of which passes or raises (a failure exits non-zero):
    equal to ``generate(kv_int8=True)``, a KV8 chunked prefill that
    decodes; ``measure_decode``'s rows B1 bf16, B1 W8A8 and B8 W8A8 + KV8;
    phase 5's requests served on the W8A8 tree between two bf16 runs; the
-   KV8 kernels must launch; a profile of the quantized decode iterations;
+   KV8 cluster and tensor-core kernels must launch; a profile of the
+   quantized decode iterations;
 9. measurement and calibration of the flagship: ``calibrate_cost_model``
    three times (every field finite and positive, each fit beside the JAX
    defaults, the spread), the chunk budget of ``chunked_config``, the
@@ -487,19 +492,27 @@ def _decode_row_alone(q, ck, cv, pos) -> None:
     require(err <= TOL["bfloat16"], f"decode vs the plain split: {err:.3g}")
 
 
-def _kv8_case(label: str, q, kv8: tuple, pos) -> dict:
+#: the KV8 cases' times under the earlier design (PR 8's two-pass decode
+#: kernels and the tiled KV8 kernel, us a launch under graph replay, NVIDIA
+#: H100 80GB HBM3 at 700 W; PERF.md), by the case label's first word
+KV8_EARLIER_US = {"decode": 22.4, "verify": 232.7, "chunk": 119.2}
+
+
+def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
     """A KV8 kernel against :func:`attention_kv8_plain` on the same inputs,
     with its time, the plain version's, the library yardstick's (SDPA with
-    the same mask over a bf16 copy of the dequantized K / V; making the
-    copy is not timed) and its bound: int8 K / V at 1 byte an element plus
-    the fp32 scale per (key, head), q and the output in q's type, or the
-    score and PV operations at the bf16 rate, the larger."""
+    the same mask over a copy of the dequantized K / V in q's type; making
+    the copy is not timed) and its bound: int8 K / V at 1 byte an element
+    plus the fp32 scale per (key, head), q and the output in q's type, or
+    the score and PV operations at q's type's rate, the larger. The call
+    must take the ``launch_counts`` name *route*."""
     import torch
     import torch.nn.functional as F
     from dpu_operator_tpu_torch.ops import (attention_fwd_kv8,
                                             attention_kv8_plain)
     kq, ks, vq, vs = kv8
     got, kernel = launched(lambda: attention_fwd_kv8(q, kq, ks, vq, vs, pos))
+    require(kernel == route, f"KV8 {label} took {kernel}, not {route}")
     ref = attention_kv8_plain(q, kq, ks, vq, vs, pos)
     torch.cuda.synchronize()
     max_abs, scaled = scaled_err(got, ref)
@@ -525,11 +538,13 @@ def _kv8_case(label: str, q, kv8: tuple, pos) -> dict:
     def run():
         return attention_fwd_kv8(q, kq, ks, vq, vs, pos)
 
+    earlier = KV8_EARLIER_US.get(label.split()[0]) if dname == "bfloat16" \
+        else None
     return {
         "name": f"{kernel}[{label}]", "kernel": kernel, "dtype": dname,
-        "source": "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu",
+        "source": "dpu_operator_tpu_torch/csrc/attention_kv8.cu",
         "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
-        "max_abs_err": max_abs, "scaled_err": scaled,
+        "max_abs_err": max_abs, "scaled_err": scaled, "earlier_us": earlier,
         "ms": graph_ms(run), "eager_ms": cuda_ms(run, 20),
         "plain_ms": cuda_ms(lambda: attention_kv8_plain(q, kq, ks, vq, vs,
                                                         pos), 3, warmup=1),
@@ -537,23 +552,34 @@ def _kv8_case(label: str, q, kv8: tuple, pos) -> dict:
     }
 
 
-def _kv8_decode_row_alone(q, kv8: tuple, pos) -> None:
-    """The KV8 decode kernels' invariant, as the bf16 decode kernels':
-    slot 0's row launched alone equals its row of the 8-slot launch under
-    ``torch.equal``, and a second launch gives the same output."""
+def _kv8_decode_row_alone(q, kv8: tuple, pos, qv, pv) -> None:
+    """The KV8 cluster kernel's invariants: slot 0's decode row launched
+    alone equals its row of the 8-slot launch under ``torch.equal``, a
+    second launch gives the same output, and row i of the verify launch
+    (qv at positions pv) equals the one-row launch of its query at pv + i
+    under ``torch.equal``."""
     import torch
     from dpu_operator_tpu_torch.ops import attention_fwd_kv8
     batch, kernel = launched(lambda: attention_fwd_kv8(q, *kv8, pos))
     one = attention_fwd_kv8(q[:1], *(t[:1] for t in kv8), pos[:1])
     again = attention_fwd_kv8(q, *kv8, pos)
+    verify, vkernel = launched(lambda: attention_fwd_kv8(qv, *kv8, pv))
+    rows = [attention_fwd_kv8(qv[:, i:i + 1], *kv8, pv + i)
+            for i in range(qv.shape[1])]
     torch.cuda.synchronize()
     same, repeat = torch.equal(one, batch[:1]), torch.equal(again, batch)
+    apart = [i for i, r in enumerate(rows)
+             if not torch.equal(r, verify[:, i:i + 1])]
     log(f"[kernels] KV8 decode ({kernel}): slot 0 alone equals its row of "
         f"the {q.shape[0]}-slot launch bit for bit: {same}; a second launch "
-        f"equal: {repeat}")
+        f"equal: {repeat}; KV8 verify ({vkernel}): each of its "
+        f"{qv.shape[1]} rows equals the one-row launch at its position bit "
+        f"for bit: {not apart}")
     require(same, "slot 0's KV8 decode row differs between B = 1 and the "
             "8-slot launch")
     require(repeat, "two KV8 decode launches on the same inputs differ")
+    require(not apart, f"KV8 verify rows {apart} differ from the one-row "
+            "launches at their positions")
 
 
 def _int8_gemm_log(gen, cfg) -> None:
@@ -660,12 +686,17 @@ def phase_kernels(cfg) -> list:
     from dpu_operator_tpu_torch.workloads.decode import _kv_quant
     (ckq, cks), (cvq, cvs) = _kv_quant(ck), _kv_quant(cv)
     kv8 = (ckq, cks, cvq, cvs)
-    cases.append(_kv8_case(f"decode 8x1 vs 8x{s_max}x{shape}", qd, kv8, pos))
-    cases.append(_kv8_case(f"verify 8x5 vs 8x{s_max}x{shape}", qv, kv8, pv))
-    cases.append(_kv8_case(
-        f"chunk 1x256x{shape}@256 vs slot row of 8x{s_max}", qc,
-        tuple(t[3:4] for t in kv8), off))
-    _kv8_decode_row_alone(qd, kv8, pos)
+    for dt, chunk_route in ((bf16, "attention_kv8_tc"),
+                            (f32, "attention_kv8_tiled")):
+        tag = "" if dt == bf16 else " float32"
+        cases.append(_kv8_case(f"decode 8x1 vs 8x{s_max}x{shape}{tag}",
+                               qd.to(dt), kv8, pos, "attention_kv8_rows"))
+        cases.append(_kv8_case(f"verify 8x5 vs 8x{s_max}x{shape}{tag}",
+                               qv.to(dt), kv8, pv, "attention_kv8_rows"))
+        cases.append(_kv8_case(
+            f"chunk 1x256x{shape}@256 vs slot row of 8x{s_max}{tag}",
+            qc.to(dt), tuple(t[3:4] for t in kv8), off, chunk_route))
+    _kv8_decode_row_alone(qd, kv8, pos, qv, pv)
     # RMSNorm at the training shape (batch 8 x 1024 tokens)
     cases.append(_rms_case(gen, 8 * s_max, d, bf16))
     # the flash bench's shape (phase 9's measure_flash_attention):
@@ -681,13 +712,15 @@ def phase_kernels(cfg) -> list:
     _launch_floor()
     _int8_gemm_log(gen, cfg)
     log("[kernels] library for attention_kv8_*: SDPA with the same mask over "
-        "a bf16 copy of the dequantized K / V, the copy made outside the "
-        "timing")
+        "a copy of the dequantized K / V in q's type, the copy made outside "
+        "the timing; 'earlier' is the earlier KV8 design's time (PR 8)")
     for c in cases:
+        earlier = "" if c.get("earlier_us") is None \
+            else f" (earlier {c['earlier_us'] * 1e-3:.4f} ms)"
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
-            f"kernel {c['ms']:.4f} ms (eager call {c['eager_ms']:.4f} ms) "
-            f"plain {c['plain_ms']:.4f} ms "
+            f"kernel {c['ms']:.4f} ms{earlier} (eager call "
+            f"{c['eager_ms']:.4f} ms) plain {c['plain_ms']:.4f} ms "
             f"library {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']})")
     for c in cases:
@@ -856,8 +889,8 @@ def _spec_kv8_parity(params, cfg) -> None:
     """The twin of tests/test_spec.py's ``kv8`` verify identity on the card
     (tiny fp32), with bf16-free weights and with the W8A8 tree: verify over
     a KV8 cache at k 4, the last oracle draft of each proposal corrupted,
-    emits exactly ``generate(kv_int8=True)``'s stream. Verify takes the
-    KV8 tiled kernel, generate's decode steps the KV8 decode kernels."""
+    emits exactly ``generate(kv_int8=True)``'s stream. Verify (5 rows a
+    pass) and generate's decode steps both take the KV8 cluster kernel."""
     import torch
     from dpu_operator_tpu_torch.ops import launch_counts
     from dpu_operator_tpu_torch.workloads.decode import (
@@ -885,15 +918,16 @@ def _spec_kv8_parity(params, cfg) -> None:
             toks.extend(emitted)
             pos += len(emitted)
             rows += 1
-        tiled = launch_counts()["attention_kv8_tiled"] \
-            - before["attention_kv8_tiled"]
+        after = launch_counts()
+        moved = {n: after[n] - before[n] for n in after
+                 if n.startswith("attention_kv8") and after[n] != before[n]}
         require(toks[:out_len] == ref, f"tiny fp32 {mode} verify stream "
                 f"{toks[:out_len]} != generate(kv_int8=True) {ref}")
-        require(tiled == rows * cfg.n_layers,
-                f"{mode} verify: {tiled} KV8 tiled launches for {rows} "
-                "verify passes")
+        require(moved == {"attention_kv8_rows": rows * cfg.n_layers},
+                f"{mode} verify: KV8 launches {moved} for {rows} verify "
+                "passes")
         log(f"[parity] tiny fp32 {mode} verify on the card (k {k}, last "
-            f"draft corrupted): {rows} verify passes on the KV8 tiled "
+            f"draft corrupted): {rows} verify passes on the KV8 cluster "
             f"kernel, stream equals generate(kv_int8=True)")
 
 
@@ -1741,7 +1775,9 @@ def phase_quant(cfg) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"[quant] launches of the checks and measure_decode: {counts}")
-    for name in ("attention_kv8_decode", "attention_kv8_tiled"):
+    # the flagship's KV8 routes: decode on the cluster kernel, chunks of
+    # 256 rows on the tensor cores
+    for name in ("attention_kv8_rows", "attention_kv8_tc"):
         require(counts[name] > 0, f"{name} never launched on the KV8 path")
 
     reqs = _requests(np.random.default_rng(2026), 16, cfg.vocab, (128, 512),

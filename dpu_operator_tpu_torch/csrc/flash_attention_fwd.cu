@@ -39,63 +39,16 @@
 // prefill, operations (4 * admitted pairs * D). The tiled and decode kernels
 // compute on the fp32 CUDA cores; bf16 at D 64 / 128 takes the tensor cores.
 //
-// KV8 (entry point attention_kv8; below, after the decode kernels): the
-// same attention over the int8 cache of dpu_operator_tpu/workloads/
-// decode.py (init_kv_cache(kv_int8=True)), whose attention (the "k_q"
-// branches of _verify_one and prefill_chunk) is XLA there: K / V int8
-// (B, Skv, H, D) with one fp32 scale per (key, head), (B, Skv, H, 1). Each
-// int8 row is converted in registers or while it is staged; no bf16 copy of
-// the cache is made.
+// The attention over the int8 KV cache (KV8) is attention_kv8.cu.
 #include <type_traits>
 
+#include "attention.cuh"
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-struct AttnArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  const int* q_pos0;  // (B,) int32, device; null: every offset is 0
-  float* lse;         // (B, H, Sq) fp32, or null: not written
-  int B, Sq, Skv, H;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  int causal;
-  float scale2;  // sm_scale * log2(e)
-};
-
-// The KV8 scales: one fp32 per (key, head) of K and of V, with element
-// strides for the batch, key and head dimensions.
-struct KvScales {
-  const float* ks;
-  const float* vs;
-  long long ks_sb, ks_ss, ks_sh;
-  long long vs_sb, vs_ss, vs_sh;
-};
-
-// ---------------------------------------------------------------- tiled --
-constexpr int kBQ = 32;      // query rows per block
-constexpr int kBK = 64;      // keys per shared-memory tile
-constexpr int kWarps = 4;    // 128 threads
-constexpr int kRPW = kBQ / kWarps;  // rows per warp
-
-template <int D>
-struct TiledSmem {
-  static constexpr int kStride = D + 4;  // floats; keeps float4 reads conflict-free
-  static constexpr size_t kQ = static_cast<size_t>(kBQ) * kStride;
-  static constexpr size_t kK = static_cast<size_t>(kBK) * kStride;
-  static constexpr size_t kV = static_cast<size_t>(kBK) * kStride;
-  static constexpr size_t kP = static_cast<size_t>(kWarps) * kRPW * kBK;
-  static constexpr size_t kBytes = (kQ + kK + kV + kP) * sizeof(float);
-};
+using namespace attn;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -233,7 +186,6 @@ attn_tiled_kernel(AttnArgs a) {
 // chunk order into out = acc / max(l, 1e-20). A row's result depends only on
 // its query, its keys and kDecChunk: not on B, H, the grid or which block
 // finishes first.
-constexpr int kDecChunk = 128;
 constexpr int kDecKeysPerWarp = 16;
 constexpr int kDecWarps = kDecChunk / kDecKeysPerWarp;  // 256 threads
 
@@ -353,310 +305,6 @@ attn_decode_combine_kernel(AttnArgs a, const float* part, int nch_max) {
   }
   T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
   o[d] = port::from_f<T>(acc / fmaxf(l, 1e-20f));
-}
-
-// ------------------------------------------------------------------ KV8 --
-// Attention over the int8 cache. The reference takes the scores as
-// (q . k_q) * k_s / sqrt(D), the softmax P in fp32, and rounds P * v_s to
-// the input type before the product with v_q (decode.py:247-256): P there
-// is the row's normalized softmax. A single pass cannot round at that
-// point, since it holds P only relative to a running max and sum; rounding
-// exp2(s - m_tile) * v_s instead (as the bf16 kernels round P) lands each
-// product a bf16 step from the reference's independently, which at the
-// verify shape went past chip_smoke.py's 1.5e-2 limit in bf16. So both KV8
-// kernels take two passes over the keys:
-// the first finds each row's max m and sum l, the second recomputes the
-// scores (the same arithmetic, so the same values) and accumulates
-// round(exp2(s - m) / l * v_s) * v_q in fp32. The second pass reads K again;
-// at the serving shapes the first pass has just brought it into the 50 MB
-// L2. Bound: bytes (each int8 K / V row and its scales read once).
-//
-// Several query rows (verify, chunked prefill): attn_tiled_kv8_kernel, the
-// tiled kernel's blocks, warps, masking and staging, with int8 rows
-// converted to fp32 as they are staged.
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_tiled_kv8_kernel(AttnArgs a, KvScales sc) {
-  constexpr int NT = kWarps * 32;
-  constexpr int DPL = D / 32;  // output columns per lane
-  constexpr int S = D + 4;
-  extern __shared__ float4 smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + TiledSmem<D>::kQ;
-  float* Vs = Ks + TiledSmem<D>::kK;
-  float* Ps = Vs + TiledSmem<D>::kV;
-
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = tile * kBQ;
-  const int nrows = min(kBQ, a.Sq - r0);
-  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
-  const int p_lo = pos0 + r0;
-  const int p_hi = pos0 + r0 + nrows - 1;
-
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_ss;
-  const int8_t* k = static_cast<const int8_t*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const int8_t* v = static_cast<const int8_t*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* ks = sc.ks + b * sc.ks_sb + h * sc.ks_sh;
-  const float* vs = sc.vs + b * sc.vs_sb + h * sc.vs_sh;
-  port::stage_rows<T, D, NT>(Qs, q, a.q_ss, kBQ, nrows);
-
-  const int nkb_all = (a.Skv + kBK - 1) / kBK;
-  int nkb = nkb_all, n_full = a.Skv / kBK;
-  if (a.causal) {
-    nkb = min(nkb_all, p_hi / kBK + 1);
-    n_full = min(n_full, (p_lo + 1) / kBK);
-  }
-  n_full = min(n_full, nkb);
-  const float* qw = Qs + warp * kRPW * S;
-  float* pw = Ps + warp * kRPW * kBK;
-
-  // this warp's masked scores against keys j0 + lane and j0 + lane + 32 of
-  // the K tile staged in Ks, in the exp2 domain
-  auto scores = [&](int kb, float (&s)[kRPW][2]) {
-    const int j0 = kb * kBK;
-    float kscale[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = j0 + lane + 32 * t;
-      kscale[t] = j < a.Skv ? ks[j * sc.ks_ss] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) s[r][0] = s[r][1] = 0.f;
-    port::dot_rows2<kRPW, D>(s, qw, Ks + lane * S, Ks + (lane + 32) * S);
-    const bool masked = kb >= n_full;
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      const int row_pos = pos0 + r0 + warp * kRPW + r;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = j0 + lane + 32 * t;
-        s[r][t] = s[r][t] * kscale[t] * a.scale2;
-        if (masked && (j >= a.Skv || (a.causal && j > row_pos))) s[r][t] = kNegInf;
-      }
-    }
-  };
-
-  // pass 1: each row's max and sum over its keys
-  float m[kRPW], l[kRPW];
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int j0 = kb * kBK;
-    __syncthreads();
-    port::stage_rows<int8_t, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, min(kBK, a.Skv - j0));
-    __syncthreads();
-    float s[kRPW][2];
-    scores(kb, s);
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      const float m_new = fmaxf(m[r], port::warp_max(fmaxf(s[r][0], s[r][1])));
-      l[r] = l[r] * exp2f(m[r] - m_new) +
-             port::warp_sum(exp2f(s[r][0] - m_new) + exp2f(s[r][1] - m_new));
-      m[r] = m_new;
-    }
-  }
-
-  // pass 2: out = sum of round(P * v_s) * v_q with P = exp2(s - m) / l
-  float acc[kRPW][DPL];
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r)
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int j0 = kb * kBK;
-    const int kvalid = min(kBK, a.Skv - j0);
-    __syncthreads();
-    port::stage_rows<int8_t, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, kvalid);
-    port::stage_rows<int8_t, D, NT>(Vs, v + j0 * a.v_ss, a.v_ss, kBK, kvalid);
-    __syncthreads();
-    float s[kRPW][2];
-    scores(kb, s);
-    float vscale[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = j0 + lane + 32 * t;
-      vscale[t] = j < a.Skv ? vs[j * sc.vs_ss] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        pw[r * kBK + lane + 32 * t] =
-            port::round_to<T>(exp2f(s[r][t] - m[r]) / l[r] * vscale[t]);
-    __syncwarp();
-    for (int j = 0; j < kvalid; ++j) {
-      float vv[DPL];
-      port::load_cols<DPL>(vv, Vs + j * S + lane * DPL);
-#pragma unroll
-      for (int r = 0; r < kRPW; ++r) {
-        const float pj = pw[r * kBK + j];
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r) {
-    const int lr = warp * kRPW + r;
-    if (lr >= nrows) continue;
-    T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + (r0 + lr) * a.o_ss + lane * DPL;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) o[c] = port::from_f<T>(acc[r][c]);
-  }
-}
-
-// One query row (decode): the split decode kernels' grid of (head, chunk,
-// batch) blocks of 8 warps, chunks of kDecChunk keys and lane map (a lane
-// holds VEC columns of q, so it reads VEC int8 of a key row: 8 bytes in
-// bf16, 4 in fp32), in three launches: attn_decode_kv8_stats_kernel writes
-// each chunk's max and sum; attn_decode_kv8_pv_kernel folds a row's chunk
-// statistics in chunk order into the row's m and l (every block of the row
-// alike) and writes its chunk's partial sum of round(exp2(s - m) / l * v_s)
-// * v_q; attn_decode_combine_kernel adds the partials in chunk order (each
-// is written with weight 1: m 0, and l 1 in chunk 0, 0 in the others). A
-// row's result depends only on its query, its keys and kDecChunk.
-template <typename T, int D>
-struct DecKv8 {
-  static constexpr int VEC = 16 / sizeof(T);  // columns of q a lane holds
-  static constexpr int LPK = D / VEC;         // lanes that read one key row
-  static constexpr int KPL = 32 / LPK;        // keys of one warp-wide load
-  static constexpr int NG = kDecKeysPerWarp / KPL;
-
-  // This lane's keys kw, kw + KPL, ...: their scores in the exp2 domain
-  // (kNegInf past n_keys), each summed over its lane group.
-  static __device__ __forceinline__ void scores(const AttnArgs& a, const KvScales& sc,
-                                                int b, int h, int sub, int kw, int n_keys,
-                                                float (&s)[NG]) {
-    const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + sub * VEC;
-    const int8_t* k = static_cast<const int8_t*>(a.k) + b * a.k_sb + h * a.k_sh + sub * VEC;
-    const float* ks = sc.ks + b * sc.ks_sb + h * sc.ks_sh;
-    const port::Pack<T, VEC> qp = *reinterpret_cast<const port::Pack<T, VEC>*>(q);
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int key = kw + g * KPL;
-      float dot = 0.f;
-      if (key < n_keys) {
-        const port::Pack<int8_t, VEC> kp =
-            *reinterpret_cast<const port::Pack<int8_t, VEC>*>(k + key * a.k_ss);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dot = fmaf(port::to_f(qp.v[e]), port::to_f(kp.v[e]), dot);
-      }
-      s[g] = dot;
-    }
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-#pragma unroll
-      for (int o = LPK / 2; o > 0; o >>= 1) s[g] += __shfl_xor_sync(0xffffffffu, s[g], o);
-      const int key = kw + g * KPL;
-      s[g] = key < n_keys ? s[g] * ks[key * sc.ks_ss] * a.scale2 : kNegInf;
-    }
-  }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecWarps * 32)
-attn_decode_kv8_stats_kernel(AttnArgs a, KvScales sc, float* stats) {
-  using L = DecKv8<T, D>;
-  __shared__ float wm[kDecWarps], wl[kDecWarps];
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int n_keys = a.causal ? min(a.q_pos0[b] + 1, a.Skv) : a.Skv;
-  const int k0 = c * kDecChunk;
-  if (k0 >= n_keys) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kw = k0 + kDecKeysPerWarp * warp + lane / L::LPK;
-  float s[L::NG];
-  L::scores(a, sc, b, h, lane % L::LPK, kw, n_keys, s);
-  float mx = kNegInf;
-#pragma unroll
-  for (int g = 0; g < L::NG; ++g) mx = fmaxf(mx, s[g]);
-  mx = port::warp_max(mx);
-  if (lane == 0) wm[warp] = mx;
-  __syncthreads();
-  float m = wm[0];
-#pragma unroll
-  for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, wm[w]);
-  float l = 0.f;
-#pragma unroll
-  for (int g = 0; g < L::NG; ++g) l += exp2f(s[g] - m);  // 0 past n_keys
-  // one lane of each group: the group's lanes hold the same scores
-#pragma unroll
-  for (int o = L::LPK; o < 32; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-  if (lane == 0) wl[warp] = l;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float ls = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) ls += wl[w];
-    float* out = stats + ((static_cast<long long>(b) * a.H + h) * gridDim.y + c) * 2;
-    out[0] = m;
-    out[1] = ls;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kDecWarps * 32)
-attn_decode_kv8_pv_kernel(AttnArgs a, KvScales sc, const float* stats, float* part) {
-  using L = DecKv8<T, D>;
-  constexpr int VEC = L::VEC;
-  __shared__ float wacc[kDecWarps][D];
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int n_keys = a.causal ? min(a.q_pos0[b] + 1, a.Skv) : a.Skv;
-  const int k0 = c * kDecChunk;
-  if (k0 >= n_keys) return;
-  // the row's max and sum, folded from its chunks in chunk order
-  const int nch = (n_keys + kDecChunk - 1) / kDecChunk;
-  const float* st = stats + (static_cast<long long>(b) * a.H + h) * gridDim.y * 2;
-  float m = kNegInf;
-  for (int i = 0; i < nch; ++i) m = fmaxf(m, st[2 * i]);
-  float l = 0.f;
-  for (int i = 0; i < nch; ++i) l += st[2 * i + 1] * exp2f(st[2 * i] - m);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane % L::LPK;
-  const int kw = k0 + kDecKeysPerWarp * warp + lane / L::LPK;
-  float s[L::NG];
-  L::scores(a, sc, b, h, sub, kw, n_keys, s);
-  const int8_t* v = static_cast<const int8_t*>(a.v) + b * a.v_sb + h * a.v_sh + sub * VEC;
-  const float* vs = sc.vs + b * sc.vs_sb + h * sc.vs_sh;
-  float acc[VEC];
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-#pragma unroll
-  for (int g = 0; g < L::NG; ++g) {
-    const int key = kw + g * L::KPL;
-    if (key < n_keys) {
-      const float pb = port::round_to<T>(exp2f(s[g] - m) / l * vs[key * sc.vs_ss]);
-      const port::Pack<int8_t, VEC> vp =
-          *reinterpret_cast<const port::Pack<int8_t, VEC>*>(v + key * a.v_ss);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(pb, port::to_f(vp.v[e]), acc[e]);
-    }
-  }
-#pragma unroll
-  for (int o = L::LPK; o < 32; o <<= 1)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
-  if (lane < L::LPK) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) wacc[warp][lane * VEC + e] = acc[e];
-  }
-  __syncthreads();
-  float* out = part + ((static_cast<long long>(b) * a.H + h) * gridDim.y + c) * (D + 2);
-  for (int d = threadIdx.x; d < D; d += kDecWarps * 32) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) sum += wacc[w][d];
-    out[2 + d] = sum;
-  }
-  if (threadIdx.x == 0) {
-    out[0] = 0.f;
-    out[1] = c == 0 ? 1.f : 0.f;
-  }
 }
 
 // -------------------------------------------------------- tensor cores --
@@ -878,8 +526,6 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ----------------------------------------------------------- launching --
 constexpr int kRouteSimt = 0, kRouteTc = 2;
-// routes of attention_kv8
-constexpr int kRouteKv8Tiled = 0, kRouteKv8Decode = 1;
 
 template <typename T, int D>
 cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
@@ -958,47 +604,6 @@ cudaError_t launch_tc_d(const AttnArgs& a, int d, int tile_rows, cudaStream_t s)
   if (tile_rows == 64 && d == 64) return launch_tc<64, 1>(a, s);
   if (tile_rows == 64 && d == 128) return launch_tc<128, 1>(a, s);
   return cudaErrorInvalidValue;
-}
-
-template <typename T, int D>
-cudaError_t launch_kv8(const AttnArgs& a, const KvScales& sc, int route, float* part,
-                       cudaStream_t stream) {
-  if (route == kRouteKv8Decode) {
-    const int nch = (a.Skv + kDecChunk - 1) / kDecChunk;
-    float* stats = part + static_cast<long long>(a.B) * a.H * nch * (D + 2);
-    const dim3 grid(a.H, nch, a.B);
-    attn_decode_kv8_stats_kernel<T, D><<<grid, kDecWarps * 32, 0, stream>>>(a, sc, stats);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    attn_decode_kv8_pv_kernel<T, D><<<grid, kDecWarps * 32, 0, stream>>>(a, sc, stats, part);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    attn_decode_combine_kernel<T, D><<<dim3(a.H, a.B), D, 0, stream>>>(a, part, nch);
-    return cudaGetLastError();
-  }
-  constexpr size_t smem = TiledSmem<D>::kBytes;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_tiled_kv8_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  attn_tiled_kv8_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(a, sc);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_kv8_d(const AttnArgs& a, const KvScales& sc, int d, int route,
-                         float* part, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch_kv8<T, 32>(a, sc, route, part, stream);
-    case 64: return launch_kv8<T, 64>(a, sc, route, part, stream);
-    case 128: return launch_kv8<T, 128>(a, sc, route, part, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 cudaError_t dispatch(const AttnArgs& a, int d, int dtype, int route, int tile_rows,
@@ -1086,45 +691,6 @@ int attention_decode(const void* q, const void* k, const void* v, void* o,
   if (dtype == port::kDtypeF32) return static_cast<int>(launch_decode_d<float>(a, D, f, s));
   if (dtype == port::kDtypeBF16)
     return static_cast<int>(launch_decode_d<__nv_bfloat16>(a, D, f, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Attention over the int8 KV cache (KV8): q / o (B, Sq, H, D) in dtype (0
-// fp32, 1 bf16), k_q / v_q (B, Skv, H, D) int8, k_s / v_s (B, Skv, H, 1)
-// fp32; element strides for the batch, key (or row) and head dimensions of
-// q, k_q, k_s, v_q, v_s and o, in that order; q_pos0 (B,) int32 on the
-// device, as attention_fwd. q, k_q, v_q and o 16-byte aligned with strides
-// of 16 bytes (the wrapper checks). route 1, one query row: the three KV8
-// decode launches, with part an fp32 scratch of B * H * ceil(Skv / chunk) *
-// (D + 4) floats and chunk the kernels' kDecChunk; route 0, any Sq: the
-// tiled KV8 kernel (part unused). Returns cudaGetLastError(), or an error
-// without launching when the arguments do not fit the route.
-int attention_kv8(const void* q, const void* k_q, const void* k_s, const void* v_q,
-                  const void* v_s, void* o, const void* q_pos0, void* part, int B,
-                  int Sq, int Skv, int H, int D,
-                  long long q_sb, long long q_ss, long long q_sh,
-                  long long kq_sb, long long kq_ss, long long kq_sh,
-                  long long ks_sb, long long ks_ss, long long ks_sh,
-                  long long vq_sb, long long vq_ss, long long vq_sh,
-                  long long vs_sb, long long vs_ss, long long vs_sh,
-                  long long o_sb, long long o_ss, long long o_sh,
-                  int causal, float scale2, int dtype, int route, int chunk,
-                  void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || B > 65535 || H > 65535 ||
-      k_s == nullptr || v_s == nullptr || (causal && q_pos0 == nullptr) ||
-      (route != kRouteKv8Tiled && route != kRouteKv8Decode) ||
-      (route == kRouteKv8Decode && (Sq != 1 || part == nullptr || chunk != kDecChunk)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  AttnArgs a{q, k_q, v_q, o, static_cast<const int*>(q_pos0), nullptr, B, Sq, Skv, H,
-             q_sb, q_ss, q_sh, kq_sb, kq_ss, kq_sh, vq_sb, vq_ss, vq_sh,
-             o_sb, o_ss, o_sh, causal, scale2};
-  const KvScales sc{static_cast<const float*>(k_s), static_cast<const float*>(v_s),
-                    ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* f = static_cast<float*>(part);
-  if (dtype == port::kDtypeF32) return static_cast<int>(launch_kv8_d<float>(a, sc, D, route, f, s));
-  if (dtype == port::kDtypeBF16)
-    return static_cast<int>(launch_kv8_d<__nv_bfloat16>(a, sc, D, route, f, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

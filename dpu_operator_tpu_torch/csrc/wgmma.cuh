@@ -1,9 +1,10 @@
 // Tensor-core building blocks for Hopper (sm_90a) shared by the port's
-// wgmma kernels (flash_attention_fwd.cu, flash_attention_bwd.cu): shared
-// memory matrix descriptors for the 128-byte-swizzled bf16 layout, the
-// wgmma fence / commit / wait, m64n64k16 and m64n128k16 bf16 -> fp32
-// products (A from shared memory or registers, B K-major or transposed),
-// mbarriers, and TMA tile loads of strided (B, S, H, D) views.
+// wgmma kernels (flash_attention_fwd.cu, flash_attention_bwd.cu,
+// attention_kv8.cu): shared memory matrix descriptors for the
+// 128-byte-swizzled bf16 layout, the wgmma fence / commit / wait,
+// m64n64k16 and m64n128k16 bf16 -> fp32 products (A from shared memory or
+// registers, B K-major or transposed), mbarriers, and TMA tile loads of
+// strided (B, S, H, D) views.
 //
 // Tile layout in shared memory. A tile of R rows x 64 bf16 (128 bytes a
 // row) is one "block": row r at byte 128 r, its eight 16-byte chunks
@@ -139,6 +140,13 @@ __device__ __forceinline__ void wg_commit() {
 template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by threads, not by TMA);
+// a barrier among the writers and the readers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Keep the compiler from moving reads or writes of registers that an

@@ -24,7 +24,8 @@ def launch_counts() -> dict:
     """Kernel launches so far, by kernel: each wrapper's launches split by
     the route they took (``_tc``: the tensor-core kernel; the other name of
     a wrapper: its CUDA-core kernel; decode-shaped attention apart; the
-    int8-cache attention under ``attention_kv8_*``)."""
+    int8-cache attention under ``attention_kv8_*``: ``_rows`` the cluster
+    kernel, ``_tc`` the tensor cores, ``_tiled`` the CUDA-core kernel)."""
     fwd, lse, kv8 = attention_fwd, attention_fwd_lse, attention_fwd_kv8
     dq, dkv = attention_bwd_dq, attention_bwd_dkv
     return {
@@ -33,8 +34,10 @@ def launch_counts() -> dict:
                                 - fwd.tc_launches),
         "attention_fwd_decode": fwd.decode_launches,
         "attention_fwd_tc": fwd.tc_launches,
-        "attention_kv8_tiled": kv8.launches - kv8.decode_launches,
-        "attention_kv8_decode": kv8.decode_launches,
+        "attention_kv8_rows": kv8.rows_launches,
+        "attention_kv8_tc": kv8.tc_launches,
+        "attention_kv8_tiled": (kv8.launches - kv8.rows_launches
+                                - kv8.tc_launches),
         "attention_fwd_lse": lse.launches - lse.tc_launches,
         "attention_fwd_lse_tc": lse.tc_launches,
         "attention_bwd_dq": dq.launches - dq.tc_launches,
@@ -46,7 +49,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     fused_rmsnorm.launches = attention_fwd.decode_launches = 0
-    attention_fwd_kv8.launches = attention_fwd_kv8.decode_launches = 0
-    for fn in (attention_fwd, attention_fwd_lse, attention_bwd_dq,
-               attention_bwd_dkv):
+    attention_fwd_kv8.rows_launches = 0
+    for fn in (attention_fwd, attention_fwd_kv8, attention_fwd_lse,
+               attention_bwd_dq, attention_bwd_dkv):
         fn.launches = fn.tc_launches = 0

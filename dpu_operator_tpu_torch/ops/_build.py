@@ -24,7 +24,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("rmsnorm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu")
+SOURCES = ("rmsnorm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
+           "attention_kv8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +46,8 @@ _SIGNATURES = {
                           + [_L] * 12 + [_I, _F, _I, _I, _I, _P]),
     "attention_decode": (_I, [_P] * 6 + [_I] * 4 + [_L] * 12
                          + [_I, _F, _I, _I, _P]),
-    "attention_kv8": (_I, [_P] * 8 + [_I] * 5 + [_L] * 18
-                      + [_I, _F, _I, _I, _I, _P]),
+    "attention_kv8": (_I, [_P] * 7 + [_I] * 5 + [_L] * 18
+                      + [_I, _F, _I, _I, _I, _I, _P]),
     "attention_bwd_dq": (_I, [_P] * 7 + [_I] * 4 + [_L] * 15
                          + [_I, _F, _F, _I, _I, _I, _P]),
     "attention_bwd_dkv": (_I, [_P] * 8 + [_I] * 4 + [_L] * 15

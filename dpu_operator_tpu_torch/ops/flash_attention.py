@@ -36,12 +36,16 @@ The int8 KV cache (KV8): :func:`attention_fwd_kv8` attends q over int8
 K / V with one fp32 scale per (key, head), the cache of
 ``dpu_operator_tpu/workloads/decode.py`` ``init_kv_cache(kv_int8=True)``,
 whose attention (the ``"k_q"`` branches of ``_verify_one`` and
-``prefill_chunk``) is XLA there. One query row takes the KV8 decode
-kernels (split over keys as the decode kernels are), more rows the tiled
-KV8 kernel; both take two passes over the keys, so that P * v_s is rounded
-to the input type with P the row's normalized softmax, where the reference
-rounds it. Its plain version is :func:`attention_kv8_plain`. No bf16 copy
-of the cache is made.
+``prefill_chunk``) is XLA there; ``csrc/attention_kv8.cu`` holds its
+kernels. Up to ``KV8_ROWS_MAX`` query rows (decode, verify) take one
+launch over a thread-block cluster a (head, batch), whose blocks split the
+keys in chunks of ``DECODE_CHUNK`` and share each row's softmax statistics
+through distributed shared memory; more rows take the tensor cores in bf16
+at head dim 64 / 128 (int8 tiles converted to bf16 in shared memory), else
+the tiled KV8 kernel (:func:`_kv8_route`). Every route takes two passes
+over the keys, so that P * v_s is rounded to the input type with P the
+row's normalized softmax, where the reference rounds it. Its plain version
+is :func:`attention_kv8_plain`. No bf16 copy of the cache is made.
 
 Training: :func:`flash_attention_vjp` (a :class:`FlashAttentionFn`) saves
 the per-row logsumexp of :func:`attention_fwd_lse`; its backward computes
@@ -75,6 +79,11 @@ _TC_HEAD_DIMS = (64, 128)
 _ROUTE_CODES = {"simt": 0, "tc": 2}
 #: keys per chunk of the decode kernels' split (the kernel's kDecChunk)
 DECODE_CHUNK = 128
+#: the most query rows a KV8 call takes on the cluster kernel (decode and
+#: verify; the kernel's kRowsMax)
+KV8_ROWS_MAX = 8
+#: route codes of the C entry point ``attention_kv8``
+_KV8_ROUTE_CODES = {"simt": 0, "rows": 1, "tc": 2}
 
 
 def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
@@ -83,6 +92,18 @@ def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
     128, ``"simt"`` (the tiled CUDA-core kernel) otherwise."""
     if sq == 1 and not with_lse:
         return "decode"
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def _kv8_route(dtype: torch.dtype, d: int, sq: int) -> str:
+    """The KV8 kernel a CUDA launch takes: ``"rows"`` (the cluster kernel)
+    for 1 to ``KV8_ROWS_MAX`` query rows, ``"tc"`` (tensor cores) for more
+    rows in bf16 at head dim 64 or 128, ``"simt"`` (the tiled CUDA-core
+    KV8 kernel) otherwise."""
+    if sq <= KV8_ROWS_MAX:
+        return "rows"
     if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
         return "tc"
     return "simt"
@@ -366,9 +387,9 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     :func:`attention_fwd`. The function of :func:`attention_kv8_plain`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the KV8
-    kernels (one query row: the KV8 decode kernels, split over keys; more
-    rows: the tiled KV8 kernel, which converts int8 rows as it stages them)
-    or raises. Returns a new contiguous (B, Sq, H, D)
+    kernel of :func:`_kv8_route` (up to ``KV8_ROWS_MAX`` rows: the cluster
+    kernel; more rows: the tensor cores in bf16 at head dim 64 / 128, else
+    the tiled KV8 kernel) or raises. Returns a new contiguous (B, Sq, H, D)
     tensor in q's type."""
     b, sq, h, d = q.shape
     if (k_q.shape[0] != b or k_q.shape[2:] != (h, d)
@@ -394,31 +415,29 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    skv = k_q.shape[1]
-    decode = sq == 1
-    # the decode kernels' fp32 scratch: each chunk's partial (m, l, acc[D])
-    # and its (max, sum)
-    part = torch.empty((b, h, _decode_chunks(skv - 1, skv), d + 4),
-                       dtype=torch.float32, device=q.device) if decode \
-        else None
+    route = _kv8_route(q.dtype, d, sq)
     rc = _build.library().attention_kv8(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-        v_s.data_ptr(), out.data_ptr(), pos.data_ptr(),
-        None if part is None else part.data_ptr(), b, sq, skv, h, d,
-        *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
+        v_s.data_ptr(), out.data_ptr(), pos.data_ptr(), b, sq, k_q.shape[1],
+        h, d, *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
         _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
-        int(decode),  # route: 1 the decode kernels, 0 the tiled kernel
-        DECODE_CHUNK, torch.cuda.current_stream(q.device).cuda_stream)
+        _KV8_ROUTE_CODES[route], DECODE_CHUNK,
+        _tile_rows(b, sq, h, _sms(q.device)),
+        torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd_kv8.launches += 1
-    if decode:
-        attention_fwd_kv8.decode_launches += 1
+    if route == "rows":
+        attention_fwd_kv8.rows_launches += 1
+    elif route == "tc":
+        attention_fwd_kv8.tc_launches += 1
     _build.check(rc, "attention_fwd_kv8")
     return out
 
 
-#: launches of both KV8 routes, and of the decode kernels alone
+#: launches of every KV8 route, of the cluster kernel and of the
+#: tensor-core kernel alone
 attention_fwd_kv8.launches = 0  # type: ignore[attr-defined]
-attention_fwd_kv8.decode_launches = 0  # type: ignore[attr-defined]
+attention_fwd_kv8.rows_launches = 0  # type: ignore[attr-defined]
+attention_fwd_kv8.tc_launches = 0  # type: ignore[attr-defined]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

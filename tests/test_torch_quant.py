@@ -532,7 +532,8 @@ def test_kv8_wrapper_takes_the_plain_path_on_the_cpu():
     assert torch.equal(attention_fwd_kv8(q, kq, ks, vq, vs, pos),
                        attention_kv8_plain(q, kq, ks, vq, vs, pos))
     assert launch_counts() == before
-    assert {"attention_kv8_decode", "attention_kv8_tiled"} <= set(before)
+    assert {"attention_kv8_rows", "attention_kv8_tc",
+            "attention_kv8_tiled"} <= set(before)
 
 
 def test_kv8_wrapper_refuses_bad_shapes_and_devices():

@@ -3,9 +3,10 @@
 bf16 at head dim 64 or 128 takes the ``wgmma`` forward (with and without
 the logsumexp), dQ and dK/dV kernels; fp32 and head dim 32 keep the
 CUDA-core kernels, and the one-row decode shape takes the decode kernels,
-split over keys; attention over the int8 KV cache (KV8) takes the KV8
-decode kernels or the tiled KV8 kernel. On the CPU these tests hold the
-routing functions, the
+split over keys; attention over the int8 KV cache (KV8) takes the cluster
+kernel for up to ``KV8_ROWS_MAX`` rows, the tensor cores for more rows in
+bf16 at head dim 64 / 128, else the tiled KV8 kernel. On the CPU these
+tests hold the routing functions, the
 tile-height rule and the decode chunk rule, and the properties the forward
 and decode kernels are built around (a row's result does not depend on its
 tile, nor on the batch it is decoded in) on the plain versions at the
@@ -80,6 +81,28 @@ def test_attention_route(dtype, d, sq, with_lse, route):
     assert fa._attn_route(dtype, d, sq, with_lse) == route
 
 
+#: KV8 widths: decode, verify at k 1, the widest cluster launch, one row
+#: past it, and a prefill chunk
+KV8_WIDTHS = (1, 2, fa.KV8_ROWS_MAX, fa.KV8_ROWS_MAX + 1, 256)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq", KV8_WIDTHS)
+def test_kv8_route(dtype, d, sq):
+    """Up to KV8_ROWS_MAX rows take the cluster kernel in every type and
+    head dim; more rows the tensor cores in bf16 at head dim 64 / 128 and
+    the tiled CUDA-core KV8 kernel otherwise (fp32, or head dim 32)."""
+    if sq <= 8:
+        want = "rows"
+    elif dtype == BF16 and d != 32:
+        want = "tc"
+    else:
+        want = "simt"
+    assert fa.KV8_ROWS_MAX == 8
+    assert fa._kv8_route(dtype, d, sq) == want
+
+
 @pytest.mark.parametrize("dtype,d,route", [
     (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "simt"),
     (F32, 128, "simt"), (F32, 64, "simt")])
@@ -123,6 +146,28 @@ def test_launch_counts_name_every_route_and_reset():
     finally:
         reset_launch_counts()
     assert set(launch_counts().values()) == {0}
+
+
+def test_launch_counts_carry_the_kv8_routes_and_reset():
+    """Each KV8 route counts under its own name: the cluster kernel as
+    ``attention_kv8_rows``, the tensor cores as ``attention_kv8_tc``, the
+    tiled kernel as ``attention_kv8_tiled`` (the rest of the launches)."""
+    before = launch_counts()
+    kv8 = fa.attention_fwd_kv8
+    kv8.launches += 6
+    kv8.rows_launches += 3
+    kv8.tc_launches += 2
+    try:
+        after = launch_counts()
+        for name, n in (("attention_kv8_rows", 3), ("attention_kv8_tc", 2),
+                        ("attention_kv8_tiled", 1)):
+            assert after[name] == before[name] + n, name
+        assert "attention_kv8_decode" not in after
+    finally:
+        reset_launch_counts()
+    assert all(launch_counts()[name] == 0 for name in (
+        "attention_kv8_rows", "attention_kv8_tc", "attention_kv8_tiled"))
+    assert kv8.launches == kv8.rows_launches == kv8.tc_launches == 0
 
 
 def test_launch_counts_split_dq_by_route_and_reset():
@@ -459,22 +504,75 @@ def _kv8_inputs(dev, dtype, b, sq, skv, h, d, seed):
     return rnd(b, sq, h, d).to(dtype), kq, ks, vq, vs
 
 
+#: KV8 slot positions on the card: the chunk edges, the middle and the end
+#: of a 1024-key cache row, and of a 2048-key row (more chunks than a
+#: cluster has blocks, so each block walks two)
+KV8_POSITIONS = {1024: (0, 127, 128, 511, 1023), 2048: (0, 128, 1023, 1500,
+                                                       2047)}
+
+
+def _kv8_route_name(dtype, d, sq) -> str:
+    return {"rows": "attention_kv8_rows", "tc": "attention_kv8_tc",
+            "simt": "attention_kv8_tiled"}[fa._kv8_route(dtype, d, sq)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("sq,pos0", [(1, (0, 127, 128, 1023)),
-                                     (5, (0, 126, 600, 1019)),
-                                     (256, (0, 256, 500, 768))])
-def test_cuda_kv8_kernels_match_plain(cuda, dtype, tol, d, sq, pos0):
-    """One query row takes the KV8 decode kernels, more rows the tiled
-    KV8 kernel; each within the limits of chip_smoke.py of
-    ``attention_kv8_plain`` (both round P * v_s with P normalized)."""
-    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, 4, sq, 1024, 3, d, 41)
+@pytest.mark.parametrize("sq", (1, 2, 5) + KV8_WIDTHS[2:])
+@pytest.mark.parametrize("skv", sorted(KV8_POSITIONS))
+def test_cuda_kv8_kernels_match_plain(cuda, dtype, tol, d, sq, skv):
+    """Each KV8 route (:func:`_kv8_route`: the cluster kernel up to
+    KV8_ROWS_MAX rows, the tensor cores or the tiled kernel past it) within
+    the limits of chip_smoke.py of ``attention_kv8_plain`` (every route
+    rounds P * v_s with P normalized), one slot at each of KV8_POSITIONS."""
+    pos0 = KV8_POSITIONS[skv]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, len(pos0), sq, skv, 3, d,
+                                    41)
     pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
     before = launch_counts()
     got = attention_fwd_kv8(q, kq, ks, vq, vs, pos)
     moved = [n for n, c in launch_counts().items() if c != before[n]]
-    assert moved == ["attention_kv8_decode" if sq == 1
-                     else "attention_kv8_tiled"]
+    assert moved == [_kv8_route_name(dtype, d, sq)]
+    assert _scaled_err(got, attention_kv8_plain(q, kq, ks, vq, vs, pos)) \
+        <= tol
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("sq", [2, 5, fa.KV8_ROWS_MAX])
+@pytest.mark.parametrize("skv", sorted(KV8_POSITIONS))
+def test_cuda_kv8_verify_row_equals_decode_row(cuda, dtype, d, sq, skv):
+    """The cluster kernel's invariant: row i of a launch of sq rows at
+    positions p equals a one-row launch of the same query at p + i under
+    ``torch.equal`` (a row's result depends on its query, its keys, the
+    chunk and the cluster size alone)."""
+    pos0 = KV8_POSITIONS[skv]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, len(pos0), sq, skv, 3, d,
+                                    45)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    rows = attention_fwd_kv8(q, kq, ks, vq, vs, pos)
+    for i in range(sq):
+        one = attention_fwd_kv8(q[:, i:i + 1], kq, ks, vq, vs, pos + i)
+        assert torch.equal(one, rows[:, i:i + 1]), i
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+@pytest.mark.parametrize("scale", [1e5, 1e-6])
+@pytest.mark.parametrize("sq", [1, 5])
+def test_cuda_kv8_rows_take_queries_outside_fp16_range(cuda, dtype, tol,
+                                                        scale, sq):
+    """The cluster kernel takes its scores in fp16 products after scaling
+    each query row by a power of two, so queries far above fp16's range
+    (1e5) or below its normal range (1e-6), with k_s scaled the other way
+    (the same scores), match the plain version as ordinary ones do."""
+    pos0 = KV8_POSITIONS[1024]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, len(pos0), sq, 1024, 3, 128,
+                                    49)
+    q = (q.float() * scale).to(dtype)
+    ks = ks / scale
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    got = attention_fwd_kv8(q, kq, ks, vq, vs, pos)
+    assert bool(torch.isfinite(got).all())
     assert _scaled_err(got, attention_kv8_plain(q, kq, ks, vq, vs, pos)) \
         <= tol
 
