@@ -13,11 +13,14 @@ Phases, each of which passes or raises (a failure exits non-zero):
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    serving and training paths give it, with its time, the plain version's,
    one PyTorch library call's (a yardstick the port never calls) and the
-   least time the card could take (its bound). bf16 at head dim 64 and 128
-   takes the tensor-core kernels (D 64 at 1x1000 and 2x1024), fp32 the
-   CUDA-core ones, one query row the decode kernels split over keys; a
-   256-row chunk at offset 256 must equal rows 256-511 of the whole 512-row
-   prefill bit for bit, and slot 0's decode row launched alone must equal
+   least time the card could take (its bound). bf16 takes the tensor-core
+   kernels (D 64 at 1x1000 and 2x1024, D 32 padded to 64 at 1x1000), fp32
+   the 3xTF32 forward and dK/dV on the tensor cores and the CUDA-core dQ,
+   one query row the decode kernels split over keys (the fp32 prefill and
+   training cases log the earlier CUDA-core design's time beside the new
+   one); a 256-row chunk at offset 256 must equal rows 256-511 of the whole
+   512-row prefill bit for bit, in bf16 and in fp32, and slot 0's decode row
+   launched alone must equal
    its row of the 8-slot launch bit for bit; speculative verify's shape (8
    slots x 5 rows at random positions) and the flash bench's (4 x 2048 x
    8 x 128, causal) take the tensor-core forward. Over
@@ -36,7 +39,11 @@ Phases, each of which passes or raises (a failure exits non-zero):
    mid-speculation, every stream equal to ``generate``; then verify over a
    KV8 cache (bf16-free and W8A8 weights) with corrupted oracle drafts,
    its stream equal to ``generate(kv_int8=True)``; then one tiny fp32
-   train step whose loss and gradients match the CPU's;
+   train step whose loss and gradients match the CPU's; then the port's
+   default ``TransformerConfig()`` (head dim 16, which every kernel takes
+   zero-padded): in fp32 greedy streams equal, logits close, a serve whose
+   streams equal ``generate`` and one train step matching the CPU's; in
+   bf16 forward logits close to the CPU's;
 5. serve the flagship (bf16, about 391M parameters, random weights from a
    seed) through ``Scheduler`` and ``TorchSlotExecutor``: 16 requests on 8
    slots with chunked prefill; every kernel of the path must have launched,
@@ -89,6 +96,11 @@ an empty kernel, the card's floor for one launch.
 
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
+
+``python3 chip_smoke.py --time-train B S H D DTYPE`` runs phases 1-2 and
+times the training path's three kernels at that shape (no other phase, no
+JSON lines): it uses the public wrappers alone, so the same script run
+beside an older checkout of the package times that checkout's kernels.
 """
 
 from __future__ import annotations
@@ -105,7 +117,8 @@ import numpy as np
 #: kernel vs plain: the largest :func:`scaled_err` of an output, per
 #: dtype. fp32 differs only in summation order; bf16 also in where P, dS
 #: and the output round (one bf16 step is 2^-8 to 2^-7 of a value). The
-#: H100 readings at this script's shapes and seed: fp32 at most 4.9e-6;
+#: H100 readings at this script's shapes and seed: fp32 at most 4.9e-6 on
+#: the CUDA cores (3xTF32: see PERF.md);
 #: bf16 at most 7.2e-3 (dV at 8x1024, on the CUDA cores and on the tensor
 #: cores alike), and the bf16 limit lies two bf16 steps (2 * 2^-8) above
 #: that
@@ -123,10 +136,26 @@ SERVE_KERNELS = ("fused_rmsnorm", "attention_fwd_tc", "attention_fwd_decode")
 SPEC_KERNELS = ("fused_rmsnorm", "attention_fwd_tc")
 TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq_tc",
                  "attention_bwd_dkv_tc")
-SERVE_NOT = ("attention_fwd_tiled",)
+SERVE_NOT = ("attention_fwd_tf32",)
 #: phase 9's flash bench shape (B, S, H, D), bf16 causal (bench.py's)
 FLASH_BENCH = (4, 2048, 8, 128)
-TRAIN_NOT = ("attention_fwd_lse", "attention_bwd_dq", "attention_bwd_dkv")
+TRAIN_NOT = ("attention_fwd_lse_tf32", "attention_bwd_dq",
+             "attention_bwd_dkv_tf32")
+#: the fp32 and head-dim-32 cases' times under the earlier design (the
+#: tiled CUDA-core forward and dK/dV kernels, which also took bf16 at head
+#: dim 32), us a launch under graph replay, NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md's kernel table; the head-dim-32 times from ``--time-train`` run
+#: over the checkout before the change), by the case name
+TF32_EARLIER_US = {
+    "attention_fwd_tf32[prefill 1x512x12x128 float32]": 132.7,
+    "attention_fwd_lse_tf32[1x1024x12x128 float32]": 334.8,
+    "attention_fwd_lse_tf32[1x1000x12x128 float32]": 336.9,
+    "attention_bwd_dkv_tf32[1x1024x12x128 float32]": 501.2,
+    "attention_bwd_dkv_tf32[1x1000x12x128 float32]": 493.1,
+    "attention_fwd_lse_tc[1x1000x12x32 bfloat16]": 95.6,
+    "attention_bwd_dq_tc[1x1000x12x32 bfloat16]": 97.0,
+    "attention_bwd_dkv_tc[1x1000x12x32 bfloat16]": 185.1,
+}
 
 
 def log(msg: str) -> None:
@@ -253,11 +282,28 @@ def phase_build() -> None:
 
 # -- phase 3 ------------------------------------------------------------------
 def _bound(nbytes: float, flops: float, dname: str) -> tuple:
+    """The least time (ms) for *nbytes* over HBM and *flops* at the rate of
+    *dname*, the larger, and which one it is. ``"tf32x3"``: fp32-exact
+    products as three TF32 products on the tensor cores (a third of the TF32
+    rate), the fp32 attention kernels' work."""
     peaks = card_peaks()
+    rate = peaks["tf32"] / 3 if dname == "tf32x3" else peaks[dname]
     t_bytes = nbytes / peaks["hbm_bytes_per_s"] * 1e3
-    t_ops = flops / peaks[dname] * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def _attn_bound(nbytes: float, flops: float, dname: str) -> dict:
+    """An attention case's bound: bf16 at the bf16 rate, fp32 at a third of
+    the TF32 rate, with (fp32) the bound at the CUDA cores' 67 TFLOP/s
+    beside it (the earlier designs' yardstick)."""
+    if dname != "float32":
+        bound, by = _bound(nbytes, flops, dname)
+        return {"bound_ms": bound, "bound_by": by}
+    bound, by = _bound(nbytes, flops, "tf32x3")
+    return {"bound_ms": bound, "bound_by": by,
+            "bound_cores_ms": _bound(nbytes, flops, "float32")[0]}
 
 
 def _rms_case(gen, rows: int, d: int, dtype) -> dict:
@@ -335,8 +381,8 @@ def _attn_case(gen, label: str, q, k, v, pos) -> dict:
     keys = sum(min(int(p) + sq, skv) for p in pos_h)
     elt = q.element_size()
     dname = str(q.dtype).replace("torch.", "")
-    bound, by = _bound((2 * b * sq * h * d + 2 * keys * h * d) * elt,
-                       4.0 * pairs * h * d, dname)
+    bound = _attn_bound((2 * b * sq * h * d + 2 * keys * h * d) * elt,
+                        4.0 * pairs * h * d, dname)
     # library yardstick: SDPA in (B, H, S, D) views with the same mask
     rows = torch.as_tensor(pos_h, device="cuda")[:, None] \
         + torch.arange(sq, device="cuda")
@@ -347,17 +393,18 @@ def _attn_case(gen, label: str, q, k, v, pos) -> dict:
     def lib():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
+    name = f"{kernel}[{label}]"
     return {
-        "name": f"{kernel}[{label}]", "kernel": kernel, "dtype": dname,
+        "name": name, "kernel": kernel, "dtype": dname,
         "source": "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
         "max_abs_err": max_abs, "scaled_err": scaled,
+        "earlier_us": TF32_EARLIER_US.get(name),
         "ms": graph_ms(lambda: attention_fwd(q, k, v, pos)),
         "eager_ms": cuda_ms(lambda: attention_fwd(q, k, v, pos), 20),
         "plain_ms": cuda_ms(lambda: attention_fwd_plain(q, k, v, pos), 3,
                             warmup=1),
-        "library_ms": graph_ms(lib),
-        "bound_ms": bound, "bound_by": by,
+        "library_ms": graph_ms(lib), **bound,
     }
 
 
@@ -436,24 +483,55 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
             f"{float(outs[k][1].float().abs().max()):.3g}, rms "
             f"{float(outs[k][1].float().square().mean().sqrt()):.3g})"
             for k, e in errs.items()))
-        bound, by = _bound(nbytes, flops, dname)
         cases.append({
             "name": f"{name}[{label}]", "kernel": name, "dtype": dname,
             "source": src,
             "replaces": "dpu_operator_tpu/ops/flash_attention.py" + line,
             "max_abs_err": max(e[0] for e in errs.values()),
             "scaled_err": max(e[1] for e in errs.values()),
+            "earlier_us": TF32_EARLIER_US.get(f"{name}[{label}]"),
             "ms": graph_ms(fn, reps=5, replays=4),
             "eager_ms": cuda_ms(fn, 5),
             "plain_ms": cuda_ms(plain, 2, warmup=1),
-            "library_ms": lib, "bound_ms": bound, "bound_by": by})
+            "library_ms": lib, **_attn_bound(nbytes, flops, dname)})
     return cases
+
+
+def time_train(b: int, s: int, h: int, d: int, dname: str) -> None:
+    """``--time-train``: the training path's three kernels at (B, S, H, D)
+    in *dname*, causal, each timed under graph replay as phase 3 times
+    them, with the ``launch_counts`` name of the kernel each call took.
+    Only the public wrappers: an older checkout's kernels time the same
+    way."""
+    import torch
+    from dpu_operator_tpu_torch.ops import (attention_bwd_dkv,
+                                            attention_bwd_dq,
+                                            attention_delta,
+                                            attention_fwd_lse)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    dtype = getattr(torch, dname)
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    (out, lse), fwd = launched(lambda: attention_fwd_lse(q, k, v))
+    delta = attention_delta(do, out)
+    _, dq = launched(lambda: attention_bwd_dq(q, k, v, do, lse, delta))
+    _, dkv = launched(lambda: attention_bwd_dkv(q, k, v, do, lse, delta))
+    for name, fn in ((fwd, lambda: attention_fwd_lse(q, k, v)),
+                     (dq, lambda: attention_bwd_dq(q, k, v, do, lse, delta)),
+                     (dkv, lambda: attention_bwd_dkv(q, k, v, do, lse,
+                                                     delta))):
+        log(f"[time-train] {name}[{b}x{s}x{h}x{d} {dname}]: kernel "
+            f"{graph_ms(fn, reps=5, replays=4):.4f} ms under graph replay")
 
 
 def _chunk_equals_whole(q, k, v, ck, cv) -> None:
     """The forward's invariant on the card: the 256-row chunk at offset
     256, over slot 3's cache row holding the prompt's K / V, equals rows
-    256-511 of the whole 512-row prefill under ``torch.equal``."""
+    256-511 of the whole 512-row prefill under ``torch.equal``, in q's type
+    (bf16: the tensor-core kernel; fp32: the 3xTF32 kernel)."""
     import torch
     from dpu_operator_tpu_torch.ops import attention_fwd
     p = q.shape[1]
@@ -464,9 +542,10 @@ def _chunk_equals_whole(q, k, v, ck, cv) -> None:
                                                     cv[3:4], off))
     torch.cuda.synchronize()
     same = torch.equal(part, whole[:, 256:p])
-    log(f"[kernels] chunk 256@256 ({kernel_c}) equals rows 256-{p - 1} of "
-        f"the whole prefill ({kernel}) bit for bit: {same}")
-    require(same, "the chunk at offset 256 differs from the whole prefill")
+    log(f"[kernels] chunk 256@256 ({kernel_c}, {q.dtype}) equals rows "
+        f"256-{p - 1} of the whole prefill ({kernel}) bit for bit: {same}")
+    require(same, f"the {q.dtype} chunk at offset 256 differs from the "
+            "whole prefill")
 
 
 def _decode_row_alone(q, ck, cv, pos) -> None:
@@ -522,8 +601,8 @@ def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
     pairs = sum(min(int(p) + i + 1, skv) for p in pos_h for i in range(sq))
     keys = sum(min(int(p) + sq, skv) for p in pos_h)
     dname = str(q.dtype).replace("torch.", "")
-    bound, by = _bound(2 * b * sq * h * d * q.element_size()
-                       + 2 * keys * h * (d + 4), 4.0 * pairs * h * d, dname)
+    bound = _attn_bound(2 * b * sq * h * d * q.element_size()
+                        + 2 * keys * h * (d + 4), 4.0 * pairs * h * d, dname)
     rows = torch.as_tensor(pos_h, device="cuda")[:, None] \
         + torch.arange(sq, device="cuda")
     mask = (torch.arange(skv, device="cuda")[None, None, :]
@@ -548,7 +627,7 @@ def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
         "ms": graph_ms(run), "eager_ms": cuda_ms(run, 20),
         "plain_ms": cuda_ms(lambda: attention_kv8_plain(q, kq, ks, vq, vs,
                                                         pos), 3, warmup=1),
-        "library_ms": graph_ms(lib), "bound_ms": bound, "bound_by": by,
+        "library_ms": graph_ms(lib), **bound,
     }
 
 
@@ -642,7 +721,7 @@ def phase_kernels(cfg) -> list:
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     shape = f"{h}x{dh}"
     cases.append(_attn_case(gen, f"prefill 1x512x{shape}", q, k, v, zero))
-    # the same prompt in fp32: the tiled CUDA-core kernel (fp32 serving)
+    # the same prompt in fp32: the 3xTF32 kernel (fp32 serving)
     cases.append(_attn_case(gen, f"prefill 1x512x{shape} float32", q.float(),
                             k.float(), v.float(), zero))
     # chunk: 256 queries at offset 256 against one slot's row of the cache
@@ -664,13 +743,16 @@ def phase_kernels(cfg) -> list:
                             ck, cv, p511))
     _decode_row_alone(qd, ck, cv, pos)
     _chunk_equals_whole(q, k, v, ck, cv)
+    _chunk_equals_whole(q.float(), k.float(), v.float(), ck.float(),
+                        cv.float())
     # training: the flagship's train batch, one of its sequences, and a
-    # ragged length; then head dim 64 (the n64 products) at one and two
-    # warpgroups a block
+    # ragged length (fp32: the 3xTF32 forward and dK/dV); then head dim 64
+    # (the n64 products) at one and two warpgroups a block, and head dim 32
+    # (padded to 64)
     for b, s, hd, dt in ((8, s_max, dh, bf16), (1, s_max, dh, bf16),
                          (1, 1000, dh, bf16), (1, s_max, dh, f32),
                          (1, 1000, dh, f32), (1, 1000, 64, bf16),
-                         (2, s_max, 64, bf16)):
+                         (2, s_max, 64, bf16), (1, 1000, 32, bf16)):
         cases.extend(_train_cases(gen, b, s, h, hd, dt))
     # speculative verify (k = 4 drafts): 8 slots x 5 rows against the whole
     # cache at random positions, on the tensor-core forward
@@ -713,16 +795,21 @@ def phase_kernels(cfg) -> list:
     _int8_gemm_log(gen, cfg)
     log("[kernels] library for attention_kv8_*: SDPA with the same mask over "
         "a copy of the dequantized K / V in q's type, the copy made outside "
-        "the timing; 'earlier' is the earlier KV8 design's time (PR 8)")
+        "the timing; 'earlier' is the earlier design's time (KV8: the "
+        "two-pass decode kernels and the tiled KV8 kernel; fp32, and bf16 at "
+        "head dim 32: the tiled CUDA-core kernels); fp32 attention bounds at "
+        "a third of the TF32 rate (3xTF32)")
     for c in cases:
         earlier = "" if c.get("earlier_us") is None \
             else f" (earlier {c['earlier_us'] * 1e-3:.4f} ms)"
+        cores = "" if c.get("bound_cores_ms") is None \
+            else f"; at the CUDA cores' fp32 rate {c['bound_cores_ms']:.4f} ms"
         log(f"[kernels] {c['name']}: max_abs_err {c['max_abs_err']:.3g} "
             f"(scaled {c['scaled_err']:.3g}, tol {TOL[c['dtype']]}) "
             f"kernel {c['ms']:.4f} ms{earlier} (eager call "
             f"{c['eager_ms']:.4f} ms) plain {c['plain_ms']:.4f} ms "
             f"library {c['library_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
-            f"({c['bound_by']})")
+            f"({c['bound_by']}{cores})")
     for c in cases:
         require(c["scaled_err"] <= TOL[c["dtype"]],
                 f"{c['name']} disagrees with its plain version: scaled error "
@@ -775,44 +862,130 @@ def _requests(rng, n: int, vocab: int, plen: tuple, olen: tuple) -> list:
     return out
 
 
-def phase_cpu_parity() -> None:
+def _parity(cfg, seed: int, label: str) -> tuple:
+    """The port on the card against the port on the CPU for *cfg* (fp32):
+    2 x 32 greedy tokens equal, forward logits within 1e-3, then a serve of
+    6 requests on 2 slots whose streams equal ``generate``. Returns the
+    weights ``(on the CPU, on the card)``."""
     import torch
     from dpu_operator_tpu_torch.workloads.decode import generate
-    from dpu_operator_tpu_torch.workloads.model import (
-        TransformerConfig, forward, init_params)
-    cfg = TransformerConfig(vocab=512, d_model=256, n_heads=4, n_layers=2,
-                            d_ff=512, max_seq=128, dtype=torch.float32)
-    p_cpu = init_params(7, cfg, device="cpu")
+    from dpu_operator_tpu_torch.workloads.model import forward, init_params
+    p_cpu = init_params(seed, cfg, device="cpu")
     p_gpu = {k: (v.cuda() if torch.is_tensor(v)
                  else [{n: t.cuda() for n, t in lp.items()} for lp in v])
              for k, v in p_cpu.items()}
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))
     s_cpu = generate(p_cpu, cfg, prompt, 32, device="cpu")
     s_gpu = generate(p_gpu, cfg, prompt, 32, device="cuda").cpu()
     require(torch.equal(s_cpu, s_gpu),
-            f"fp32 greedy streams differ card vs CPU:\n{s_cpu}\n{s_gpu}")
+            f"{label}: greedy streams differ card vs CPU:\n{s_cpu}\n{s_gpu}")
     l_cpu = forward(p_cpu, prompt, cfg)
     l_gpu = forward(p_gpu, prompt, cfg).cpu()
     err = float((l_cpu - l_gpu).abs().max())
-    log(f"[parity] tiny fp32: 2x32 greedy tokens equal card vs CPU; "
+    log(f"[parity] {label}: 2x32 greedy tokens equal card vs CPU; "
         f"forward logits max |diff| {err:.3g} (tol 1e-3)")
-    require(err <= 1e-3, f"fp32 logits card vs CPU differ by {err}")
+    require(err <= 1e-3, f"{label}: logits card vs CPU differ by {err}")
     reqs = _requests(rng, 6, cfg.vocab, (5, 60), (4, 24))
     sched, ex = _serve(p_gpu, cfg, reqs, slots=2, chunk=16, device="cuda")
-    require(len(sched.completed) == len(reqs), "tiny serve incomplete")
+    require(len(sched.completed) == len(reqs), f"{label} serve incomplete")
     for r in reqs:
         want = generate(p_gpu, cfg, torch.tensor([r.prompt]), r.output_len,
                         device="cuda")[0].tolist()
-        require(r.tokens == want, f"tiny fp32 serve {r.rid}: stream "
+        require(r.tokens == want, f"{label} serve {r.rid}: stream "
                 f"{r.tokens} != generate {want}")
-    require(sched.pool.outstanding() == 0, "tiny serve leaked KV blocks")
-    _require_fault_free("tiny fp32 serve", sched)
-    log(f"[parity] tiny fp32 serve on the card: {len(reqs)} requests on 2 "
+    require(sched.pool.outstanding() == 0, f"{label} serve leaked KV blocks")
+    _require_fault_free(f"{label} serve", sched)
+    log(f"[parity] {label} serve on the card: {len(reqs)} requests on 2 "
         "slots, chunk 16, every stream equals generate")
+    return p_cpu, p_gpu
+
+
+#: the default config's bf16 forward, card against CPU: the largest
+#: scaled error of the logits (:func:`scaled_err`). Each side rounds every
+#: activation to bf16 and sums in its own order; the CPU's bf16 logits lie
+#: 2.5e-2 (scaled) from its fp32 logits at this config and seed, so two
+#: bf16 runs may lie up to twice that apart
+DEFAULT_BF16_LOGIT_TOL = 5e-2
+
+
+def _pad_copy_log(cfg) -> None:
+    """What the head-dim pad costs at the default config: the decode call
+    over a 2-slot fp32 cache row of head dim 16 (padded to 32 on every
+    call), and the pad copies of q, k, v alone, each under graph replay. A
+    measurement, not a check."""
+    import torch
+    from dpu_operator_tpu_torch.ops import attention_fwd
+    from dpu_operator_tpu_torch.ops.flash_attention import (_pad_dim,
+                                                            _padded_dim)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    h, d = cfg.n_heads, cfg.d_head
+    q = torch.randn((2, 1, h, d), generator=gen, device="cuda")
+    ck, cv = (torch.randn((2, cfg.max_seq, h, d), generator=gen,
+                          device="cuda") for _ in range(2))
+    pos = torch.tensor([60, cfg.max_seq - 1], dtype=torch.int32,
+                       device="cuda")
+    dp = _padded_dim("decode", d)
+    pad_ms = graph_ms(lambda: _pad_dim(dp, q, ck, cv))
+    call_ms = graph_ms(lambda: attention_fwd(q, ck, cv, pos))
+    log(f"[parity] the head-dim pad at the default config: decode over a "
+        f"2x{cfg.max_seq}x{h}x{d} fp32 cache, {call_ms * 1e3:.2f} us a call "
+        f"under graph replay, of which the copies of q, k, v padded to "
+        f"{dp} columns take {pad_ms * 1e3:.2f} us")
+
+
+def _default_config_parity() -> None:
+    """The port's default ``TransformerConfig()`` (d_model 128 over 8
+    heads: head dim 16, which every kernel takes zero-padded to its
+    route's head dim) on the card: in fp32 :func:`_parity` and one train
+    step matching the CPU's; in bf16 (its own dtype) forward logits close to
+    the CPU's."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts
+    from dpu_operator_tpu_torch.workloads.model import (
+        TransformerConfig, forward, init_params)
+    base = TransformerConfig()
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    before = launch_counts()
+    p_cpu, _ = _parity(cfg, 9, f"default config fp32 (head dim "
+                       f"{cfg.d_head})")
+    _train_parity(cfg, p_cpu)
+    moved = {n: c - before[n] for n, c in launch_counts().items()
+             if c != before[n]}
+    log(f"[parity] default config fp32 launches: {moved}")
+    for name in ("attention_fwd_tf32", "attention_fwd_decode",
+                 "attention_fwd_lse_tf32", "attention_bwd_dq",
+                 "attention_bwd_dkv_tf32"):
+        require(moved.get(name, 0) > 0, f"default config fp32: {name} "
+                "never launched")
+    _pad_copy_log(cfg)
+    p16 = init_params(9, base, device="cpu")
+    p16_gpu = {k: (v.cuda() if torch.is_tensor(v)
+                   else [{n: t.cuda() for n, t in lp.items()} for lp in v])
+               for k, v in p16.items()}
+    prompt = torch.from_numpy(np.random.default_rng(9).integers(
+        0, base.vocab, (2, 40)))
+    l_cpu = forward(p16, prompt, base)
+    l_gpu = forward(p16_gpu, prompt, base).cpu()
+    max_abs, err = scaled_err(l_gpu, l_cpu)
+    log(f"[parity] default config bf16 (head dim {base.d_head}): forward "
+        f"logits card vs CPU max |diff| {max_abs:.3g}, scaled {err:.3g} (tol "
+        f"{DEFAULT_BF16_LOGIT_TOL})")
+    require(err <= DEFAULT_BF16_LOGIT_TOL, f"default config bf16 logits "
+            f"card vs CPU: scaled error {err:.3g}")
+
+
+def phase_cpu_parity() -> None:
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import TransformerConfig
+    cfg = TransformerConfig(vocab=512, d_model=256, n_heads=4, n_layers=2,
+                            d_ff=512, max_seq=128, dtype=torch.float32)
+    p_cpu, p_gpu = _parity(cfg, 7, "tiny fp32")
     _spec_preempt_parity(p_gpu, cfg)
     _spec_kv8_parity(p_gpu, cfg)
     _train_parity(cfg, p_cpu)
+    _default_config_parity()
 
 
 class OracleDrafter:
@@ -2004,7 +2177,7 @@ def phase_measure(cfg) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2017,6 +2190,10 @@ def main() -> int:
     t_start = time.monotonic()
     dev = phase_device()
     phase_build()
+    if argv[:1] == ["--time-train"]:
+        b, s, h, d = (int(x) for x in argv[1:5])
+        time_train(b, s, h, d, argv[5])
+        return 0
     cfg = flagship_config()
     cases = phase_kernels(cfg)
     phase_cpu_parity()
@@ -2062,4 +2239,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

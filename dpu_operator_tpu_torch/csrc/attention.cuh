@@ -35,8 +35,9 @@ struct KvScales {
   long long vs_sb, vs_ss, vs_sh;
 };
 
-// The tiled CUDA-core kernels: one block per (query tile of kBQ rows, head,
-// batch), key tiles of kBK staged in shared memory as fp32.
+// The tiled CUDA-core KV8 kernel (attention_kv8.cu): one block per (query
+// tile of kBQ rows, head, batch), key tiles of kBK staged in shared memory as
+// fp32.
 constexpr int kBQ = 32;      // query rows per block
 constexpr int kBK = 64;      // keys per shared-memory tile
 constexpr int kWarps = 4;    // 128 threads

@@ -21,27 +21,23 @@
 // (B, H, S) fp32 contiguous; dq, dk, dv written through one set of output
 // strides. Ragged S is masked in the kernels (no divisibility rule).
 //
-// On the CUDA cores (fp32, and bf16 at D 32):
-// * dq: one block per (query tile of 32 rows, head, batch), 4 warps of 8
-//   rows; walks 64-key tiles up to the tile's last row (causal), each lane
-//   two keys for the scores and D / 32 columns of dq.
-// * dkv: one block per (key tile of 64 keys, head, batch), 8 warps of 8 keys
-//   (the 64 x D fp32 dk and dv accumulators spread over 256 threads: 64
-//   registers a thread at D = 128); walks 64-query tiles from the causal
-//   diagonal, each lane two queries for the scores and D / 32 columns of dk
-//   and dv.
-//
-// * dq and dkv on the tensor cores (bf16 at D 64 / 128; the wrapper's
-//   route 2): attn_bwd_dq_tc_kernel and attn_bwd_dkv_tc_kernel, below; fp32
-//   and D 32 keep the two kernels above.
+// Routes (the wrapper pads the head dim up to the route's next compiled D
+// and passes the true D's scales):
+// * dq in fp32 on the CUDA cores (route 0, D 32 / 64 / 128): one block per
+//   (query tile of 32 rows, head, batch), 4 warps of 8 rows; walks 64-key
+//   tiles up to the tile's last row (causal), each lane two keys for the
+//   scores and D / 32 columns of dq.
+// * dkv in fp32 on the tensor cores (route 3, D 32 / 64 / 128):
+//   attn_bwd_dkv_tf32_kernel, 3xTF32 on mma.sync, below.
+// * dq and dkv in bf16 on the tensor cores (route 2, D 64 / 128):
+//   attn_bwd_dq_tc_kernel and attn_bwd_dkv_tc_kernel, below.
 //
 // Bound on the card: operations (dq: 6, dkv: 8 multiply-adds x 2 per
-// admitted (row, key) pair and head dimension). The CUDA-core kernels
-// compute on the fp32 CUDA cores; all kernels need more than 48 KB of shared
-// memory (set per kernel at first launch).
-#include <type_traits>
-
+// admitted (row, key) pair and head dimension). All kernels but the 3xTF32
+// one at small D need more than 48 KB of shared memory (set per kernel at
+// first launch).
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -175,126 +171,210 @@ attn_bwd_dq_kernel(BwdArgs a) {
   }
 }
 
-// ------------------------------------------------------------------ dkv --
-constexpr int kKBK = 64;                // keys per block
-constexpr int kKBQ = 64;                // queries per tile
-constexpr int kKWarps = 8;              // 256 threads
-constexpr int kKKPW = kKBK / kKWarps;   // keys per warp
+// ----------------------------------------------------- dkv, fp32: 3xTF32 --
+// attn_bwd_dkv_tf32_kernel: dK and dV in fp32 on the tensor cores; replaces
+// the CUDA-core dK/dV kernel (5.2x its bound at 1 x 1024 x 12 x 128, slower
+// than SDPA's whole backward). Bound: operations, 8 * admitted pairs * D, in
+// three TF32 products each (495 / 3 TFLOP/s on the H100's tensor cores).
+//
+// Design. One block per (key tile of 16 NW keys, head, batch) and 2 NW
+// warps: warp w owns keys 16 (w % NW) .. + 15 (one m16 row block of mma.sync
+// m16n8k8) for the query tiles of parity w / NW, so a key tile's walk over
+// the queries (all of them for key tile 0) takes two warps, not one; each
+// keeps its keys' dK and dV in fp32 registers (D / 2 a thread each), and the
+// odd half adds its sums to the even half's through shared memory at the
+// end (one fixed order). K and V are staged once; 16-row tiles of Q and dO,
+// with their lse and delta, are staged two at a time (one for each half) by
+// cp.async into two buffers from the tile of the block's first key
+// (causal), so tiles i + 2, i + 3 load while tiles i, i + 1 are multiplied.
+// Every tile stays fp32 in shared memory (rows of D + 4 floats) and each warp
+// splits the fragments it loads into TF32 hi / lo parts once per tile
+// (tf32.cuh). Per query tile a warp takes
+//   S^T = K Q^T and dP^T = V dO^T: both operands D-contiguous as staged,
+//   each in two accumulator chains (the small terms, the large one);
+//   P^T = exp2(S^T scale2 - lse * log2 e), exactly 0 where masked, and
+//   dS^T = P^T (dP^T - delta) sm_scale, in registers (fp32: no rounding);
+//   dV += P^T dO and dK += dS^T Q: P^T and dS^T from the accumulators as the
+//   A operand, dO and Q read with their rows as the permuted k index
+//   (tf32.cuh), over D / 8 output fragments.
+// No atomics: each dK / dV element is summed by two warps, query tile by
+// query tile in order, and the two sums added once in a fixed order, so
+// gradients are the same from run to run. The wrapper takes 32-key blocks
+// (NW = 2) when 64-key blocks would not give every SM one.
+constexpr int kDBQ = 16;  // queries per staged tile
 
-template <int D>
-struct DkvSmem {
-  static constexpr size_t kRow = static_cast<size_t>(D + 4);
-  static constexpr size_t kKV = kKBK * kRow;      // K, then V
-  static constexpr size_t kQ = kKBQ * kRow;       // Q, then dO
-  static constexpr size_t kP = static_cast<size_t>(kKWarps) * kKKPW * kKBQ;  // P, then dS
-  static constexpr size_t kStat = kKBQ;           // lse * log2 e, then delta
-  static constexpr size_t kBytes =
-      (2 * kKV + 2 * kQ + 2 * kP + 2 * kStat) * sizeof(float);
+template <int D, int NW>
+struct Tf32DkvSmem {
+  static constexpr int kLd = D + 4;  // floats a staged row
+  static constexpr size_t kKV = static_cast<size_t>(16 * NW) * kLd;   // K (V alike)
+  // one query tile: Q rows, dO rows, then its lse and delta (kDBQ each)
+  static constexpr size_t kTile = 2 * static_cast<size_t>(kDBQ) * kLd + 2 * kDBQ;
+  // two buffers of two tiles (the even and the odd half's)
+  static constexpr size_t kStages = 4 * kTile;
+  static constexpr size_t kBytes = (2 * kKV + kStages) * sizeof(float);
+  // the odd half's dK and dV sums at the end, in the stages' place
+  static_assert(2 * (D / 2) * 32 * NW <= kStages, "reduction space");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kKWarps * 32)
-attn_bwd_dkv_kernel(BwdArgs a) {
-  constexpr int NT = kKWarps * 32;
-  constexpr int DPL = D / 32;
-  constexpr int S = D + 4;
+template <int D, int NW>
+__global__ void __launch_bounds__(2 * NW * 32)
+attn_bwd_dkv_tf32_kernel(BwdArgs a) {
+  using L = Tf32DkvSmem<D, NW>;
+  constexpr int NT = 2 * NW * 32, LD = L::kLd, BK = 16 * NW, NN = D / 8;
   extern __shared__ float4 smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + DkvSmem<D>::kKV;
-  float* Qs = Vs + DkvSmem<D>::kKV;
-  float* DOs = Qs + DkvSmem<D>::kQ;
-  float* Ps = DOs + DkvSmem<D>::kQ;
-  float* DSs = Ps + DkvSmem<D>::kP;
-  float* L2s = DSs + DkvSmem<D>::kP;
-  float* DLs = L2s + DkvSmem<D>::kStat;
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + L::kKV;
+  float* stg = vs + L::kKV;
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = tile * kKBK;
-  const int nkeys = min(kKBK, a.S - k0);
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh + k0 * a.k_ss;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh + k0 * a.v_ss;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh;
-  port::stage_rows<T, D, NT>(Ks, k, a.k_ss, kKBK, nkeys);
-  port::stage_rows<T, D, NT>(Vs, v, a.v_ss, kKBK, nkeys);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BK;
+  const int nkeys = min(BK, a.S - k0);
+  const int nqt = (a.S + kDBQ - 1) / kDBQ;
+  // query tiles before the block's first key contribute nothing
+  const int qt0 = a.causal ? k0 / kDBQ : 0;
+  const int npairs = (nqt - qt0 + 1) / 2;
   const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.S;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* dout = static_cast<const float*>(a.dout) + b * a.d_sb + h * a.d_sh;
 
-  float dk[kKKPW][DPL], dv[kKKPW][DPL];
-#pragma unroll
-  for (int r = 0; r < kKKPW; ++r)
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) dk[r][c] = dv[r][c] = 0.f;
-  const float* kw = Ks + warp * kKKPW * S;
-  const float* vw = Vs + warp * kKKPW * S;
-  float* pw = Ps + warp * kKKPW * kKBQ;
-  float* dsw = DSs + warp * kKKPW * kKBQ;
-
-  const int nqt = (a.S + kKBQ - 1) / kKBQ;
-  // query tiles before the key tile's first key contribute nothing
-  const int qt0 = a.causal ? k0 / kKBQ : 0;
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int i0 = qt * kKBQ;
-    const int qvalid = min(kKBQ, a.S - i0);
-    __syncthreads();  // previous tile fully consumed
-    port::stage_rows<T, D, NT>(Qs, q + i0 * a.q_ss, a.q_ss, kKBQ, qvalid);
-    port::stage_rows<T, D, NT>(DOs, dout + i0 * a.d_ss, a.d_ss, kKBQ, qvalid);
-    if (threadIdx.x < kKBQ) {
-      const int i = threadIdx.x;
-      L2s[i] = i < qvalid ? a.lse[stat0 + i0 + i] * kLog2e : 0.f;
-      DLs[i] = i < qvalid ? a.delta[stat0 + i0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed scores: this warp's keys against queries lane and lane + 32
-    float s[kKKPW][2], dp[kKKPW][2];
-#pragma unroll
-    for (int r = 0; r < kKKPW; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    port::dot_rows2<kKKPW, D>(s, kw, Qs + lane * S, Qs + (lane + 32) * S);
-    port::dot_rows2<kKKPW, D>(dp, vw, DOs + lane * S, DOs + (lane + 32) * S);
-#pragma unroll
-    for (int r = 0; r < kKKPW; ++r) {
-      const int key = k0 + warp * kKKPW + r;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int il = lane + 32 * t;
-        const int i = i0 + il;
-        const bool ok = key < a.S && i < a.S && !(a.causal && key > i);
-        const float p = ok ? exp2f(s[r][t] * a.scale2 - L2s[il]) : 0.f;
-        // P enters the dV product in dO's type, dS the dK product in q's
-        pw[r * kKBQ + il] = port::round_to<T>(p);
-        dsw[r * kKBQ + il] = port::round_to<T>(p * (dp[r][t] - DLs[il]) * a.sm_scale);
+  // the query tiles of pair i (qt0 + 2 i and + 1) into buffer i % 2
+  auto stage = [&](int i) {
+    for (int half = 0; half < 2; ++half) {
+      const int qt = qt0 + 2 * i + half;
+      if (qt >= nqt) break;
+      float* st = stg + ((i & 1) * 2 + half) * L::kTile;
+      const int i0 = qt * kDBQ, valid = min(kDBQ, a.S - i0);
+      tf32::stage_rows<D, NT>(st, q + i0 * a.q_ss, a.q_ss, kDBQ, valid);
+      tf32::stage_rows<D, NT>(st + kDBQ * LD, dout + i0 * a.d_ss, a.d_ss, kDBQ, valid);
+      if (threadIdx.x < 2 * kDBQ) {
+        const int r = threadIdx.x & (kDBQ - 1);
+        const float* src = (threadIdx.x < kDBQ ? a.lse : a.delta) + stat0 + i0;
+        tf32::cp_async4(st + 2 * kDBQ * LD + threadIdx.x, src + (r < valid ? r : 0),
+                        r < valid);
       }
     }
-    __syncwarp();
-    for (int i = 0; i < qvalid; ++i) {
-      float dov[DPL], qv[DPL];
-      port::load_cols<DPL>(dov, DOs + i * S + lane * DPL);
-      port::load_cols<DPL>(qv, Qs + i * S + lane * DPL);
+  };
+  tf32::stage_rows<D, NT>(ks, static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh +
+                                  k0 * a.k_ss, a.k_ss, BK, nkeys);
+  tf32::stage_rows<D, NT>(vs, static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh +
+                                  k0 * a.v_ss, a.v_ss, BK, nkeys);
+  stage(0);
+  tf32::cp_commit();  // K, V and the first pair
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = warp % NW, half = warp / NW;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = k0 + 16 * kg;  // the warp's first key
+  // query tiles before the warp's first key contribute nothing
+  const int qt_w = a.causal ? kw / kDBQ : 0;
+  // this thread's keys kw + g and kw + g + 8, and its queries 8 j + 2 t (+ 1)
+  // of the tile (the accumulator map)
+  const int key[2] = {kw + g, kw + g + 8};
+  const float* kws = ks + 16 * kg * LD;
+  const float* vws = vs + 16 * kg * LD;
+
+  float dk[NN][4], dv[NN][4];
 #pragma unroll
-      for (int r = 0; r < kKKPW; ++r) {
-        const float p = pw[r * kKBQ + i];
-        const float ds = dsw[r * kKBQ + i];
+  for (int n = 0; n < NN; ++n)
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          dv[r][c] = fmaf(p, dov[c], dv[r][c]);
-          dk[r][c] = fmaf(ds, qv[c], dk[r][c]);
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int i = 0; i < npairs; ++i) {
+    if (i + 1 < npairs) stage(i + 1);
+    tf32::cp_commit();
+    tf32::cp_wait<1>();  // pair i (and K / V) landed for this thread ...
+    __syncthreads();     // ... and for every thread
+    const int qt = qt0 + 2 * i + half;
+    if (kw < a.S && qt >= qt_w && qt < nqt) {
+      const float* qs = stg + ((i & 1) * 2 + half) * L::kTile;
+      const float* dos = qs + kDBQ * LD;
+      const float* l2s = qs + 2 * kDBQ * LD;
+      const float* dls = l2s + kDBQ;
+      // S^T (keys x queries) and dP^T, 8 queries a fragment
+      float st[2][4], dp[2][4];
+      {
+        float sb[2][4], ss[2][4], pb[2][4], pss[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = pb[j][e] = pss[j][e] = 0.f;
+#pragma unroll 2
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const tf32::Frag<4> fk = tf32::load_a(kws + 8 * kk, LD, g, t);
+          const tf32::Frag<4> fv = tf32::load_a(vws + 8 * kk, LD, g, t);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            tf32::mma3_split(sb[j], ss[j], fk,
+                             tf32::load_b_nrow(qs + 8 * j * LD + 8 * kk, LD, g, t));
+            tf32::mma3_split(pb[j], pss[j], fv,
+                             tf32::load_b_nrow(dos + 8 * j * LD + 8 * kk, LD, g, t));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            st[j][e] = sb[j][e] + ss[j][e];
+            dp[j][e] = pb[j][e] + pss[j][e];
+          }
+      }
+      // P^T and dS^T in place of S^T and dP^T
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * t + (e & 1);  // query within the tile
+          const int qa = qt * kDBQ + qi;
+          const int kr = key[e >> 1];
+          const bool ok = kr < a.S && qa < a.S && !(a.causal && kr > qa);
+          const float p = ok ? exp2f(st[j][e] * a.scale2 - l2s[qi] * kLog2e) : 0.f;
+          st[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dls[qi]) * a.sm_scale;
+        }
+      // dV += P^T dO and dK += dS^T Q, queries 8 j .. 8 j + 7 a k-step
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const tf32::Frag<4> fp = tf32::acc_to_a(st[j]);
+        const tf32::Frag<4> fs = tf32::acc_to_a(dp[j]);
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          tf32::mma3(dv[n], fp, tf32::load_b_krow(dos + 8 * j * LD + 8 * n, LD, g, t));
+          tf32::mma3(dk[n], fs, tf32::load_b_krow(qs + 8 * j * LD + 8 * n, LD, g, t));
         }
       }
     }
+    __syncthreads();  // every warp is done with this buffer before it refills
   }
+  tf32::cp_wait<0>();
+  __syncthreads();  // the stages are free: the odd half's sums go there
 
+  float* red = stg + kg * 2 * (D / 2) * 32;  // [dK, dV][D / 2][32 lanes]
+  if (half == 1) {
 #pragma unroll
-  for (int r = 0; r < kKKPW; ++r) {
-    const int lk = warp * kKKPW + r;
-    if (lk >= nkeys) continue;
-    const long long off = b * a.g_sb + h * a.g_sh + (k0 + lk) * a.g_ss + lane * DPL;
-    T* gk = static_cast<T*>(a.dk) + off;
-    T* gv = static_cast<T*>(a.dv) + off;
+    for (int n = 0; n < NN; ++n)
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      gk[c] = port::from_f<T>(dk[r][c]);
-      gv[c] = port::from_f<T>(dv[r][c]);
+      for (int e = 0; e < 4; ++e) {
+        red[(4 * n + e) * 32 + lane] = dk[n][e];
+        red[((D / 2) + 4 * n + e) * 32 + lane] = dv[n][e];
+      }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= a.S) continue;
+    const long long off = b * a.g_sb + h * a.g_sh +
+                          static_cast<long long>(key[r]) * a.g_ss + 2 * t;
+    float* gk = static_cast<float*>(a.dk) + off;
+    float* gv = static_cast<float*>(a.dv) + off;
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const int e0 = 4 * n + 2 * r;
+      *reinterpret_cast<float2*>(gk + 8 * n) =
+          make_float2(dk[n][2 * r] + red[e0 * 32 + lane], dk[n][2 * r + 1] + red[(e0 + 1) * 32 + lane]);
+      *reinterpret_cast<float2*>(gv + 8 * n) =
+          make_float2(dv[n][2 * r] + red[((D / 2) + e0) * 32 + lane],
+                      dv[n][2 * r + 1] + red[((D / 2) + e0 + 1) * 32 + lane]);
     }
   }
 }
@@ -579,6 +659,7 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // which lowers its limit to kProducerRegs so that the consumers can raise
 // theirs to kConsumerRegs; only its first warp works. With one consumer
 // warpgroup the block is 160 threads and needs no split.
+constexpr int kKBQ = 64;  // queries per tile
 constexpr int kDkvStages = 2;
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 template <int NWG>
@@ -817,33 +898,41 @@ bool encode_maps(const BwdArgs& a, int d, CUtensorMap* tq, CUtensorMap* tk,
          tc::encode_bshd(tdo, a.dout, a.B, a.S, a.H, d, a.d_sb, a.d_ss, a.d_sh);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
-    return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
-  } else {
-    constexpr size_t smem = DqSmem<D>::kBytes;
-    static bool configured = false;
-    const cudaError_t e = allow_smem(attn_bwd_dq_kernel<T, D>, smem, configured);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((a.S + kQBQ - 1) / kQBQ, a.H, a.B);
-    attn_bwd_dq_kernel<T, D><<<grid, kQWarps * 32, smem, stream>>>(a);
-    return cudaGetLastError();
-  }
+  constexpr size_t smem = DqSmem<D>::kBytes;
+  static bool configured = false;
+  const cudaError_t e = allow_smem(attn_bwd_dq_kernel<float, D>, smem, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.S + kQBQ - 1) / kQBQ, a.H, a.B);
+  attn_bwd_dq_kernel<float, D><<<grid, kQWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
-    return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
-  } else {
-    constexpr size_t smem = DkvSmem<D>::kBytes;
-    static bool configured = false;
-    const cudaError_t e = allow_smem(attn_bwd_dkv_kernel<T, D>, smem, configured);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((a.S + kKBK - 1) / kKBK, a.H, a.B);
-    attn_bwd_dkv_kernel<T, D><<<grid, kKWarps * 32, smem, stream>>>(a);
-    return cudaGetLastError();
+template <int D, int NW>
+cudaError_t launch_dkv_tf32(const BwdArgs& a, cudaStream_t stream) {
+  using L = Tf32DkvSmem<D, NW>;
+  static bool configured = false;
+  const cudaError_t e = allow_smem(attn_bwd_dkv_tf32_kernel<D, NW>, L::kBytes, configured);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.S + 16 * NW - 1) / (16 * NW), a.H, a.B);
+  attn_bwd_dkv_tf32_kernel<D, NW><<<grid, 2 * NW * 32, L::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32_keys(const BwdArgs& a, int tile_keys, cudaStream_t s) {
+  if (tile_keys == 64) return launch_dkv_tf32<D, 4>(a, s);
+  if (tile_keys == 32) return launch_dkv_tf32<D, 2>(a, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_dkv_tf32_d(const BwdArgs& a, int d, int tile_keys, cudaStream_t s) {
+  switch (d) {
+    case 32: return launch_dkv_tf32_keys<32>(a, tile_keys, s);
+    case 64: return launch_dkv_tf32_keys<64>(a, tile_keys, s);
+    case 128: return launch_dkv_tf32_keys<128>(a, tile_keys, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -905,17 +994,16 @@ cudaError_t launch_tc_d(const BwdArgs& a, int d, int tile_rows, bool dkv,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t launch_t(const BwdArgs& a, int d, bool dkv, cudaStream_t s) {
+cudaError_t launch_dq_d(const BwdArgs& a, int d, cudaStream_t s) {
   switch (d) {
-    case 32: return dkv ? launch_dkv<T, 32>(a, s) : launch_dq<T, 32>(a, s);
-    case 64: return dkv ? launch_dkv<T, 64>(a, s) : launch_dq<T, 64>(a, s);
-    case 128: return dkv ? launch_dkv<T, 128>(a, s) : launch_dq<T, 128>(a, s);
+    case 32: return launch_dq<32>(a, s);
+    case 64: return launch_dq<64>(a, s);
+    case 128: return launch_dq<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-constexpr int kRouteSimt = 0, kRouteTc = 2;
+constexpr int kRouteSimt = 0, kRouteTc = 2, kRouteTf32 = 3;
 
 int run(const BwdArgs& a, int d, int dtype, bool dkv, int route, int tile_rows,
         void* stream) {
@@ -926,10 +1014,10 @@ int run(const BwdArgs& a, int d, int dtype, bool dkv, int route, int tile_rows,
     if (dtype != port::kDtypeBF16) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_tc_d(a, d, tile_rows, dkv, s));
   }
-  if (route != kRouteSimt) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == port::kDtypeF32) return static_cast<int>(launch_t<float>(a, d, dkv, s));
-  if (dtype == port::kDtypeBF16)
-    return static_cast<int>(launch_t<__nv_bfloat16>(a, d, dkv, s));
+  if (dtype != port::kDtypeF32) return static_cast<int>(cudaErrorInvalidValue);
+  if (route == kRouteSimt && !dkv) return static_cast<int>(launch_dq_d(a, d, s));
+  if (route == kRouteTf32 && dkv)
+    return static_cast<int>(launch_dkv_tf32_d(a, d, tile_rows, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -942,9 +1030,9 @@ extern "C" {
 // contiguous; dq (and dk, dv) written with strides g_*. D in {32, 64, 128};
 // every pointer 16-byte aligned and every stride a multiple of 16 bytes (the
 // wrapper checks). dtype: 0 fp32, 1 bf16. Each returns cudaGetLastError().
-// route: 0 the CUDA-core kernel (fp32, and bf16 at D 32), 2 the tensor
-// cores (bf16, D 64 or 128) with tile_rows 64 or 128 query rows (dq) or keys
-// (dkv) a block.
+// route: 0 the CUDA-core dq kernel (fp32), 2 the tensor cores (bf16, D 64
+// or 128) with tile_rows 64 or 128 query rows (dq) or keys (dkv) a block, 3
+// the 3xTF32 dkv kernel (fp32) with tile_rows 32 or 64 keys a block.
 int attention_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int S, int H, int D,

@@ -20,143 +20,343 @@
 // k / v are read through their strides, so one slot's row of the
 // (slots, max_seq, H, D) cache is attended with no transpose copy.
 //
-// Three routes; the wrapper picks one:
-// * tensor cores (route 2: bf16 at D 64 or 128, Sq > 1 or with the lse):
+// Three routes; the wrapper picks one (and pads the head dim up to the
+// route's next compiled D, scaling by the true D's 1 / sqrt(D)):
+// * tensor cores in bf16 (route 2: Sq > 1 or with the lse, D 64 or 128):
 //   attn_fwd_tc_kernel, below.
-// * tiled on the CUDA cores (route 0: fp32, and bf16 at D 32): one block per
-//   (query tile of 32 rows, head, batch).
-//   K/V tiles of 64 keys are staged in shared memory as fp32; each warp owns
-//   8 query rows and each lane two keys of a tile. Key blocks past the
-//   tile's last admitted position are never visited; key positions are
-//   anchored at absolute key 0 and a row's arithmetic does not depend on the
-//   other rows of its tile (a block that is fully masked for a row adds exact
-//   zeros), so chunked prefill reproduces whole-prompt prefill row for row.
+// * tensor cores in fp32 (route 3: Sq > 1 or with the lse, D 32, 64 or
+//   128): attn_fwd_tf32_kernel, 3xTF32 on mma.sync, below.
 // * decode (Sq == 1 without the lse; its own entry point, attention_decode):
 //   attn_decode_split_kernel splits each row's keys into fixed chunks across
 //   blocks, attn_decode_combine_kernel folds the chunks' partials; below.
+// In every route key positions are anchored at absolute key 0 and a row's
+// arithmetic does not depend on the other rows of its tile (a block that is
+// fully masked for a row adds exact zeros), so chunked prefill reproduces
+// whole-prompt prefill row for row.
 //
 // Bound on the card: at decode, bytes (each admitted K/V row read once); at
-// prefill, operations (4 * admitted pairs * D). The tiled and decode kernels
-// compute on the fp32 CUDA cores; bf16 at D 64 / 128 takes the tensor cores.
+// prefill, operations (4 * admitted pairs * D): bf16 on the tensor cores,
+// fp32 in three TF32 products on them; the decode kernels compute on the
+// fp32 CUDA cores.
 //
 // The attention over the int8 KV cache (KV8) is attention_kv8.cu.
-#include <type_traits>
-
 #include "attention.cuh"
 #include "common.cuh"
+#include "tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_tiled_kernel(AttnArgs a) {
-  constexpr int NT = kWarps * 32;
-  constexpr int DPL = D / 32;  // output columns per lane
-  constexpr int S = D + 4;
-  extern __shared__ float4 smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + TiledSmem<D>::kQ;
-  float* Vs = Ks + TiledSmem<D>::kK;
-  float* Ps = Vs + TiledSmem<D>::kV;
+// ---------------------------------------------------------- fp32: 3xTF32 --
+// attn_fwd_tf32_kernel: the fp32 forward (with or without the lse) on the
+// tensor cores, in TF32 wgmma; replaces the tiled CUDA-core kernel
+// (attn_tiled_kernel, 4.5-11x its bound at the fp32 prefill and training
+// shapes, 2.2-2.4x SDPA). Bound: operations, 4 * admitted pairs * D, in three
+// TF32 products each (495 / 3 TFLOP/s on the H100's tensor cores).
+//
+// Design. One block, one warpgroup, per (query tile of 64 rows, head,
+// batch), heaviest tiles first. Every fp32 operand x enters as two TF32
+// parts, hi = tf32(x) and lo = tf32(x - hi) (tf32.cuh), and each product
+// A B as A_lo B_hi + A_hi B_lo + A_hi B_hi, the small terms first, in fp32
+// accumulators. The block splits Q once, and each K / V tile once, into hi
+// and lo tiles in shared memory in the 128-byte swizzle wgmma reads
+// (32 floats a row: a k8 step is 32 bytes, as a bf16 k16 step), so the
+// split costs each element a few instructions once a block rather than once
+// a warp (a first design on mma.sync, in which every warp split each
+// fragment it loaded, issued far more split instructions than products).
+// Per key tile the warpgroup takes
+//   S = Q K^T: 3 D / 8 TF32 wgmma m64n32k8, A (Q) and B (K) K-major from
+//   shared memory;
+//   in registers: S scaled into the exp2 domain, the mask on the tiles that
+//   cross the diagonal or the ragged edge only (the n_full / nkb split), the
+//   online max and sum over the four lanes of a quad (they share a row); P
+//   stays fp32 (the input type: no rounding) and is split into hi / lo
+//   register A operands;
+//   O += P V: 12 TF32 wgmma m64nDk8 with P from registers. wgmma takes a
+//   TF32 B only K-major, so the split writes V transposed (V^T: D rows of
+//   kFBK keys), and it writes the keys of each group of 8 in the order the
+//   accumulator holds P (a thread's A slot t holds key 2t, slot t + 4 key
+//   2t + 1), so P goes from accumulator to A operand with no shuffle.
+// Pipeline: the split tiles live in two sets. While the tensor cores run
+// S(kb) on one set, the threads split tile kb + 1 (landed by cp.async in
+// the raw buffer) into the other; then the softmax of kb, then O(kb) and
+// S(kb + 1) are issued back to back. A set is rewritten only after the O
+// product that read it has completed (wgmma groups complete in order).
+// Key tiles stay anchored at key 0 and a row's arithmetic involves no other
+// row, so chunked prefill equals whole prefill bit for bit. Shared memory at
+// D 128: Q 64 KB, two sets of K and V^T 128 KB, the raw tile 32 KB (one
+// block an SM).
+constexpr int kFBK = 32;  // keys per tile
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = tile * kBQ;
-  const int nrows = min(kBQ, a.Sq - r0);
-  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
-  const int p_lo = pos0 + r0;              // first row's absolute position
-  const int p_hi = pos0 + r0 + nrows - 1;  // last row's
+template <int D>
+struct Tf32FwdSmem {
+  static constexpr uint32_t kQBlk = 64 * 128;     // 64 rows of 32 floats
+  static constexpr uint32_t kKBlk = kFBK * 128;   // kFBK rows of 32 floats
+  static constexpr uint32_t kQ = D / 32 * kQBlk;  // Q hi (lo alike)
+  static constexpr uint32_t kK = D / 32 * kKBlk;  // K hi (lo alike)
+  static constexpr uint32_t kVT = D * 128;        // V^T hi (lo alike): D rows of kFBK keys
+  static constexpr uint32_t kSet = 2 * kK + 2 * kVT;   // one split tile
+  static constexpr uint32_t kRaw = 2 * kFBK * D * 4;   // one raw fp32 K and V tile
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t kBytes = 2 * kQ + 2 * kSet + kRaw + 1024;
+};
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_ss;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  port::stage_rows<T, D, NT>(Qs, q, a.q_ss, kBQ, nrows);
+// Byte offset of the 16-byte chunk c (4 floats) of row r in a 128-byte
+// swizzled block.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
 
-  const int nkb_all = (a.Skv + kBK - 1) / kBK;
-  int nkb = nkb_all, n_full = a.Skv / kBK;
-  if (a.causal) {
-    // blocks past the tile's last admitted key contribute nothing
-    nkb = min(nkb_all, p_hi / kBK + 1);
-    // blocks wholly at or below the tile's FIRST row need no mask
-    n_full = min(n_full, (p_lo + 1) / kBK);
+// Four fp32 values split into hi / lo parts stored as two 16-byte chunks.
+__device__ __forceinline__ void split_store(uint8_t* hi, uint8_t* lo, uint32_t off,
+                                            float a, float b, float c, float d) {
+  uint4 h, l;
+  tf32::split(a, h.x, l.x);
+  tf32::split(b, h.y, l.y);
+  tf32::split(c, h.z, l.z);
+  tf32::split(d, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  *reinterpret_cast<uint4*>(lo + off) = l;
+}
+
+// The raw tile (K then V, kFBK rows of D floats each) split into a set: K
+// as it is, V transposed with each 8-key group in the accumulator's order
+// (keys 0, 2, 4, 6, then 1, 3, 5, 7).
+template <int D>
+__device__ __forceinline__ void split_tile(const float* rk, uint8_t* set) {
+  using L = Tf32FwdSmem<D>;
+  uint8_t* k_hi = set;
+  uint8_t* k_lo = k_hi + L::kK;
+  uint8_t* vt_hi = k_lo + L::kK;
+  uint8_t* vt_lo = vt_hi + L::kVT;
+  const float* rv = rk + kFBK * D;
+  for (int idx = threadIdx.x; idx < kFBK * D / 4; idx += 128) {
+    const int r = idx / (D / 4), c = idx % (D / 4);
+    const float4 x = *reinterpret_cast<const float4*>(rk + r * D + 4 * c);
+    split_store(k_hi, k_lo, (c >> 3) * L::kKBlk + swz(r, c), x.x, x.y, x.z, x.w);
   }
+  for (int idx = threadIdx.x; idx < D * (kFBK / 8); idx += 128) {
+    const int d = idx % D, grp = idx / D;
+    const float* col = rv + 8 * grp * D + d;
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = col[e * D];
+    split_store(vt_hi, vt_lo, swz(d, 2 * grp), x[0], x[2], x[4], x[6]);
+    split_store(vt_hi, vt_lo, swz(d, 2 * grp + 1), x[1], x[3], x[5], x[7]);
+  }
+}
+
+// S = Q K^T over one split set, the small terms first (not committed).
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[16], const uint8_t* q_hi,
+                                        const uint8_t* q_lo, const uint8_t* set) {
+  using L = Tf32FwdSmem<D>;
+  const uint8_t* k_hi = set;
+  const uint8_t* k_lo = k_hi + L::kK;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t oq = (kk >> 2) * L::kQBlk + (kk & 3) * 32;
+    const uint32_t ok = (kk >> 2) * L::kKBlk + (kk & 3) * 32;
+    tc::mma_tf32_ss<kFBK>(sc, tc::desc_sw128(q_lo + oq, 16, 1024),
+                          tc::desc_sw128(k_hi + ok, 16, 1024), kk > 0);
+    tc::mma_tf32_ss<kFBK>(sc, tc::desc_sw128(q_hi + oq, 16, 1024),
+                          tc::desc_sw128(k_lo + ok, 16, 1024), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t oq = (kk >> 2) * L::kQBlk + (kk & 3) * 32;
+    const uint32_t ok = (kk >> 2) * L::kKBlk + (kk & 3) * 32;
+    tc::mma_tf32_ss<kFBK>(sc, tc::desc_sw128(q_hi + oq, 16, 1024),
+                          tc::desc_sw128(k_hi + ok, 16, 1024), 1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+attn_fwd_tf32_kernel(AttnArgs a) {
+  using L = Tf32FwdSmem<D>;
+  extern __shared__ uint8_t tf_smem[];
+  uint8_t* q_hi = tc::align_1024(tf_smem);
+  uint8_t* q_lo = q_hi + L::kQ;
+  uint8_t* sets = q_lo + L::kQ;                              // [2][kSet]
+  float* raw = reinterpret_cast<float*>(sets + 2 * L::kSet);  // [K, V][kFBK][D]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * 64;  // heaviest tiles first
+  const int nrows = min(64, a.Sq - r0);
+  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
+  const int nkb_all = (a.Skv + kFBK - 1) / kFBK;
+  const int p_lo = pos0 + r0, p_hi = pos0 + r0 + nrows - 1;
+  const int nkb = a.causal ? min(nkb_all, p_hi / kFBK + 1) : nkb_all;
+  // tiles wholly at or below the block's first row need no mask
+  int n_full = a.Skv / kFBK;
+  if (a.causal) n_full = min(n_full, (p_lo + 1) / kFBK);
   n_full = min(n_full, nkb);
 
-  float m[kRPW], l[kRPW], acc[kRPW][DPL];
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  auto stage = [&](int kb) {  // raw tile kb by cp.async, one commit group
+    const int j0 = kb * kFBK, valid = min(kFBK, a.Skv - j0);
+    tf32::stage_rows<D, 128, D>(raw, k + j0 * a.k_ss, a.k_ss, kFBK, valid);
+    tf32::stage_rows<D, 128, D>(raw + kFBK * D, v + j0 * a.v_ss, a.v_ss, kFBK, valid);
+    tf32::cp_commit();
+  };
+  stage(0);
+  {  // Q once: rows past Sq as zeros
+    const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_ss;
+    for (int idx = threadIdx.x; idx < 64 * D / 4; idx += 128) {
+      const int r = idx / (D / 4), c = idx % (D / 4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nrows) x = *reinterpret_cast<const float4*>(q + r * a.q_ss + 4 * c);
+      split_store(q_hi, q_lo, (c >> 3) * L::kQBlk + swz(r, c), x.x, x.y, x.z, x.w);
+    }
   }
-  const float* qw = Qs + warp * kRPW * S;
-  float* pw = Ps + warp * kRPW * kBK;
+  tf32::cp_wait<0>();
+  __syncthreads();
+  split_tile<D>(raw, sets);
+  tc::fence_proxy_async();  // the split tiles, to the tensor cores' reads
+  __syncthreads();          // ... of every thread; the raw buffer is free
+  if (nkb > 1) stage(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this thread's rows lr and lr + 8 of the tile, and its keys 8 j + c0 (+ 1)
+  // of every key tile (the accumulator map)
+  const int lr = 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const int prow[2] = {pos0 + r0 + lr, pos0 + r0 + lr + 8};
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float sc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 0.f;
+  // P's A operands (k-step j: keys 8 j .. 8 j + 7, slot t <- key 2 t, slot
+  // t + 4 <- key 2 t + 1), read by O(kb) until the next iteration's wait
+  uint32_t ph[kFBK / 8][4], pl[kFBK / 8][4];
+#pragma unroll
+  for (int j = 0; j < kFBK / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ph[j][i] = pl[j][i] = 0u;
+
+  tc::wg_fence();
+  issue_s<D>(sc, q_hi, q_lo, sets);
+  tc::wg_commit();
 
   for (int kb = 0; kb < nkb; ++kb) {
-    const int j0 = kb * kBK;
-    const int kvalid = min(kBK, a.Skv - j0);
-    __syncthreads();  // previous tile fully consumed
-    port::stage_rows<T, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, kvalid);
-    port::stage_rows<T, D, NT>(Vs, v + j0 * a.v_ss, a.v_ss, kBK, kvalid);
-    __syncthreads();
-
-    // scores for this warp's rows against keys lane and lane + 32
-    float s[kRPW][2];
+    // in flight: O(kb - 1), then S(kb)
+    const uint8_t* cur = sets + (kb & 1) * L::kSet;
+    if (kb + 1 < nkb) {
+      tc::wg_wait<1>();  // O(kb - 1) has read the other set and P
 #pragma unroll
-    for (int r = 0; r < kRPW; ++r) s[r][0] = s[r][1] = 0.f;
-    port::dot_rows2<kRPW, D>(s, qw, Ks + lane * S, Ks + (lane + 32) * S);
-    const bool masked = kb >= n_full;  // only diagonal / ragged blocks
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      const int row_pos = pos0 + r0 + warp * kRPW + r;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = j0 + lane + 32 * t;
-        float sc = s[r][t] * a.scale2;
-        if (masked && (j >= a.Skv || (a.causal && j > row_pos))) sc = kNegInf;
-        s[r][t] = sc;
+      for (int j = 0; j < kFBK / 8; ++j) {
+        tc::fence_regs(ph[j]);
+        tc::fence_regs(pl[j]);
       }
-      const float bm = port::warp_max(fmaxf(s[r][0], s[r][1]));
-      const float m_new = fmaxf(m[r], bm);
-      const float p0 = exp2f(s[r][0] - m_new);
-      const float p1 = exp2f(s[r][1] - m_new);
-      const float corr = exp2f(m[r] - m_new);
-      l[r] = l[r] * corr + port::warp_sum(p0 + p1);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] *= corr;
-      // P enters the PV product in the input type (bf16 P on bf16 inputs)
-      pw[r * kBK + lane] = port::to_f(port::from_f<T>(p0));
-      pw[r * kBK + lane + 32] = port::to_f(port::from_f<T>(p1));
+      tf32::cp_wait<0>();  // raw tile kb + 1 landed for this thread ...
+      __syncthreads();     // ... and every thread; every warp is past O(kb - 1)
+      split_tile<D>(raw, sets + ((kb + 1) & 1) * L::kSet);
+      tc::fence_proxy_async();
+      __syncthreads();     // the set is written; the raw buffer is free
+      if (kb + 2 < nkb) stage(kb + 2);
     }
-    __syncwarp();
-    for (int j = 0; j < kvalid; ++j) {
-      float vv[DPL];
-      port::load_cols<DPL>(vv, Vs + j * S + lane * DPL);
+    tc::wg_wait<0>();  // S(kb) (and O(kb - 1))
+    tc::fence_regs(sc);
+    tc::fence_regs(o);
+
+    const int j0 = kb * kFBK;
+    const bool masked = kb >= n_full;  // only diagonal / ragged tiles
+    float bm[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int r = 0; r < kRPW; ++r) {
-        const float pj = pw[r * kBK + j];
+    for (int j = 0; j < kFBK / 8; ++j)
 #pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+      for (int i = 0; i < 4; ++i) {
+        const int col = j0 + 8 * j + c0 + (i & 1);
+        float x = sc[4 * j + i] * a.scale2;
+        if (masked && (col >= a.Skv || (a.causal && col > prow[i >> 1]))) x = kNegInf;
+        sc[4 * j + i] = x;
+        bm[i >> 1] = fmaxf(bm[i >> 1], x);
       }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 1));
+      bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 2));
+      const float mn = fmaxf(m[r], bm[r]);
+      corr[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+    }
+    // P in fp32 for the row sums, split into the A operands
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kFBK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = exp2f(sc[4 * j + i] - m[i >> 1]);
+        ps[i >> 1] += p[i];
+      }
+      tf32::split(p[0], ph[j][0], pl[j][0]);
+      tf32::split(p[2], ph[j][1], pl[j][1]);
+      tf32::split(p[1], ph[j][2], pl[j][2]);
+      tf32::split(p[3], ph[j][3], pl[j][3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      l[r] = l[r] * corr[r] + ps[r];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    tc::wg_fence();
+    const uint8_t* vt_hi = cur + 2 * L::kK;
+    const uint8_t* vt_lo = vt_hi + L::kVT;
+#pragma unroll
+    for (int j = 0; j < kFBK / 8; ++j) {
+      tc::mma_tf32_rs<D>(o, pl[j], tc::desc_sw128(vt_hi + 32 * j, 16, 1024), 1);
+      tc::mma_tf32_rs<D>(o, ph[j], tc::desc_sw128(vt_lo + 32 * j, 16, 1024), 1);
+    }
+#pragma unroll
+    for (int j = 0; j < kFBK / 8; ++j)
+      tc::mma_tf32_rs<D>(o, ph[j], tc::desc_sw128(vt_hi + 32 * j, 16, 1024), 1);
+    tc::wg_commit();
+    if (kb + 1 < nkb) {
+      issue_s<D>(sc, q_hi, q_lo, sets + ((kb + 1) & 1) * L::kSet);
+      tc::wg_commit();
     }
   }
+  tc::wg_wait<0>();
+  tc::fence_regs(o);
+#pragma unroll
+  for (int j = 0; j < kFBK / 8; ++j) {
+    tc::fence_regs(ph[j]);
+    tc::fence_regs(pl[j]);
+  }
+  tf32::cp_wait<0>();
 
 #pragma unroll
-  for (int r = 0; r < kRPW; ++r) {
-    const int lr = warp * kRPW + r;
-    if (lr >= nrows) continue;
-    T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + (r0 + lr) * a.o_ss + lane * DPL;
+  for (int r = 0; r < 2; ++r) {
+    const int row = lr + 8 * r;
+    if (row >= nrows) continue;
     const float denom = fmaxf(l[r], 1e-20f);
+    float* orow = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
+                  static_cast<long long>(r0 + row) * a.o_ss + c0;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) o[c] = port::from_f<T>(acc[r][c] / denom);
-    // m and l are warp-uniform after the all-reduces; one lane writes
-    if (a.lse != nullptr && lane == 0)
-      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + r0 + lr] =
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+    // m and l are equal on the four lanes of the quad; one writes
+    if (a.lse != nullptr && (lane & 3) == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + r0 + row] =
           (m[r] + log2f(denom)) / kLog2e;
   }
 }
@@ -317,7 +517,7 @@ attn_decode_combine_kernel(AttnArgs a, const float* part, int nch_max) {
 //   S = Q K^T by m64n64k16 over D, both operands in shared memory;
 //   in registers: S scaled into the exp2 domain, the mask on the tiles that
 //   cross the diagonal or the ragged edge only (the n_full / nkb split of
-//   the tiled kernel, per warpgroup), the online max and sum over the four
+//   the 3xTF32 kernel, per warpgroup), the online max and sum over the four
 //   lanes of a quad (they share a row), P rounded to bf16;
 //   O += P V by m64nDk16, P as the register A operand, V transposed from
 //   shared memory.
@@ -525,34 +725,30 @@ attn_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ----------------------------------------------------------- launching --
-constexpr int kRouteSimt = 0, kRouteTc = 2;
+constexpr int kRouteTc = 2, kRouteTf32 = 3;
 
-template <typename T, int D>
-cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
-    return cudaErrorInvalidValue;  // the tensor cores' work (route 2)
-  } else {
-    constexpr size_t smem = TiledSmem<D>::kBytes;
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          attn_tiled_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-      configured = true;
-    }
-    const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-    attn_tiled_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(a);
-    return cudaGetLastError();
+template <int D>
+cudaError_t launch_tf32(const AttnArgs& a, cudaStream_t stream) {
+  using L = Tf32FwdSmem<D>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
+    if (e != cudaSuccess) return e;
+    configured = true;
   }
+  const dim3 grid((a.Sq + 63) / 64, a.H, a.B);
+  attn_fwd_tf32_kernel<D><<<grid, 128, L::kBytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const AttnArgs& a, int d, cudaStream_t stream) {
+cudaError_t launch_tf32_d(const AttnArgs& a, int d, int tile_rows, cudaStream_t s) {
+  if (tile_rows != 64) return cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
+    case 32: return launch_tf32<32>(a, s);
+    case 64: return launch_tf32<64>(a, s);
+    case 128: return launch_tf32<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -612,9 +808,9 @@ cudaError_t dispatch(const AttnArgs& a, int d, int dtype, int route, int tile_ro
   if (route == kRouteTc)
     return dtype == port::kDtypeBF16 ? launch_tc_d(a, d, tile_rows, s)
                                      : cudaErrorInvalidValue;
-  if (route != kRouteSimt) return cudaErrorInvalidValue;
-  if (dtype == port::kDtypeF32) return launch_d<float>(a, d, s);
-  if (dtype == port::kDtypeBF16) return launch_d<__nv_bfloat16>(a, d, s);
+  if (route == kRouteTf32)
+    return dtype == port::kDtypeF32 ? launch_tf32_d(a, d, tile_rows, s)
+                                    : cudaErrorInvalidValue;
   return cudaErrorInvalidValue;
 }
 
@@ -626,9 +822,10 @@ extern "C" {
 // for the batch, sequence and head dimensions; the last dimension is
 // contiguous. q_pos0: (B,) int32 on the device. D in {32, 64, 128}; every
 // pointer 16-byte aligned and every stride a multiple of 16 bytes (the
-// wrapper checks). dtype: 0 fp32, 1 bf16. route: 0 the tiled CUDA-core
-// kernel, 2 the tensor cores (bf16, D 64 or 128) with tile_rows 64 or 128
-// query rows a block (one query row takes attention_decode). Returns
+// wrapper checks). dtype: 0 fp32, 1 bf16. route: 2 the bf16 tensor-core
+// kernel (D 64 or 128) with tile_rows 64 or 128 query rows a block, 3 the
+// fp32 3xTF32 kernel (D 32, 64 or 128) with tile_rows 64 (one query
+// row takes attention_decode). Returns
 // cudaGetLastError(), or an error without launching when the route does not
 // take the arguments.
 int attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -648,8 +845,8 @@ int attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The training forward: self-attention (Sq == Skv == S, offset 0) that also
-// writes lse (B, H, S) fp32, contiguous, in natural log. Route 0 (tiled) or
-// 2 (tensor cores), S == 1 included. Strides and checks as attention_fwd.
+// writes lse (B, H, S) fp32, contiguous, in natural log. Route 2 (bf16) or
+// 3 (fp32), S == 1 included. Strides and checks as attention_fwd.
 int attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int S, int H, int D,
                       long long q_sb, long long q_ss, long long q_sh,

@@ -22,27 +22,28 @@ __all__ = ["FlashAttentionFn", "RmsNormFn", "attention_bwd_dkv",
 
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel: each wrapper's launches split by
-    the route they took (``_tc``: the tensor-core kernel; the other name of
-    a wrapper: its CUDA-core kernel; decode-shaped attention apart; the
-    int8-cache attention under ``attention_kv8_*``: ``_rows`` the cluster
-    kernel, ``_tc`` the tensor cores, ``_tiled`` the CUDA-core kernel)."""
+    the route they took (``_tc``: the bf16 tensor-core kernel; ``_tf32``:
+    the fp32 3xTF32 tensor-core kernel; ``attention_bwd_dq``: the fp32
+    CUDA-core dQ kernel; decode-shaped attention apart; the int8-cache
+    attention under ``attention_kv8_*``: ``_rows`` the cluster kernel,
+    ``_tc`` the tensor cores, ``_tiled`` the CUDA-core kernel)."""
     fwd, lse, kv8 = attention_fwd, attention_fwd_lse, attention_fwd_kv8
     dq, dkv = attention_bwd_dq, attention_bwd_dkv
     return {
         "fused_rmsnorm": fused_rmsnorm.launches,
-        "attention_fwd_tiled": (fwd.launches - fwd.decode_launches
-                                - fwd.tc_launches),
+        "attention_fwd_tf32": (fwd.launches - fwd.decode_launches
+                               - fwd.tc_launches),
         "attention_fwd_decode": fwd.decode_launches,
         "attention_fwd_tc": fwd.tc_launches,
         "attention_kv8_rows": kv8.rows_launches,
         "attention_kv8_tc": kv8.tc_launches,
         "attention_kv8_tiled": (kv8.launches - kv8.rows_launches
                                 - kv8.tc_launches),
-        "attention_fwd_lse": lse.launches - lse.tc_launches,
+        "attention_fwd_lse_tf32": lse.launches - lse.tc_launches,
         "attention_fwd_lse_tc": lse.tc_launches,
         "attention_bwd_dq": dq.launches - dq.tc_launches,
         "attention_bwd_dq_tc": dq.tc_launches,
-        "attention_bwd_dkv": dkv.launches - dkv.tc_launches,
+        "attention_bwd_dkv_tf32": dkv.launches - dkv.tc_launches,
         "attention_bwd_dkv_tc": dkv.tc_launches,
     }
 

@@ -22,15 +22,25 @@ at key 0, P rounded to the input type before the PV product, and
 ``out = acc / max(l, 1e-20)``.
 
 Kernels by route (:func:`_attn_route`, :func:`_dq_route`,
-:func:`_dkv_route`): bf16 at head dim 64 or 128 takes the tensor-core
-(``wgmma``) forward, dQ and dK/dV kernels, in query or key tiles of
-:func:`_tile_rows`; fp32 and head dim 32 take the CUDA-core kernels
-(``wgmma`` has no fp32 operand, and TF32 would not hold fp32's limits); one
-query row without the lse takes the decode kernels, which split each row's
-keys into chunks of ``DECODE_CHUNK`` across blocks and fold the chunks'
-partials in chunk order (:func:`_decode_chunks`;
-:func:`attention_decode_plain` is the same split in plain PyTorch). A
-launch that fails raises: no route falls back to another.
+:func:`_dkv_route`): bf16 takes the tensor-core (``wgmma``) forward, dQ and
+dK/dV kernels, in query or key tiles of :func:`_tile_rows`; fp32 takes the
+3xTF32 tensor-core forward (TF32 ``wgmma``) and dK/dV (``mma.sync``), each
+operand split into a TF32 high and low part (fp32's limits, which one TF32
+product would miss), and the CUDA-core dQ kernel; one query row without the
+lse takes the decode kernels, which split each row's keys into chunks of
+``DECODE_CHUNK`` across blocks and fold the chunks' partials in chunk order
+(:func:`_decode_chunks`; :func:`attention_decode_plain` is the same split in
+plain PyTorch). A launch that fails raises: no route falls back to another.
+
+Head dims: the kernels are compiled at 32, 64 and 128 (the bf16
+tensor-core kernels at 64 and 128). Every head dim from 1 to 128 runs: a
+route takes the smallest of its head dims at or above D
+(:func:`_padded_dim`), the wrapper zero-pads the last dim of its inputs to
+it, launches there and slices the outputs back to D. Zero columns add exact
+zeros to every q . k and P . v, so the lse, delta and the first D columns
+are unchanged (the padded columns of dQ, dK and dV are zero); the scale
+stays ``1 / sqrt(D)`` of the true D. A padded cache view is copied on every
+call. A head dim above 128 raises (ROADMAP queue 3, F4b).
 
 The int8 KV cache (KV8): :func:`attention_fwd_kv8` attends q over int8
 K / V with one fp32 scale per (key, head), the cache of
@@ -71,12 +81,14 @@ BLOCK_K = 64
 #: query rows per block of the dK/dV walk (the kernel's query tile)
 BLOCK_Q = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the kernels are compiled at; a route pads D up to the next
 _HEAD_DIMS = (32, 64, 128)
-#: head dims the tensor-core kernels take (bf16 only)
+#: head dims the bf16 tensor-core kernels take
 _TC_HEAD_DIMS = (64, 128)
 #: route codes of the C entry points (one query row takes its own entry
-#: point, ``attention_decode``)
-_ROUTE_CODES = {"simt": 0, "tc": 2}
+#: point, ``attention_decode``): ``simt`` the CUDA-core dQ kernel, ``tc``
+#: the bf16 tensor-core kernels, ``tf32`` the fp32 3xTF32 kernels
+_ROUTE_CODES = {"simt": 0, "tc": 2, "tf32": 3}
 #: keys per chunk of the decode kernels' split (the kernel's kDecChunk)
 DECODE_CHUNK = 128
 #: the most query rows a KV8 call takes on the cluster kernel (decode and
@@ -86,37 +98,51 @@ KV8_ROWS_MAX = 8
 _KV8_ROUTE_CODES = {"simt": 0, "rows": 1, "tc": 2}
 
 
+def _padded_dim(route: str, d: int) -> int:
+    """D', the head dim a launch of *route* runs at: the smallest head dim
+    its kernels are compiled at that is >= *d* (the bf16 tensor-core
+    routes: 64 or 128; every other route: 32, 64 or 128). Above 128 no
+    kernel is compiled: ValueError."""
+    dims = _TC_HEAD_DIMS if route == "tc" else _HEAD_DIMS
+    if d < 1 or d > dims[-1]:
+        raise ValueError(f"head dim {d}: the CUDA kernels take 1 to "
+                         f"{dims[-1]} (a larger head dim is ROADMAP queue 3, "
+                         "F4b)")
+    return next(x for x in dims if x >= d)
+
+
 def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
     """The forward kernel a CUDA launch takes: ``"decode"`` for one query
-    row without the lse, ``"tc"`` (tensor cores) for bf16 at head dim 64 or
-    128, ``"simt"`` (the tiled CUDA-core kernel) otherwise."""
+    row without the lse, ``"tc"`` (the bf16 tensor-core kernel) for bf16,
+    ``"tf32"`` (the fp32 3xTF32 kernel) for fp32. The head dim *d* is
+    padded to :func:`_padded_dim` of the route."""
     if sq == 1 and not with_lse:
         return "decode"
-    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
-        return "tc"
-    return "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32"
 
 
 def _kv8_route(dtype: torch.dtype, d: int, sq: int) -> str:
     """The KV8 kernel a CUDA launch takes: ``"rows"`` (the cluster kernel)
     for 1 to ``KV8_ROWS_MAX`` query rows, ``"tc"`` (tensor cores) for more
-    rows in bf16 at head dim 64 or 128, ``"simt"`` (the tiled CUDA-core
-    KV8 kernel) otherwise."""
+    rows in bf16 at a padded head dim of 64 or 128, ``"simt"`` (the tiled
+    CUDA-core KV8 kernel) otherwise (fp32, or a padded head dim of 32)."""
     if sq <= KV8_ROWS_MAX:
         return "rows"
-    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and _padded_dim("simt", d) in _TC_HEAD_DIMS:
         return "tc"
     return "simt"
 
 
 def _dkv_route(dtype: torch.dtype, d: int) -> str:
-    """The dK/dV kernel a CUDA launch takes: ``"tc"`` for bf16 at head
-    dim 64 or 128, ``"simt"`` otherwise."""
-    return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS else "simt"
+    """The dK/dV kernel a CUDA launch takes: ``"tc"`` for bf16, ``"tf32"``
+    (3xTF32) for fp32."""
+    return "tc" if dtype == torch.bfloat16 else "tf32"
 
 
-#: the dQ kernel a CUDA launch takes: the same rule as dK/dV's
-_dq_route = _dkv_route
+def _dq_route(dtype: torch.dtype, d: int) -> str:
+    """The dQ kernel a CUDA launch takes: ``"tc"`` for bf16, ``"simt"``
+    (the CUDA-core kernel) for fp32."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def _decode_chunks(pos: int, skv: int, causal: bool = True) -> int:
@@ -130,12 +156,21 @@ def _decode_chunks(pos: int, skv: int, causal: bool = True) -> int:
     return -(-max(n, 0) // DECODE_CHUNK)
 
 
-def _tile_rows(b: int, n: int, h: int, sms: int) -> int:
+def _tile_rows(b: int, n: int, h: int, sms: int, big: int = 128) -> int:
     """Query rows (forward) or keys (dK/dV) per block of a tensor-core
-    kernel: 128 (two consumer warpgroups) unless that grid of
-    ``ceil(n / 128) * h * b`` blocks has fewer blocks than the card has
-    SMs, then 64 (one warpgroup, twice the blocks)."""
-    return 128 if -(-n // 128) * h * b >= sms else 64
+    kernel: *big* (128 for the bf16 kernels: two consumer warpgroups; 64
+    for the 3xTF32 dK/dV kernel: four key groups) unless that grid of
+    ``ceil(n / big) * h * b`` blocks has fewer blocks than the card has
+    SMs, then half of it (twice the blocks)."""
+    return big if -(-n // big) * h * b >= sms else big // 2
+
+
+def _fwd_tile_rows(route: str, b: int, n: int, h: int,
+                   device: torch.device) -> int:
+    """Query rows per block of a forward launch: :func:`_tile_rows` for the
+    bf16 kernel; 64 (one warpgroup) for the 3xTF32 kernel, whose 224 KB of
+    shared memory at head dim 128 take one block an SM either way."""
+    return _tile_rows(b, n, h, _sms(device)) if route == "tc" else 64
 
 
 def _sms(device: torch.device) -> int:
@@ -151,7 +186,8 @@ def _positions(q: torch.Tensor, q_pos0: Optional[torch.Tensor]
 
 def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos0: Optional[torch.Tensor] = None,
-                        causal: bool = True, return_lse: bool = False):
+                        causal: bool = True, return_lse: bool = False,
+                        sm_scale: Optional[float] = None):
     """The kernel's function in plain PyTorch, walking key blocks of
     ``BLOCK_K`` as the kernel does. Every block holds exactly BLOCK_K keys
     (a ragged tail is zero-padded and masked) and each dot product is a
@@ -161,7 +197,9 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     With *return_lse*, also the per-row logsumexp (B, H, Sq) fp32 in
     natural log, from the walk's own max and sum:
-    ``(m + log2(max(l, 1e-20))) / log2(e)``."""
+    ``(m + log2(max(l, 1e-20))) / log2(e)``. Scores are scaled by
+    *sm_scale* (default ``1 / sqrt(D)`` of q's last dim; a head dim padded
+    with zeros passes its true D's)."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     pos = _positions(q, q_pos0).long()
@@ -174,7 +212,7 @@ def attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pad > 0:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    scale2 = _LOG2E / math.sqrt(d)
+    scale2 = _LOG2E * _scale(d, sm_scale)
     qf = q.float().permute(0, 2, 1, 3).unsqueeze(3)             # (B,H,Sq,1,D)
     m = torch.full((b, h, sq, 1), _NEG_INF, device=q.device)
     l = torch.zeros((b, h, sq, 1), device=q.device)
@@ -259,7 +297,8 @@ def attention_kv8_plain(q: torch.Tensor, k_q: torch.Tensor,
                         k_s: torch.Tensor, v_q: torch.Tensor,
                         v_s: torch.Tensor,
                         q_pos0: Optional[torch.Tensor] = None,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention over the int8 KV cache in plain PyTorch: the JAX function
     of ``decode.py::_verify_one``'s ``"k_q"`` branch (:247-256). q (B, Sq,
     H, D); k_q, v_q (B, Skv, H, D) int8; k_s, v_s (B, Skv, H, 1) fp32. The
@@ -270,7 +309,8 @@ def attention_kv8_plain(q: torch.Tensor, k_q: torch.Tensor,
     ``att_v``) and the sum rounded once to q's type. Each dot product is a
     reduction over the contiguous last dimension (key blocks of
     ``BLOCK_K``) and the softmax is per row, so a row's result does not
-    depend on the other rows of its batch."""
+    depend on the other rows of its batch. *sm_scale* replaces ``1 /
+    sqrt(D)`` (a head dim padded with zeros passes its true D's)."""
     b, sq, h, d = q.shape
     skv = k_q.shape[1]
     pos = _positions(q, q_pos0).long()
@@ -280,7 +320,7 @@ def attention_kv8_plain(q: torch.Tensor, k_q: torch.Tensor,
     s = torch.cat([(qf * k_q[:, sl].float().permute(0, 2, 1, 3)
                     .unsqueeze(2)).sum(-1) for sl in blocks], -1)
     s = s * k_s[..., 0].float().permute(0, 2, 1)[:, :, None] \
-        / math.sqrt(d)                                           # (B,H,Sq,Skv)
+        * _scale(d, sm_scale)                                    # (B,H,Sq,Skv)
     if causal:
         keys = torch.arange(skv, device=q.device)
         ok = keys[None, None, :] <= rows[:, :, None]             # (B, Sq, Skv)
@@ -303,9 +343,19 @@ def _check_cuda(what: str, *ts: torch.Tensor) -> None:
         raise TypeError(f"{what}: q, k, v (and dO) must share a dtype")
     if any(t.device != q.device for t in ts):
         raise ValueError(f"{what}: inputs on different devices")
-    if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {q.shape[3]} not in "
-                         f"{_HEAD_DIMS}")
+
+
+def _pad_dim(dp: int, *ts: torch.Tensor) -> list:
+    """Each tensor with its last dim zero-padded to *dp* (a new contiguous
+    tensor), or as it is when it already has *dp* columns."""
+    return [t if t.shape[-1] == dp
+            else torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+            for t in ts]
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """The first *d* columns of a padded output, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -322,10 +372,10 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q (B, Sq, H, D) over k, v (B, Skv, H, D) with row i of
     batch b at absolute position ``q_pos0[b] + i`` (default 0).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel of :func:`_attn_route` (one query row: the decode kernels, split
-    over keys; more: the tensor cores in bf16 at head dim 64 / 128, else the
-    tiled CUDA-core kernel) or raises. Returns a new contiguous
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    of :func:`_attn_route` (one query row: the decode kernels, split over
+    keys; more: the tensor cores, bf16 on ``wgmma``, fp32 in 3xTF32) at the
+    route's padded head dim, or raises. Returns a new contiguous
     (B, Sq, H, D) tensor."""
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2:] != (h, d) or v.shape != k.shape:
@@ -336,30 +386,33 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"attention_fwd: unsupported device {q.device}")
     _check_cuda("attention_fwd", q, k, v)
-    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
-    pos = _positions(q, q_pos0).contiguous()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
     route = _attn_route(q.dtype, d, sq, with_lse=False)
+    dp = _padded_dim(route, d)
+    q, k, v = (t if _aligned(t) else t.contiguous()
+               for t in _pad_dim(dp, q, k, v))
+    pos = _positions(q, q_pos0).contiguous()
+    out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return _unpad(out, d)
     lib = _build.library()
     skv = k.shape[1]
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale2 = _LOG2E / math.sqrt(d)          # the true head dim's scale
     if route == "decode":
-        # the chunks' partials (m, l, acc[D]) in fp32, (B, H, chunks, D + 2)
-        part = torch.empty((b, h, _decode_chunks(skv - 1, skv), d + 2),
+        # the chunks' partials (m, l, acc[D']) in fp32, (B, H, chunks, D' + 2)
+        part = torch.empty((b, h, _decode_chunks(skv - 1, skv), dp + 2),
                            dtype=torch.float32, device=q.device)
         rc = lib.attention_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            pos.data_ptr(), part.data_ptr(), b, skv, h, d,
-            *_strides(q, k, v, out), int(causal), _LOG2E / math.sqrt(d),
+            pos.data_ptr(), part.data_ptr(), b, skv, h, dp,
+            *_strides(q, k, v, out), int(causal), scale2,
             _DTYPE_CODES[q.dtype], DECODE_CHUNK, stream)
     else:
         rc = lib.attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            pos.data_ptr(), b, sq, skv, h, d, *_strides(q, k, v, out),
-            int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
-            _ROUTE_CODES[route], _tile_rows(b, sq, h, _sms(q.device)),
+            pos.data_ptr(), b, sq, skv, h, dp, *_strides(q, k, v, out),
+            int(causal), scale2, _DTYPE_CODES[q.dtype],
+            _ROUTE_CODES[route], _fwd_tile_rows(route, b, sq, h, q.device),
             stream)
     attention_fwd.launches += 1
     if route == "decode":
@@ -367,11 +420,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif route == "tc":
         attention_fwd.tc_launches += 1
     _build.check(rc, "attention_fwd")
-    return out
+    return _unpad(out, d)
 
 
-#: launches of every route, of the decode kernel (Sq == 1) and of the
-#: tensor-core kernel alone
+#: launches of every route, of the decode kernel (Sq == 1) and of the bf16
+#: tensor-core kernel alone (the rest: the 3xTF32 kernel)
 attention_fwd.launches = 0  # type: ignore[attr-defined]
 attention_fwd.decode_launches = 0  # type: ignore[attr-defined]
 attention_fwd.tc_launches = 0  # type: ignore[attr-defined]
@@ -388,9 +441,9 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the KV8
     kernel of :func:`_kv8_route` (up to ``KV8_ROWS_MAX`` rows: the cluster
-    kernel; more rows: the tensor cores in bf16 at head dim 64 / 128, else
-    the tiled KV8 kernel) or raises. Returns a new contiguous (B, Sq, H, D)
-    tensor in q's type."""
+    kernel; more rows: the tensor cores in bf16 at a padded head dim of 64 /
+    128, else the tiled KV8 kernel) at the route's padded head dim, or
+    raises. Returns a new contiguous (B, Sq, H, D) tensor in q's type."""
     b, sq, h, d = q.shape
     if (k_q.shape[0] != b or k_q.shape[2:] != (h, d)
             or v_q.shape != k_q.shape
@@ -410,16 +463,19 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
                         f"{k_s.dtype} {v_s.dtype}")
     if any(t.device != q.device for t in (k_q, k_s, v_q, v_s)):
         raise ValueError("attention_fwd_kv8: inputs on different devices")
-    q, k_q, v_q = (t if _aligned(t) else t.contiguous() for t in (q, k_q, v_q))
-    pos = _positions(q, q_pos0).contiguous()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
     route = _kv8_route(q.dtype, d, sq)
+    dp = _padded_dim(route, d)
+    # the scales are per (key, head): never padded
+    q, k_q, v_q = (t if _aligned(t) else t.contiguous()
+                   for t in _pad_dim(dp, q, k_q, v_q))
+    pos = _positions(q, q_pos0).contiguous()
+    out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return _unpad(out, d)
     rc = _build.library().attention_kv8(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), out.data_ptr(), pos.data_ptr(), b, sq, k_q.shape[1],
-        h, d, *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
+        h, dp, *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
         _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
         _KV8_ROUTE_CODES[route], DECODE_CHUNK,
         _tile_rows(b, sq, h, _sms(q.device)),
@@ -430,7 +486,7 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     elif route == "tc":
         attention_fwd_kv8.tc_launches += 1
     _build.check(rc, "attention_fwd_kv8")
-    return out
+    return _unpad(out, d)
 
 
 #: launches of every KV8 route, of the cluster kernel and of the
@@ -475,33 +531,36 @@ def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logsumexp: ``(out (B, S, H, D), lse (B, H, S) fp32)``, lse in natural
     log (JAX ``_fwd_with_lse``). A CPU tensor takes the plain version; a
     CUDA tensor launches a forward kernel with its lse output (every S, 1
-    included: the tensor cores in bf16 at head dim 64 / 128, else the tiled
-    CUDA-core kernel) or raises."""
+    included: bf16 on ``wgmma``, fp32 in 3xTF32) at the route's padded head
+    dim, or raises."""
     _self_shapes("attention_fwd_lse", q, k, v)
     if _device_of("attention_fwd_lse", q) == "cpu":
         return attention_fwd_plain(q, k, v, None, causal, return_lse=True)
     _check_cuda("attention_fwd_lse", q, k, v)
-    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    route = _attn_route(q.dtype, d, s, with_lse=True)
+    dp = _padded_dim(route, d)
+    q, k, v = (t if _aligned(t) else t.contiguous()
+               for t in _pad_dim(dp, q, k, v))
+    out = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out, lse
-    route = _attn_route(q.dtype, d, s, with_lse=True)
+        return _unpad(out, d), lse
     rc = _build.library().attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, s, h, d, *_strides(q, k, v, out),
+        lse.data_ptr(), b, s, h, dp, *_strides(q, k, v, out),
         int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
-        _ROUTE_CODES[route], _tile_rows(b, s, h, _sms(q.device)),
+        _ROUTE_CODES[route], _fwd_tile_rows(route, b, s, h, q.device),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd_lse.launches += 1
     if route == "tc":
         attention_fwd_lse.tc_launches += 1
     _build.check(rc, "attention_fwd_lse")
-    return out, lse
+    return _unpad(out, d), lse
 
 
-#: launches of both routes, and of the tensor-core kernel alone
+#: launches of both routes, and of the bf16 tensor-core kernel alone (the
+#: rest: the 3xTF32 kernel)
 attention_fwd_lse.launches = 0  # type: ignore[attr-defined]
 attention_fwd_lse.tc_launches = 0  # type: ignore[attr-defined]
 
@@ -513,8 +572,13 @@ def attention_delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_scales(d: int) -> tuple:
-    sm_scale = 1.0 / math.sqrt(d)
+def _scale(d: int, sm_scale: Optional[float] = None) -> float:
+    """The softmax scale: *sm_scale*, or ``1 / sqrt(d)`` when None."""
+    return 1.0 / math.sqrt(d) if sm_scale is None else float(sm_scale)
+
+
+def _bwd_scales(d: int, sm_scale: Optional[float] = None) -> tuple:
+    sm_scale = _scale(d, sm_scale)
     return sm_scale, sm_scale * _LOG2E
 
 
@@ -529,12 +593,14 @@ def _ds(p: torch.Tensor, dp: torch.Tensor, delta: torch.Tensor,
 def attention_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor,
                            lse: torch.Tensor, delta: torch.Tensor,
-                           causal: bool = True) -> torch.Tensor:
+                           causal: bool = True,
+                           sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ in plain PyTorch, walking key blocks of ``BLOCK_K`` as the kernel
     does: P recomputed as ``exp2(s * scale2 - lse * log2 e)`` (0 where
-    masked), dS rounded to the input type, dq accumulated in fp32."""
+    masked), dS rounded to the input type, dq accumulated in fp32.
+    *sm_scale* as :func:`attention_fwd_plain`'s."""
     b, s, h, d = q.shape
-    sm_scale, scale2 = _bwd_scales(d)
+    sm_scale, scale2 = _bwd_scales(d, sm_scale)
     qf, dof = (t.float().transpose(1, 2) for t in (q, do))   # (B, H, S, D)
     lse2 = (lse.float() * _LOG2E)[..., None]                  # (B, H, S, 1)
     dl = delta.float()[..., None]
@@ -556,12 +622,14 @@ def attention_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor,
 def attention_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, do: torch.Tensor,
                             lse: torch.Tensor, delta: torch.Tensor,
-                            causal: bool = True) -> tuple:
+                            causal: bool = True,
+                            sm_scale: Optional[float] = None) -> tuple:
     """dK, dV in plain PyTorch, walking query blocks of ``BLOCK_Q`` as the
     kernel does: ``dv += round(P)^T dO`` (P in dO's type) and
-    ``dk += round(dS)^T Q``, accumulated in fp32."""
+    ``dk += round(dS)^T Q``, accumulated in fp32. *sm_scale* as
+    :func:`attention_fwd_plain`'s."""
     b, s, h, d = q.shape
-    sm_scale, scale2 = _bwd_scales(d)
+    sm_scale, scale2 = _bwd_scales(d, sm_scale)
     kf, vf = (t.float().transpose(1, 2) for t in (k, v))     # (B, H, S, D)
     lse2 = (lse.float() * _LOG2E)[..., None]
     dl = delta.float()[..., None]
@@ -584,20 +652,20 @@ def attention_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor,
     return dk.to(k.dtype).transpose(1, 2), dv.to(v.dtype).transpose(1, 2)
 
 
-def _bwd_prepare(what: str, q: torch.Tensor, k: torch.Tensor,
+def _bwd_prepare(what: str, route: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                  delta: torch.Tensor) -> tuple:
     """Checks shared by the two backward wrappers; returns the inputs as
-    the kernel takes them."""
+    the kernel of *route* takes them (head dim padded to its D')."""
     _check_cuda(what, q, k, v, do)
-    b, s, h, _ = q.shape
+    b, s, h, d = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (b, h, s) or t.dtype != torch.float32 \
                 or t.device != q.device:
             raise ValueError(f"{what}: {name} must be (B, H, S) fp32 on "
                              f"q's device, got {tuple(t.shape)} {t.dtype}")
     q, k, v, do = (t if _aligned(t) else t.contiguous()
-                   for t in (q, k, v, do))
+                   for t in _pad_dim(_padded_dim(route, d), q, k, v, do))
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
@@ -608,22 +676,23 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dQ (B, S, H, D) in q's type from q, k, v, dO (B, S, H, D), the
     forward's lse and delta (B, H, S) fp32 (JAX ``_bwd_dq_kernel``). A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel of
-    :func:`_dq_route` (the tensor cores in bf16 at head dim 64 / 128, else
-    the CUDA-core kernel) or raises."""
+    :func:`_dq_route` (the tensor cores in bf16, the CUDA-core kernel in
+    fp32) at the route's padded head dim, or raises."""
     _self_shapes("attention_bwd_dq", q, k, v, do)
     if _device_of("attention_bwd_dq", q) == "cpu":
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
-    q, k, v, do, lse, delta = _bwd_prepare("attention_bwd_dq", q, k, v, do,
-                                           lse, delta)
-    b, s, h, d = q.shape
-    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq
-    sm_scale, scale2 = _bwd_scales(d)
+    d = q.shape[3]
     route = _dq_route(q.dtype, d)
+    q, k, v, do, lse, delta = _bwd_prepare("attention_bwd_dq", route, q, k,
+                                           v, do, lse, delta)
+    b, s, h, dp = q.shape
+    dq = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return _unpad(dq, d)
+    sm_scale, scale2 = _bwd_scales(d)        # the true head dim's scale
     rc = _build.library().attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, d,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, dp,
         *_strides(q, k, v, do, dq), int(causal), scale2, sm_scale,
         _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
         _tile_rows(b, s, h, _sms(q.device)),
@@ -632,7 +701,7 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "tc":
         attention_bwd_dq.tc_launches += 1
     _build.check(rc, "attention_bwd_dq")
-    return dq
+    return _unpad(dq, d)
 
 
 #: launches of both routes, and of the tensor-core kernel alone
@@ -646,35 +715,37 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dK, dV), each (B, S, H, D) in the input type, from the same inputs
     as :func:`attention_bwd_dq` (JAX ``_bwd_dkv_kernel``). A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel of
-    :func:`_dkv_route` (the tensor cores in bf16 at head dim 64 / 128, else
-    the CUDA-core kernel) or raises."""
+    :func:`_dkv_route` (bf16 on ``wgmma``, fp32 in 3xTF32) at the route's
+    padded head dim, or raises."""
     _self_shapes("attention_bwd_dkv", q, k, v, do)
     if _device_of("attention_bwd_dkv", q) == "cpu":
         return attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
-    q, k, v, do, lse, delta = _bwd_prepare("attention_bwd_dkv", q, k, v,
-                                           do, lse, delta)
-    b, s, h, d = q.shape
-    dk = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    d = q.shape[3]
+    route = _dkv_route(q.dtype, d)
+    q, k, v, do, lse, delta = _bwd_prepare("attention_bwd_dkv", route, q,
+                                           k, v, do, lse, delta)
+    b, s, h, dp = q.shape
+    dk = torch.empty((b, s, h, dp), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dk.numel() == 0:
-        return dk, dv
-    sm_scale, scale2 = _bwd_scales(d)
-    route = _dkv_route(q.dtype, d)
+        return _unpad(dk, d), _unpad(dv, d)
+    sm_scale, scale2 = _bwd_scales(d)        # the true head dim's scale
     rc = _build.library().attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, s, h, d, *_strides(q, k, v, do, dk), int(causal), scale2,
+        b, s, h, dp, *_strides(q, k, v, do, dk), int(causal), scale2,
         sm_scale, _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
-        _tile_rows(b, s, h, _sms(q.device)),
+        _tile_rows(b, s, h, _sms(q.device), 128 if route == "tc" else 64),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_bwd_dkv.launches += 1
     if route == "tc":
         attention_bwd_dkv.tc_launches += 1
     _build.check(rc, "attention_bwd_dkv")
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
-#: launches of both routes, and of the tensor-core kernel alone
+#: launches of both routes, and of the bf16 tensor-core kernel alone (the
+#: rest: the 3xTF32 kernel)
 attention_bwd_dkv.launches = 0  # type: ignore[attr-defined]
 attention_bwd_dkv.tc_launches = 0  # type: ignore[attr-defined]
 

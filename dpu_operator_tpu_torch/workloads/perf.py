@@ -30,13 +30,15 @@ from .model import (TransformerConfig, init_params, make_example_batch,
 from .train import make_train_step
 
 #: data-sheet rates by the exact ``torch.cuda.get_device_name()``: dense
-#: FLOP/s by dtype (bf16 on the tensor cores, fp32 outside them) and HBM
-#: bytes/s. NVIDIA's data sheet for the SXM part at its full 700 W power
-#: limit; a card set below it runs slower under load. The PCIe and NVL
-#: parts have lower rates and other names, so they are not matched.
+#: FLOP/s by dtype (bf16 on the tensor cores, fp32 outside them, TF32 on
+#: the tensor cores: fp32 attention takes three TF32 products a product,
+#: so its least time is at a third of that rate) and HBM bytes/s. NVIDIA's
+#: data sheet for the SXM part at its full 700 W power limit; a card set
+#: below it runs slower under load. The PCIe and NVL parts have lower rates
+#: and other names, so they are not matched.
 CARD_PEAKS = {
     "NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float32": 67e12,
-                              "hbm_bytes_per_s": 3.35e12},
+                              "tf32": 495e12, "hbm_bytes_per_s": 3.35e12},
 }
 
 #: the JAX package's flagship batch (``perf.FLAGSHIP_BATCH``)

@@ -66,6 +66,24 @@ def test_attention_plain_matches_jax_flash_attention(causal):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-5)
 
 
+@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_plain_matches_jax_flash_attention_at_other_head_dims(
+        d, causal):
+    """The same parity at bench.py's head dim (8) and at one between the
+    kernels' compiled head dims (48): the card zero-pads both (to 32 and
+    64) and scales by 1 / sqrt(D), the function this holds to JAX's."""
+    rng = _rng(7)
+    q, k, v = (rng.standard_normal((2, 48, 2, d)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal,
+                                block_q=16, block_k=16))
+    got = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)),
+                          causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-5)
+
+
 def _dense_reference(q, k, v, pos0, causal):
     """float64 softmax attention with row i of batch b at pos0[b] + i."""
     b, sq, h, d = q.shape

@@ -1,23 +1,26 @@
 """The tensor-core attention kernels of the PyTorch/CUDA port.
 
-bf16 at head dim 64 or 128 takes the ``wgmma`` forward (with and without
-the logsumexp), dQ and dK/dV kernels; fp32 and head dim 32 keep the
-CUDA-core kernels, and the one-row decode shape takes the decode kernels,
+bf16 takes the ``wgmma`` forward (with and without the logsumexp), dQ and
+dK/dV kernels; fp32 takes the 3xTF32 forward and dK/dV kernels and the
+CUDA-core dQ kernel; the one-row decode shape takes the decode kernels,
 split over keys; attention over the int8 KV cache (KV8) takes the cluster
 kernel for up to ``KV8_ROWS_MAX`` rows, the tensor cores for more rows in
-bf16 at head dim 64 / 128, else the tiled KV8 kernel. On the CPU these
-tests hold the routing functions, the
-tile-height rule and the decode chunk rule, and the properties the forward
-and decode kernels are built around (a row's result does not depend on its
-tile, nor on the batch it is decoded in) on the plain versions at the
-kernels' shapes. The ``cuda`` tests hold the kernels against their plain
-versions on the card and skip without one.
+bf16 at a padded head dim of 64 / 128, else the tiled KV8 kernel. Every
+head dim from 1 to 128 runs, zero-padded to the route's next compiled head
+dim. On the CPU these tests hold the routing functions, the padded head
+dim, the tile-height rule and the decode chunk rule, the exactness of the
+pad on the plain versions, a CPU emulation of the 3xTF32 products, and the
+properties the forward and decode kernels are built around (a row's result
+does not depend on its tile, nor on the batch it is decoded in) on the
+plain versions at the kernels' shapes. The ``cuda`` tests hold the kernels
+against their plain versions on the card and skip without one.
 
 This file imports no JAX, so on a machine with the card and without JAX it
 runs alone: ``python3 -m pytest --noconftest tests/test_torch_tc.py``.
 """
 
 import importlib
+import math
 
 import pytest
 import torch
@@ -66,16 +69,21 @@ def cuda():
     (BF16, 64, 300, False, "tc"),
     (BF16, 128, 5, False, "tc"),        # speculative verify, k = 4
     (BF16, 128, 2, False, "tc"),        # speculative verify, k = 1
-    (F32, 128, 4, False, "simt"),
+    (F32, 128, 4, False, "tf32"),
     (BF16, 128, 1024, True, "tc"),      # the training forward
     (BF16, 64, 1000, True, "tc"),
     (BF16, 128, 1, True, "tc"),         # with the lse, one row is tiled
     (BF16, 128, 1, False, "decode"),
     (F32, 128, 1, False, "decode"),
-    (F32, 128, 1024, True, "simt"),     # wgmma has no fp32 operand
-    (F32, 64, 512, False, "simt"),
-    (BF16, 32, 512, False, "simt"),     # D 32: the CUDA-core kernel
-    (BF16, 32, 77, True, "simt"),
+    (F32, 128, 1024, True, "tf32"),     # fp32: 3xTF32 on the tensor cores
+    (F32, 64, 512, False, "tf32"),
+    (BF16, 32, 512, False, "tc"),       # D 32: padded to 64
+    (BF16, 32, 77, True, "tc"),
+    (BF16, 16, 512, False, "tc"),       # the default config's head dim
+    (BF16, 16, 1, True, "tc"),
+    (BF16, 16, 1, False, "decode"),
+    (F32, 16, 64, True, "tf32"),
+    (F32, 8, 48, False, "tf32"),        # bench.py's config
 ])
 def test_attention_route(dtype, d, sq, with_lse, route):
     assert fa._attn_route(dtype, d, sq, with_lse) == route
@@ -87,15 +95,16 @@ KV8_WIDTHS = (1, 2, fa.KV8_ROWS_MAX, fa.KV8_ROWS_MAX + 1, 256)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
 @pytest.mark.parametrize("sq", KV8_WIDTHS)
 def test_kv8_route(dtype, d, sq):
     """Up to KV8_ROWS_MAX rows take the cluster kernel in every type and
-    head dim; more rows the tensor cores in bf16 at head dim 64 / 128 and
-    the tiled CUDA-core KV8 kernel otherwise (fp32, or head dim 32)."""
+    head dim; more rows the tensor cores in bf16 at a padded head dim of 64
+    / 128 (D 33-128) and the tiled CUDA-core KV8 kernel otherwise (fp32, or
+    D up to 32, padded to 32)."""
     if sq <= 8:
         want = "rows"
-    elif dtype == BF16 and d != 32:
+    elif dtype == BF16 and d > 32:
         want = "tc"
     else:
         want = "simt"
@@ -104,17 +113,44 @@ def test_kv8_route(dtype, d, sq):
 
 
 @pytest.mark.parametrize("dtype,d,route", [
-    (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "simt"),
-    (F32, 128, "simt"), (F32, 64, "simt")])
+    (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "tc"),
+    (BF16, 16, "tc"), (F32, 128, "tf32"), (F32, 64, "tf32"),
+    (F32, 16, "tf32")])
 def test_dkv_route(dtype, d, route):
     assert fa._dkv_route(dtype, d) == route
 
 
 @pytest.mark.parametrize("dtype,d,route", [
-    (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "simt"),
-    (F32, 128, "simt"), (F32, 64, "simt")])
+    (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "tc"),
+    (BF16, 16, "tc"), (F32, 128, "simt"), (F32, 64, "simt"),
+    (F32, 16, "simt")])
 def test_dq_route(dtype, d, route):
     assert fa._dq_route(dtype, d) == route
+
+
+#: D' of every route at the head dims of the repository's configs (8:
+#: bench.py; 16: the default config; 128: the flagship) and between:
+#: (the bf16 tensor-core routes, every other route)
+PAD_CASES = {1: (64, 32), 8: (64, 32), 16: (64, 32), 33: (64, 64),
+             48: (64, 64), 64: (64, 64), 80: (128, 128), 96: (128, 128),
+             128: (128, 128)}
+
+
+@pytest.mark.parametrize("route", ["tc", "tf32", "simt", "decode", "rows"])
+@pytest.mark.parametrize("d", sorted(PAD_CASES))
+def test_padded_dim(route, d):
+    """The bf16 tensor-core routes pad to 64 or 128; every other route
+    (fp32 3xTF32, the CUDA-core dQ and KV8 kernels, decode, the KV8
+    cluster kernel) to 32, 64 or 128."""
+    want = PAD_CASES[d][0 if route == "tc" else 1]
+    assert fa._padded_dim(route, d) == want
+
+
+@pytest.mark.parametrize("route", ["tc", "tf32", "simt", "decode", "rows"])
+@pytest.mark.parametrize("d", [0, 129, 256])
+def test_padded_dim_refuses_what_no_kernel_takes(route, d):
+    with pytest.raises(ValueError, match="F4b"):
+        fa._padded_dim(route, d)
 
 
 @pytest.mark.parametrize("b,n,h,sms,rows", [
@@ -131,14 +167,32 @@ def test_tile_rows(b, n, h, sms, rows):
     assert fa._tile_rows(b, n, h, sms) == rows
 
 
+@pytest.mark.parametrize("b,n,h,sms,rows", [
+    (1, 512, 12, 132, 32),     # 96 key blocks at 64 keys
+    (1, 1024, 12, 132, 64),    # one fp32 training sequence: 192
+    (1, 1000, 12, 132, 64),
+    (1, 64, 8, 132, 32),       # the default config
+])
+def test_tile_rows_of_the_3xtf32_kernels(b, n, h, sms, rows):
+    """The 3xTF32 dK/dV kernel's blocks: 64 keys (four key groups of two
+    warps), or 32 when 64-key blocks would not give every SM one; the
+    3xTF32 forward always takes 64 rows (one warpgroup)."""
+    assert fa._tile_rows(b, n, h, sms, 64) == rows
+    cpu = torch.device("cpu")
+    assert fa._fwd_tile_rows("tf32", b, n, h, cpu) == 64
+
+
 def test_launch_counts_name_every_route_and_reset():
     counts = launch_counts()
-    for name in ("attention_fwd_tiled", "attention_fwd_decode",
-                 "attention_fwd_tc", "attention_fwd_lse",
+    for name in ("attention_fwd_tf32", "attention_fwd_decode",
+                 "attention_fwd_tc", "attention_fwd_lse_tf32",
                  "attention_fwd_lse_tc", "attention_bwd_dq",
-                 "attention_bwd_dq_tc", "attention_bwd_dkv",
+                 "attention_bwd_dq_tc", "attention_bwd_dkv_tf32",
                  "attention_bwd_dkv_tc"):
         assert name in counts
+    # the CUDA-core forward and dK/dV kernels are gone
+    assert not {"attention_fwd_tiled", "attention_fwd_lse",
+                "attention_bwd_dkv"} & set(counts)
     fa.attention_fwd.tc_launches += 1
     try:
         assert launch_counts()["attention_fwd_tc"] == \
@@ -264,6 +318,159 @@ def test_plain_chunk_equals_whole_at_tc_head_dims(d, offset, width):
     assert torch.equal(part, whole[:, offset:offset + width])
 
 
+# -- the head-dim pad, on the plain versions ------------------------------------
+
+#: the pad's exactness on the plain versions: zero columns add exact zeros
+#: to every product, so padded and unpadded runs differ only where a sum
+#: over the last dim is vectorized differently at the two widths (fp32
+#: noise, measured at most about 3e-7 here)
+TOL_PAD = 2e-6
+PAD_DIMS = (8, 16, 48, 80)
+
+
+def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+
+
+@pytest.mark.parametrize("route", ["tc", "tf32"])
+@pytest.mark.parametrize("d", PAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_at_the_padded_head_dim(route, d, causal):
+    """``attention_fwd_plain`` of the zero-padded q, k, v at the true D's
+    scale equals the unpadded run in its first D columns (and the lse), and
+    its padded columns are exactly zero: rows at an offset over a longer
+    cache row, the way a wrapper launches a padded chunk."""
+    g = torch.Generator().manual_seed(51)
+    dp = fa._padded_dim(route, d)
+    q = torch.randn((2, 19, 3, d), generator=g)
+    k, v = (torch.randn((2, 150, 3, d), generator=g) for _ in range(2))
+    pos = torch.tensor([0, 77], dtype=torch.int32)
+    want, lse = attention_fwd_plain(q, k, v, pos, causal, return_lse=True)
+    got, lse_p = attention_fwd_plain(_pad(q, dp), _pad(k, dp), _pad(v, dp),
+                                     pos, causal, return_lse=True,
+                                     sm_scale=d ** -0.5)
+    assert _scaled_err(got[..., :d], want) <= TOL_PAD
+    assert _scaled_err(lse_p, lse) <= TOL_PAD
+    assert not got[..., d:].any()
+    # without the true scale, the padded run would be another function
+    wrong = attention_fwd_plain(_pad(q, dp), _pad(k, dp), _pad(v, dp), pos,
+                                causal)
+    assert _scaled_err(wrong[..., :d], want) > 1e-3
+
+
+@pytest.mark.parametrize("d", PAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_kv8_at_the_padded_head_dim(d, causal):
+    """``attention_kv8_plain`` over int8 K / V padded with zero columns (the
+    scales are per key and head: not padded) at the true D's scale."""
+    g = torch.Generator().manual_seed(52)
+    dp = fa._padded_dim("simt", d)
+    (kq, ks), (vq, vs) = (decode._kv_quant(torch.randn((2, 150, 3, d),
+                                                       generator=g))
+                          for _ in range(2))
+    q = torch.randn((2, 9, 3, d), generator=g)
+    pos = torch.tensor([3, 120], dtype=torch.int32)
+    want = attention_kv8_plain(q, kq, ks, vq, vs, pos, causal)
+    got = attention_kv8_plain(_pad(q, dp), _pad(kq, dp), ks, _pad(vq, dp),
+                              vs, pos, causal, sm_scale=d ** -0.5)
+    assert _scaled_err(got[..., :d], want) <= TOL_PAD
+    assert not got[..., d:].any()
+
+
+@pytest.mark.parametrize("route", ["tc", "tf32"])
+@pytest.mark.parametrize("d", PAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_at_the_padded_head_dim(route, d, causal):
+    """dQ, dK and dV of the plain walks on zero-padded q, k, v, dO at the
+    true D's scale (lse and delta come from the unpadded forward: the pad
+    leaves both unchanged) equal the unpadded ones in their first D
+    columns; the padded columns are exactly zero."""
+    g = torch.Generator().manual_seed(53)
+    dp = fa._padded_dim(route, d)
+    q, k, v, do = (torch.randn((2, 70, 3, d), generator=g) for _ in range(4))
+    out, lse = attention_fwd_plain(q, k, v, None, causal, return_lse=True)
+    delta = attention_delta(do, out)
+    want = (attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+            *attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal))
+    padded = [_pad(t, dp) for t in (q, k, v, do)]
+    scale = d ** -0.5
+    got = (attention_bwd_dq_plain(*padded, lse, delta, causal,
+                                  sm_scale=scale),
+           *attention_bwd_dkv_plain(*padded, lse, delta, causal,
+                                    sm_scale=scale))
+    for gt, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _scaled_err(gt[..., :d], w) <= TOL_PAD, name
+        assert not gt[..., d:].any(), name
+    _, lse_p = attention_fwd_plain(*padded[:3], None, causal,
+                                   return_lse=True, sm_scale=scale)
+    delta_p = attention_delta(padded[3], _pad(out, dp))
+    assert _scaled_err(lse_p, lse) <= TOL_PAD
+    assert _scaled_err(delta_p, delta) <= TOL_PAD
+
+
+# -- 3xTF32, emulated on the CPU ------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on the
+    top 10 mantissa bits, ties away from zero (adding half of the dropped
+    13 bits' range to the magnitude carries into the kept bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, pieces: int) -> torch.Tensor:
+    """a @ b with TF32 operands in fp32 accumulators: one product of the
+    rounded operands, or three of their hi / lo parts (small terms first),
+    as the fp32 kernels take them."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if pieces == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _attention_tf32(q, k, v, pieces: int) -> torch.Tensor:
+    """Causal attention of (B, S, H, D) fp32 with both products taken as
+    :func:`_mm_tf32` and the softmax in fp32, as the kernel does (one key
+    block: the online softmax changes nothing but the summation order)."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, D)
+    s = _mm_tf32(qh, kh.transpose(-1, -2), pieces) * (math.log2(math.e)
+                                                      / math.sqrt(q.shape[3]))
+    n = q.shape[1]
+    s = s.masked_fill(torch.ones(n, n, dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    out = _mm_tf32(p, vh, pieces) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                         # a TF32 value
+    x = torch.tensor([1.0 + 2.0 ** -11,            # a tie: away, to 1 + 2^-10
+                      -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -20,  # below the tie: down
+                      one, 3.0e-5, 0.0])
+    got = _tf32(x)
+    assert got.tolist()[:4] == [one, -one, 1.0, one]
+    assert float(got[5]) == 0.0
+    assert (_tf32(got) == got).all()               # idempotent
+    assert abs(float(got[4]) - 3.0e-5) <= 3.0e-5 * 2.0 ** -11
+
+
+def test_3xtf32_attention_holds_fp32_and_one_product_does_not():
+    """Why the fp32 kernels take three TF32 products: at 1 x 256 x 2 x 128
+    (unit normal q, k, v) the emulated 3xTF32 attention lies within 1e-5
+    scaled error of fp32 (``attention_fwd_plain``), while one TF32 product
+    of the rounded operands misses the fp32 limit of 1e-4 (TOL_F32) by an
+    order of magnitude."""
+    g = torch.Generator().manual_seed(54)
+    q, k, v = (torch.randn((1, 256, 2, 128), generator=g) for _ in range(3))
+    want = attention_fwd_plain(q, k, v)
+    three = _scaled_err(_attention_tf32(q, k, v, 3), want)
+    one = _scaled_err(_attention_tf32(q, k, v, 1), want)
+    assert three <= 1e-5, three
+    assert one > 10 * TOL_F32, one
+
+
 # -- the kernels, on the card ----------------------------------------------------
 
 def _scaled_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -303,8 +510,9 @@ def test_cuda_tc_forward_matches_plain(cuda, tile, s, d, causal):
     after = launch_counts()
     assert after["attention_fwd_lse_tc"] == before["attention_fwd_lse_tc"] + 1
     assert after["attention_fwd_tc"] == before["attention_fwd_tc"] + 1
-    assert after["attention_fwd_lse"] == before["attention_fwd_lse"]
-    assert after["attention_fwd_tiled"] == before["attention_fwd_tiled"]
+    assert after["attention_fwd_lse_tf32"] == \
+        before["attention_fwd_lse_tf32"]
+    assert after["attention_fwd_tf32"] == before["attention_fwd_tf32"]
     out_p, lse_p = attention_fwd_plain(q, k, v, None, causal,
                                        return_lse=True)
     assert _scaled_err(out, out_p) <= TOL_BF16
@@ -382,7 +590,8 @@ def test_cuda_tc_dkv_matches_plain(cuda, tile, s, d, causal):
     torch.cuda.synchronize()
     after = launch_counts()
     assert after["attention_bwd_dkv_tc"] == before["attention_bwd_dkv_tc"] + 1
-    assert after["attention_bwd_dkv"] == before["attention_bwd_dkv"]
+    assert after["attention_bwd_dkv_tf32"] == \
+        before["attention_bwd_dkv_tf32"]
     dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     assert _scaled_err(dk, dk_p) <= TOL_BF16
     assert _scaled_err(dv, dv_p) <= TOL_BF16
@@ -405,28 +614,33 @@ def test_cuda_tc_dkv_matches_plain_at_the_train_shape(cuda, seed):
 
 
 def test_cuda_fp32_and_head_dim_32_keep_the_cuda_core_kernels(cuda):
+    """The routes at head dim 32 and in fp32: bf16 at D 32 pads to 64 and
+    takes the tensor-core forward, dQ and dK/dV; fp32 takes the 3xTF32
+    forward (with and without the lse) and dK/dV, and keeps the CUDA-core
+    dQ kernel alone."""
     q, k, v, do = _projection(cuda, 1, 70, 2, 32, seed=25)
     before = launch_counts()
     out, lse = attention_fwd_lse(q, k, v)
     attention_bwd_dkv(q, k, v, do, lse, attention_delta(do, out))
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    attention_fwd(qf.contiguous(), kf.contiguous(), vf.contiguous())
+    attention_bwd_dq(q, k, v, do, lse, attention_delta(do, out))
+    attention_fwd(q, k, v)
     after = launch_counts()
-    assert after["attention_fwd_lse"] == before["attention_fwd_lse"] + 1
-    assert after["attention_bwd_dkv"] == before["attention_bwd_dkv"] + 1
-    assert after["attention_fwd_tiled"] == before["attention_fwd_tiled"] + 1
-    for name in ("attention_fwd_tc", "attention_fwd_lse_tc",
-                 "attention_bwd_dkv_tc"):
-        assert after[name] == before[name]
-    # dQ takes the tensor-core rule too
+    for name in ("attention_fwd_lse_tc", "attention_bwd_dkv_tc",
+                 "attention_bwd_dq_tc", "attention_fwd_tc"):
+        assert after[name] == before[name] + 1, name
     qf, kf, vf, dof = (t.float().contiguous() for t in (q, k, v, do))
     out_f, lse_f = attention_fwd_lse(qf, kf, vf)
-    mid = launch_counts()
-    attention_bwd_dq(q, k, v, do, lse, attention_delta(do, out))
-    attention_bwd_dq(qf, kf, vf, dof, lse_f, attention_delta(dof, out_f))
+    attention_fwd(qf, kf, vf)
+    delta_f = attention_delta(dof, out_f)
+    attention_bwd_dq(qf, kf, vf, dof, lse_f, delta_f)
+    attention_bwd_dkv(qf, kf, vf, dof, lse_f, delta_f)
     end = launch_counts()
-    assert end["attention_bwd_dq"] == mid["attention_bwd_dq"] + 2
-    assert end["attention_bwd_dq_tc"] == mid["attention_bwd_dq_tc"]
+    for name in ("attention_fwd_lse_tf32", "attention_fwd_tf32",
+                 "attention_bwd_dq", "attention_bwd_dkv_tf32"):
+        assert end[name] == after[name] + 1, name
+    for name in ("attention_fwd_tc", "attention_fwd_lse_tc",
+                 "attention_bwd_dq_tc", "attention_bwd_dkv_tc"):
+        assert end[name] == after[name], name
 
 
 @pytest.mark.parametrize("s", [50, 130, 1000])
@@ -600,3 +814,151 @@ def test_cuda_w8a8_product_is_exact(cuda):
     for right in (w.t().contiguous().t(), w):
         got = decode._int8_mm(xq.to(cuda), right.to(cuda))
         assert torch.equal(got.cpu(), want)
+
+
+# -- every head dim, and the 3xTF32 kernels, on the card ------------------------
+
+def _counted(fn):
+    """``(fn(), the launch_counts names it moved)``."""
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, sorted(n for n, c in launch_counts().items()
+                       if c != before[n])
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_head_dim_16_training_wrappers_match_plain(cuda, dtype, tol,
+                                                        causal):
+    """tests/test_ops.py's shape (2 x 64 x 2 x 16) through the forward,
+    the forward with the lse, dQ and dK/dV on the card: each pads D 16 to
+    its route's head dim, scales by 1 / sqrt(16) and matches its plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(61)
+    q, k, v, do = (torch.randn((2, 64, 2, 16), generator=g,
+                               device=cuda).to(dtype) for _ in range(4))
+    tc = dtype == BF16
+    out, names = _counted(lambda: attention_fwd(q, k, v, None, causal))
+    assert names == ["attention_fwd_tc" if tc else "attention_fwd_tf32"]
+    assert out.shape == q.shape and out.is_contiguous()
+    assert _scaled_err(out, attention_fwd_plain(q, k, v, None, causal)) \
+        <= tol
+    (o, lse), names = _counted(lambda: attention_fwd_lse(q, k, v, causal))
+    assert names == ["attention_fwd_lse_tc" if tc
+                     else "attention_fwd_lse_tf32"]
+    o_p, lse_p = attention_fwd_plain(q, k, v, None, causal, return_lse=True)
+    assert _scaled_err(o, o_p) <= tol and _scaled_err(lse, lse_p) <= tol
+    delta = attention_delta(do, o)
+    dq, names = _counted(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  causal))
+    assert names == ["attention_bwd_dq_tc" if tc else "attention_bwd_dq"]
+    assert _scaled_err(dq, attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  causal)) <= tol
+    (dk, dv), names = _counted(lambda: attention_bwd_dkv(q, k, v, do, lse,
+                                                         delta, causal))
+    assert names == ["attention_bwd_dkv_tc" if tc
+                     else "attention_bwd_dkv_tf32"]
+    dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    assert _scaled_err(dk, dk_p) <= tol and _scaled_err(dv, dv_p) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+def test_cuda_head_dim_16_decode_and_kv8_match_plain(cuda, dtype, tol):
+    """D 16 on the one-row decode kernels and on both KV8 routes (the
+    cluster kernel at decode and verify widths, the tiled KV8 kernel for a
+    chunk), each padded to 32 and scaled by 1 / sqrt(16)."""
+    q, ck, cv, pos = _decode_inputs(dtype, 16, h=2, max_seq=300,
+                                    device=cuda)
+    got, names = _counted(lambda: attention_fwd(q, ck, cv, pos))
+    assert names == ["attention_fwd_decode"]
+    assert _scaled_err(got, attention_fwd_plain(q, ck, cv, pos)) <= tol
+    for sq, route in ((1, "attention_kv8_rows"), (5, "attention_kv8_rows"),
+                      (40, "attention_kv8_tiled")):
+        qk, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, 3, sq, 300, 2, 16, 62)
+        p = torch.tensor([0, 130, 300 - sq], dtype=torch.int32, device=cuda)
+        got, names = _counted(lambda: attention_fwd_kv8(qk, kq, ks, vq, vs,
+                                                        p))
+        assert names == [route]
+        assert _scaled_err(got, attention_kv8_plain(qk, kq, ks, vq, vs, p)) \
+            <= tol
+
+
+@pytest.mark.parametrize("s", [50, 130, 1000])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_tf32_kernels_match_plain(cuda, monkeypatch, s, d, causal):
+    """The 3xTF32 forward (with and without the lse) and dK/dV against
+    their plain versions in fp32, q / k / v as views of one projection, the
+    dK/dV kernel at both block heights."""
+    g = torch.Generator(device=cuda).manual_seed(63)
+    qkv = torch.randn((2, s, 9 * d), generator=g, device=cuda)
+    q, k, v = (t.unflatten(-1, (3, d)) for t in qkv.split(3 * d, -1))
+    do = torch.randn((2, s, 3, d), generator=g, device=cuda)
+    for sms in (1, 1 << 30):   # 64-row (64-key) blocks, then 32
+        monkeypatch.setattr(fa, "_sms", lambda device, n=sms: n)
+        (out, lse), names = _counted(lambda: attention_fwd_lse(q, k, v,
+                                                               causal))
+        assert names == ["attention_fwd_lse_tf32"]
+        o2, names = _counted(lambda: attention_fwd(q, k, v, None, causal))
+        assert names == ["attention_fwd_tf32"]
+        delta = attention_delta(do, out)
+        (dk, dv), names = _counted(lambda: attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal))
+        assert names == ["attention_bwd_dkv_tf32"]
+        out_p, lse_p = attention_fwd_plain(q, k, v, None, causal,
+                                           return_lse=True)
+        assert _scaled_err(out, out_p) <= TOL_F32
+        assert _scaled_err(lse, lse_p) <= TOL_F32
+        assert torch.equal(out, o2)
+        dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+        assert _scaled_err(dk, dk_p) <= TOL_F32
+        assert _scaled_err(dv, dv_p) <= TOL_F32
+        # no atomics: the same inputs give the same gradients bit for bit
+        again = attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+        assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("offset", [0, 64, 256, 300])
+def test_cuda_tf32_forward_at_offset_over_a_slot_row(cuda, d, offset):
+    """A chunk of 130 fp32 rows at ``offset`` against one slot's row of a
+    (slots, max_seq, H, D) cache (a strided view), against the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    h, max_seq = 3, 512
+    ck, cv = (torch.randn((4, max_seq, h, d), generator=g, device=cuda)
+              for _ in range(2))
+    q = torch.randn((1, 130, h, d), generator=g, device=cuda)
+    pos = torch.tensor([offset], dtype=torch.int32, device=cuda)
+    got, names = _counted(lambda: attention_fwd(q, ck[2:3], cv[2:3], pos))
+    assert names == ["attention_fwd_tf32"]
+    assert _scaled_err(got, attention_fwd_plain(q, ck[2:3], cv[2:3], pos)) \
+        <= TOL_F32
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_tf32_chunk_equals_whole_prefill(cuda, d):
+    """The forward's invariant in fp32: chunks of a prompt computed against
+    the cache row equal the whole prompt's rows (key tiles anchored at key
+    0, no row's arithmetic touching another's: bit for bit)."""
+    g = torch.Generator(device=cuda).manual_seed(65)
+    h, p, max_seq = 3, 512, 1024
+    q, k, v = (torch.randn((1, p, h, d), generator=g, device=cuda)
+               for _ in range(3))
+    whole = attention_fwd(q, k, v)
+    ck, cv = (torch.randn((2, max_seq, h, d), generator=g, device=cuda)
+              for _ in range(2))
+    ck[1, :p], cv[1, :p] = k[0], v[0]
+    for a, b in ((0, 256), (256, 512), (64, 130), (300, 512)):
+        pos = torch.tensor([a], dtype=torch.int32, device=cuda)
+        part = attention_fwd(q[:, a:b], ck[1:2], cv[1:2], pos)
+        assert torch.equal(part, whole[:, a:b]), (a, b)
+
+
+def test_cuda_head_dim_above_128_raises(cuda):
+    q = torch.zeros((1, 4, 1, 160), device=cuda)
+    for call in (lambda: attention_fwd(q, q, q),
+                 lambda: attention_fwd_lse(q, q, q)):
+        with pytest.raises(ValueError, match="F4b"):
+            call()

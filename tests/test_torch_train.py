@@ -418,7 +418,7 @@ def test_measure_train_refuses_the_cpu():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("s,d", [(1024, 128), (1000, 128), (77, 64),
-                                 (33, 32), (1, 128)])
+                                 (33, 32), (1, 128), (64, 16), (50, 48)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_training_kernels_match_plain(cuda, dtype, tol, s, d, causal):
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -437,10 +437,13 @@ def test_cuda_training_kernels_match_plain(cuda, dtype, tol, s, d, causal):
             attention_bwd_dq_plain(q, k, v, do, lse, delta, causal),
             *attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)]
     after = launch_counts()
-    # bf16 at head dim 64 / 128 takes the tensor-core forward, dQ and dK/dV
-    tc = "_tc" if dtype == torch.bfloat16 and d in (64, 128) else ""
-    for name in ("attention_fwd_lse" + tc, "attention_bwd_dq" + tc,
-                 "attention_bwd_dkv" + tc):
+    # bf16 takes the tensor-core forward, dQ and dK/dV (D 32 and 16 padded
+    # to 64); fp32 the 3xTF32 forward and dK/dV and the CUDA-core dQ
+    names = (("attention_fwd_lse_tc", "attention_bwd_dq_tc",
+              "attention_bwd_dkv_tc") if dtype == torch.bfloat16 else
+             ("attention_fwd_lse_tf32", "attention_bwd_dq",
+              "attention_bwd_dkv_tf32"))
+    for name in names:
         assert after[name] == counts[name] + 1
     for a, b in zip(got, want):
         err = _scaled_err(a.float().cpu().numpy(), b.float().cpu().numpy())
