@@ -31,7 +31,12 @@ Phases, each of which passes or raises (a failure exits non-zero):
    design's time (slot 0's KV8 decode row alone equals its row of the
    8-slot launch, and each verify row equals a one-row launch at its
    position); the W8A8 products at the decode shapes are timed beside the
-   bf16 GEMMs;
+   bf16 GEMMs. Then every route again at head dim 256 (the flagship's
+   d_model over 6 heads of 256): prefill, chunk, decode (bf16 and fp32),
+   verify, the training batch (bf16) and one fp32 sequence, and over the
+   KV8 cache decode, verify and chunk in both types, with the same
+   invariants (the chunk equals the whole prefill in bf16 and fp32, a
+   decode row and a KV8 verify row equal their one-row launches);
 4. port on the card against port on the CPU (tiny fp32 config): greedy
    streams equal, logits close; then a tiny fp32 serve on the card whose
    streams equal ``generate``; then a tiny fp32 serve that speculates
@@ -88,7 +93,19 @@ Phases, each of which passes or raises (a failure exits non-zero):
    to the teacher-forced margin; it is reported in wall tokens/s beside
    the virtual ones. Last ``measure_flash_attention`` at 4 x 2048 x 8 x
    128 bf16 causal beside SDPA and the bound (phase 3 holds the kernel
-   against its plain version at that shape).
+   against its plain version at that shape);
+10. the flagship at head dim 256 (``flagship_config()`` with 6 heads of
+   256: the same 391.7M parameters, bf16, random weights from a seed):
+   6 requests served on 4 slots with chunked prefill through
+   ``Scheduler.step``, every served token within the teacher-forced margin,
+   then 3 on one slot without chunks (``generate``'s shapes), every stream
+   equal to ``generate``; a W8A8 + KV8 decode_step loop equal to
+   ``generate(kv_int8=True)`` and a KV8 chunked prefill that decodes; two
+   AdamW steps at batch 8 x 1024 (losses finite, every gradient leaf finite
+   and non-zero); a tiny fp32 config at head dim 256 on the card against
+   the CPU as phase 4 holds the default config, with a KV8 chunked prefill.
+   Every route of head dim 256 must launch in this phase; its counts are
+   the head-dim-256 cases' launches on the kernels' line.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -322,7 +339,7 @@ def _rms_case(gen, rows: int, d: int, dtype) -> dict:
     bound, by = _bound((2 * rows * d + d) * elt, 4.0 * rows * d, "float32")
     return {
         "name": f"fused_rmsnorm[{rows}x{d} {name}]",
-        "kernel": "fused_rmsnorm", "dtype": name,
+        "kernel": "fused_rmsnorm", "dtype": name, "head_dim": None,
         "source": "dpu_operator_tpu_torch/csrc/rmsnorm.cu",
         "replaces": "dpu_operator_tpu/ops/rmsnorm.py:20",
         "max_abs_err": max_abs, "scaled_err": scaled,
@@ -395,7 +412,7 @@ def _attn_case(gen, label: str, q, k, v, pos) -> dict:
 
     name = f"{kernel}[{label}]"
     return {
-        "name": name, "kernel": kernel, "dtype": dname,
+        "name": name, "kernel": kernel, "dtype": dname, "head_dim": d,
         "source": "dpu_operator_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
         "max_abs_err": max_abs, "scaled_err": scaled,
@@ -485,7 +502,7 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
             for k, e in errs.items()))
         cases.append({
             "name": f"{name}[{label}]", "kernel": name, "dtype": dname,
-            "source": src,
+            "head_dim": d, "source": src,
             "replaces": "dpu_operator_tpu/ops/flash_attention.py" + line,
             "max_abs_err": max(e[0] for e in errs.values()),
             "scaled_err": max(e[1] for e in errs.values()),
@@ -617,11 +634,11 @@ def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
     def run():
         return attention_fwd_kv8(q, kq, ks, vq, vs, pos)
 
-    earlier = KV8_EARLIER_US.get(label.split()[0]) if dname == "bfloat16" \
-        else None
+    earlier = KV8_EARLIER_US.get(label.split()[0]) \
+        if dname == "bfloat16" and d == 128 else None
     return {
         "name": f"{kernel}[{label}]", "kernel": kernel, "dtype": dname,
-        "source": "dpu_operator_tpu_torch/csrc/attention_kv8.cu",
+        "head_dim": d, "source": "dpu_operator_tpu_torch/csrc/attention_kv8.cu",
         "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
         "max_abs_err": max_abs, "scaled_err": scaled, "earlier_us": earlier,
         "ms": graph_ms(run), "eager_ms": cuda_ms(run, 20),
@@ -702,15 +719,26 @@ def _int8_gemm_log(gen, cfg) -> None:
             f"{2 * k * n / hbm * 1e6:.2f} us")
 
 
-def phase_kernels(cfg) -> list:
+def wide_config(cfg):
+    """The flagship at head dim 256: 6 heads of 256 over the same d_model
+    1536 (the same 391.7M parameters), the head dim of Gemma's published
+    configs."""
+    return dataclasses.replace(cfg, n_heads=cfg.d_model // 256)
+
+
+def _route_cases(gen, cfg, decodes: tuple, trains: tuple) -> list:
+    """Every attention route at *cfg*'s heads against its plain version,
+    timed beside SDPA and its bound, at the serving and training shapes:
+    prefill (bf16, and fp32 on the 3xTF32 kernel), a chunk, decode (each of
+    *decodes*: (dtype, position or None for random ones)), the training
+    shapes *trains* ((B, S, head dim, dtype)), verify, and over the same
+    cache quantized to int8 (KV8) decode, verify and the chunk in bf16 and
+    fp32; and the invariants (:func:`_decode_row_alone`,
+    :func:`_chunk_equals_whole` in bf16 and fp32,
+    :func:`_kv8_decode_row_alone`)."""
     import torch
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1234)
+    from dpu_operator_tpu_torch.workloads.decode import _kv_quant
     bf16, f32 = torch.bfloat16, torch.float32
-    d = cfg.d_model
-    cases = [_rms_case(gen, rows, d, dt)
-             for rows, dt in ((8, bf16), (256, bf16), (512, bf16),
-                              (8, f32), (512, f32))]
     h, dh, s_max = cfg.n_heads, cfg.d_head, cfg.max_seq
 
     def rnd(*shape):
@@ -720,7 +748,7 @@ def phase_kernels(cfg) -> list:
     q, k, v = rnd(1, 512, h, dh), rnd(1, 512, h, dh), rnd(1, 512, h, dh)
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     shape = f"{h}x{dh}"
-    cases.append(_attn_case(gen, f"prefill 1x512x{shape}", q, k, v, zero))
+    cases = [_attn_case(gen, f"prefill 1x512x{shape}", q, k, v, zero)]
     # the same prompt in fp32: the 3xTF32 kernel (fp32 serving)
     cases.append(_attn_case(gen, f"prefill 1x512x{shape} float32", q.float(),
                             k.float(), v.float(), zero))
@@ -731,28 +759,24 @@ def phase_kernels(cfg) -> list:
     cases.append(_attn_case(gen, f"chunk 1x256x{shape}@256 vs slot row of "
                             f"8x{s_max}",
                             qc, ck[3:4], cv[3:4], off))
-    # decode: 8 slots x 1 query against the whole cache, random positions
+    # decode: 8 slots x 1 query against the whole cache, at random positions
+    # or all at one (511: the serve profile's shape)
     qd = rnd(8, 1, h, dh)
     pos = torch.randint(0, s_max, (8,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    cases.append(_attn_case(gen, f"decode 8x1 vs 8x{s_max}x{shape}", qd, ck, cv,
-                            pos))
-    # decode at the serve profile's shape: 8 slots at position 511
-    p511 = torch.full((8,), 511, dtype=torch.int32, device="cuda")
-    cases.append(_attn_case(gen, f"decode 8x1@511 vs 8x{s_max}x{shape}", qd,
-                            ck, cv, p511))
+    for dt, at in decodes:
+        tag = "" if dt == bf16 else " float32"
+        p = pos if at is None else torch.full((8,), at, dtype=torch.int32,
+                                               device="cuda")
+        where = "" if at is None else f"@{at}"
+        cases.append(_attn_case(gen, f"decode 8x1{where} vs "
+                                f"8x{s_max}x{shape}{tag}", qd.to(dt),
+                                ck.to(dt), cv.to(dt), p))
     _decode_row_alone(qd, ck, cv, pos)
     _chunk_equals_whole(q, k, v, ck, cv)
     _chunk_equals_whole(q.float(), k.float(), v.float(), ck.float(),
                         cv.float())
-    # training: the flagship's train batch, one of its sequences, and a
-    # ragged length (fp32: the 3xTF32 forward and dK/dV); then head dim 64
-    # (the n64 products) at one and two warpgroups a block, and head dim 32
-    # (padded to 64)
-    for b, s, hd, dt in ((8, s_max, dh, bf16), (1, s_max, dh, bf16),
-                         (1, 1000, dh, bf16), (1, s_max, dh, f32),
-                         (1, 1000, dh, f32), (1, 1000, 64, bf16),
-                         (2, s_max, 64, bf16), (1, 1000, 32, bf16)):
+    for b, s, hd, dt in trains:
         cases.extend(_train_cases(gen, b, s, h, hd, dt))
     # speculative verify (k = 4 drafts): 8 slots x 5 rows against the whole
     # cache at random positions, on the tensor-core forward
@@ -765,7 +789,6 @@ def phase_kernels(cfg) -> list:
             f"verify took {cases[-1]['kernel']}, not the tensor cores")
     # the int8 cache (KV8): the same cache quantized as decode stores it,
     # the same queries and positions (decode, verify, chunk)
-    from dpu_operator_tpu_torch.workloads.decode import _kv_quant
     (ckq, cks), (cvq, cvs) = _kv_quant(ck), _kv_quant(cv)
     kv8 = (ckq, cks, cvq, cvs)
     for dt, chunk_route in ((bf16, "attention_kv8_tc"),
@@ -779,11 +802,34 @@ def phase_kernels(cfg) -> list:
             f"chunk 1x256x{shape}@256 vs slot row of 8x{s_max}{tag}",
             qc.to(dt), tuple(t[3:4] for t in kv8), off, chunk_route))
     _kv8_decode_row_alone(qd, kv8, pos, qv, pv)
+    return cases
+
+
+def phase_kernels(cfg) -> list:
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1234)
+    bf16, f32 = torch.bfloat16, torch.float32
+    d = cfg.d_model
+    cases = [_rms_case(gen, rows, d, dt)
+             for rows, dt in ((8, bf16), (256, bf16), (512, bf16),
+                              (8, f32), (512, f32))]
+    dh, s_max = cfg.d_head, cfg.max_seq
+    # training: the flagship's train batch, one of its sequences, and a
+    # ragged length (fp32: the 3xTF32 forward and dK/dV); then head dim 64
+    # (the n64 products) at one and two warpgroups a block, and head dim 32
+    # (padded to 64)
+    cases.extend(_route_cases(
+        gen, cfg, ((bf16, None), (bf16, 511)),
+        ((8, s_max, dh, bf16), (1, s_max, dh, bf16), (1, 1000, dh, bf16),
+         (1, s_max, dh, f32), (1, 1000, dh, f32), (1, 1000, 64, bf16),
+         (2, s_max, 64, bf16), (1, 1000, 32, bf16))))
     # RMSNorm at the training shape (batch 8 x 1024 tokens)
     cases.append(_rms_case(gen, 8 * s_max, d, bf16))
     # the flash bench's shape (phase 9's measure_flash_attention):
     # 4 x 2048 x 8 x 128, causal from position 0
-    fb = [rnd(*FLASH_BENCH) for _ in range(3)]
+    fb = [torch.randn(FLASH_BENCH, generator=gen, device="cuda").to(bf16)
+          for _ in range(3)]
     cases.append(_attn_case(gen, "flash bench " + "x".join(
         map(str, FLASH_BENCH)), *fb, torch.zeros(FLASH_BENCH[0],
                                                 dtype=torch.int32,
@@ -791,6 +837,12 @@ def phase_kernels(cfg) -> list:
     require(cases[-1]["kernel"] == "attention_fwd_tc",
             f"the flash bench took {cases[-1]['kernel']}, not the tensor "
             "cores")
+    # every route again at head dim 256: decode in both types, the train
+    # batch in bf16 and one sequence in fp32
+    wide = wide_config(cfg)
+    cases.extend(_route_cases(
+        gen, wide, ((bf16, None), (f32, None)),
+        ((8, s_max, wide.d_head, bf16), (1, s_max, wide.d_head, f32))))
     _launch_floor()
     _int8_gemm_log(gen, cfg)
     log("[kernels] library for attention_kv8_*: SDPA with the same mask over "
@@ -2177,6 +2229,215 @@ def phase_measure(cfg) -> dict:
     return out
 
 
+# -- phase 10 -----------------------------------------------------------------
+#: phase 10's main path must launch each of these (every route of head dim
+#: 256: the flagship's bf16 serving, KV8 and training kernels, and the
+#: tiny fp32 config's 3xTF32, CUDA-core dQ, decode and KV8 kernels)
+WIDE_KERNELS = ("fused_rmsnorm", "attention_fwd_tc", "attention_fwd_decode",
+                "attention_kv8_rows", "attention_kv8_tc",
+                "attention_fwd_lse_tc", "attention_bwd_dq_tc",
+                "attention_bwd_dkv_tc", "attention_fwd_tf32",
+                "attention_fwd_lse_tf32", "attention_bwd_dq",
+                "attention_bwd_dkv_tf32", "attention_kv8_tiled")
+
+
+def _wide_serve(params, cfg) -> None:
+    """The head-dim-256 flagship served through ``Scheduler.step``: 6
+    requests on 4 slots with chunked prefill (batched decode, whose bf16
+    GEMMs run at other row counts than ``generate``'s, so each stream is
+    held to generate's tokens or to a near-tie within the teacher-forced
+    margin, as phase 5's), then 3 requests on one slot without chunks, the
+    shapes ``generate`` runs, whose streams must equal ``generate``'s token
+    for token."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import generate
+    rng = np.random.default_rng(256)
+    reqs = _requests(rng, 6, cfg.vocab, (40, 300), (16, 32))
+    sched, _ = _serve(params, cfg, reqs, slots=4, chunk=256, device="cuda")
+    _require_fault_free("head dim 256 serve", sched)
+    require(len(sched.completed) == len(reqs),
+            "head dim 256 serve incomplete")
+    require(sched.pool.outstanding() == 0,
+            "head dim 256 serve leaked KV blocks")
+    equal = 0
+    for r in reqs:
+        want = generate(params, cfg, torch.tensor([r.prompt]), r.output_len,
+                        device="cuda")[0].tolist()
+        equal += r.tokens == want
+        worst = _margin(params, cfg, r)
+        require(worst <= SERVE_LOGIT_TOL, f"head dim 256 serve {r.rid}: a "
+                f"served token is {worst:.4f} below the best logit")
+    log(f"[wide] serve, 4 slots, chunk 256: {len(reqs)} requests, "
+        f"{equal} streams equal generate token for token, every served "
+        f"token within the teacher-forced margin (tol {SERVE_LOGIT_TOL})")
+    one = _requests(rng, 3, cfg.vocab, (40, 300), (16, 32))
+    sched, _ = _serve(params, cfg, one, slots=1, chunk=0, device="cuda")
+    _require_fault_free("head dim 256 one-slot serve", sched)
+    for r in one:
+        want = generate(params, cfg, torch.tensor([r.prompt]), r.output_len,
+                        device="cuda")[0].tolist()
+        require(r.tokens == want, f"head dim 256 one-slot serve {r.rid}: "
+                f"stream {r.tokens} != generate {want}")
+    log(f"[wide] serve, 1 slot, whole prefill: {len(one)} requests, every "
+        "stream equals generate token for token")
+
+
+def _wide_quant(params, cfg) -> None:
+    """W8A8 + KV8 at head dim 256: a decode_step loop over an int8 cache
+    (the KV8 cluster kernel) equal to ``generate(kv_int8=True)``, and a KV8
+    chunked prefill (300 tokens in two chunks of 256 into slot 2 of 8: the
+    KV8 tensor-core kernel) whose continuation decodes to finite logits."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import (
+        decode_step, generate, init_kv_cache, prefill, prefill_chunk,
+        quantize_decode_params)
+    qparams = quantize_decode_params(params)
+    rng = np.random.default_rng(257)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).cuda()
+    steps = 24
+    want = generate(qparams, cfg, prompt, steps, device="cuda", kv_int8=True)
+    cache, logits = prefill(qparams, cfg, prompt, kv_int8=True)
+    pos = torch.full((2,), prompt.shape[1], dtype=torch.int32, device="cuda")
+    out = []
+    for i in range(steps):
+        tok = logits.argmax(-1)
+        out.append(tok)
+        logits, cache = decode_step(qparams, cfg, cache, tok, pos + i)
+    require(torch.equal(torch.stack(out, 1), want), "head dim 256: a W8A8 "
+            "+ KV8 decode_step loop differs from generate(kv_int8=True)")
+    cache = init_kv_cache(cfg, 8, device="cuda", kv_int8=True)
+    ids = rng.integers(0, cfg.vocab, 300)
+    for off in (0, 256):
+        chunk = np.zeros(256, np.int64)
+        n = min(256, len(ids) - off)
+        chunk[:n] = ids[off:off + n]
+        cache, lc = prefill_chunk(qparams, cfg, cache, 2,
+                                  torch.from_numpy(chunk), off, n)
+    last = torch.zeros(8, dtype=torch.int64, device="cuda")
+    last[2] = lc.argmax()
+    pos8 = torch.zeros(8, dtype=torch.int32, device="cuda")
+    pos8[2] = len(ids)
+    step, _ = decode_step(qparams, cfg, cache, last, pos8)
+    require(bool(torch.isfinite(step).all()), "head dim 256: KV8 decode "
+            "after a chunked prefill gave non-finite logits")
+    log(f"[wide] W8A8 + KV8: a decode_step loop ({steps} steps, 2 rows) "
+        "equals generate(kv_int8=True); a KV8 chunked prefill (300 tokens, "
+        "2 chunks of 256 into slot 2 of 8) decodes to finite logits")
+
+
+def _wide_train(cfg) -> None:
+    """Two AdamW steps of the head-dim-256 flagship at batch 8 x 1024:
+    each loss finite, every gradient leaf finite and non-zero."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import FLAGSHIP_BATCH
+    from dpu_operator_tpu_torch.workloads.train import (make_train_step,
+                                                        param_leaves)
+    step, init_state, place = make_train_step(cfg, device="cuda")
+    params, opt = init_state(1)
+    batch = place(make_example_batch(cfg, batch=FLAGSHIP_BATCH))
+    losses = []
+    for _ in range(2):
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+    require(all(np.isfinite(losses)), f"head dim 256 train: loss {losses}")
+    leaves = param_leaves(params)
+    for i, t in enumerate(leaves):
+        require(t.grad is not None and bool(torch.isfinite(t.grad).all())
+                and float(t.grad.abs().max()) > 0, f"head dim 256 train: "
+                f"gradient leaf {i} missing, non-finite or all zero")
+    log(f"[wide] train, batch {FLAGSHIP_BATCH}x{cfg.max_seq}: two steps, "
+        f"losses {losses[0]:.4f}, {losses[1]:.4f}; all {len(leaves)} "
+        "gradient leaves finite and non-zero")
+    del params, opt
+
+
+#: the tiny fp32 model's KV8 logits, card against CPU: each side quantizes
+#: K and V it computed in its own summation order, so an element within
+#: fp32 noise of an int8 rounding midpoint lands one int8 step (1/127 of its
+#: row's largest) apart, which moves a logit by about 1e-3 (1.34e-3 on the
+#: H100 at this config and seed); the streams themselves must be equal
+KV8_PARITY_TOL = 1e-2
+
+
+def _wide_tiny_parity() -> None:
+    """A tiny fp32 config at head dim 256 (d_model 512 over 2 heads) on the
+    card against the CPU, as phase 4 holds the default config: greedy
+    streams, logits and a serve (:func:`_parity`), one train step
+    (:func:`_train_parity`), and a KV8 chunked prefill (two chunks of 16
+    rows: the tiled KV8 kernel in fp32) with 8 greedy decode steps after it
+    (the KV8 cluster kernel): the tokens equal, the logits within
+    :data:`KV8_PARITY_TOL`."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import (
+        decode_step, init_kv_cache, prefill_chunk)
+    from dpu_operator_tpu_torch.workloads.model import TransformerConfig
+    cfg = TransformerConfig(vocab=512, d_model=512, n_heads=2, n_layers=2,
+                            d_ff=1024, max_seq=128, dtype=torch.float32)
+    p_cpu, p_gpu = _parity(cfg, 11, f"tiny fp32 at head dim {cfg.d_head}")
+    _train_parity(cfg, p_cpu)
+    ids = np.random.default_rng(12).integers(0, cfg.vocab, 30)
+    got = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = init_kv_cache(cfg, 2, device=dev, kv_int8=True)
+        for off in (0, 16):
+            chunk = np.zeros(16, np.int64)
+            n = min(16, len(ids) - off)
+            chunk[:n] = ids[off:off + n]
+            cache, lc = prefill_chunk(p, cfg, cache, 1,
+                                      torch.from_numpy(chunk), off, n)
+        logits, toks = [lc.cpu()], []
+        for i in range(8):
+            toks.append(int(logits[-1].argmax()))
+            last = torch.tensor([0, toks[-1]], device=dev)
+            pos = torch.tensor([0, len(ids) + i], dtype=torch.int32,
+                               device=dev)
+            step, _ = decode_step(p, cfg, cache, last, pos)
+            logits.append(step[1].cpu())
+        got[dev] = (toks, logits)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(got["cpu"][1], got["cuda"][1]))
+    log(f"[wide] tiny fp32 KV8 chunked prefill (2 chunks of 16) and 8 decode "
+        f"steps card vs CPU: tokens equal {got['cpu'][0] == got['cuda'][0]}, "
+        f"logits max |diff| {err:.3g} (tol {KV8_PARITY_TOL})")
+    require(got["cpu"][0] == got["cuda"][0], "tiny fp32 KV8: greedy tokens "
+            f"card {got['cuda'][0]} vs CPU {got['cpu'][0]}")
+    require(err <= KV8_PARITY_TOL, f"tiny fp32 KV8 chunked prefill: logits "
+            f"card vs CPU differ by {err}")
+
+
+def phase_wide(cfg) -> dict:
+    """The flagship at head dim 256 (:func:`wide_config`: bf16, random
+    weights from a seed) on the card: :func:`_wide_serve`,
+    :func:`_wide_quant`, :func:`_wide_train`, then
+    :func:`_wide_tiny_parity`; the launch counters are set to 0 before the
+    phase and read after it, and every route of :data:`WIDE_KERNELS` must
+    have launched. Returns the launches."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.model import init_params, param_bytes
+    t0 = time.monotonic()
+    reset_launch_counts()
+    params = init_params(0, cfg, device="cuda")
+    log(f"[wide] flagship at {cfg.n_heads} heads of {cfg.d_head}: "
+        f"{param_bytes(params) / 2 / 1e6:.1f}M parameters, d_model "
+        f"{cfg.d_model}, {cfg.n_layers} layers, bf16")
+    _wide_serve(params, cfg)
+    _wide_quant(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    _wide_train(cfg)
+    torch.cuda.empty_cache()
+    _wide_tiny_parity()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[wide] launches of the phase ({time.monotonic() - t0:.1f} s): "
+        f"{counts}")
+    for name in WIDE_KERNELS:
+        require(counts[name] > 0, f"head dim 256: {name} never launched")
+    return counts
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2217,14 +2478,19 @@ def main(argv: list) -> int:
     quant_counts = phase_quant(cfg)["launches"]
     torch.cuda.empty_cache()
     measure_counts = phase_measure(cfg)["launches"]
+    torch.cuda.empty_cache()
+    wide_counts = phase_wide(wide_config(cfg))
     # each kernel's launches on the main paths (the four serve runs, the
     # two chaos runs, the train run, the quantized phase and the
-    # measurement phase), each read from zero
+    # measurement phase), each read from zero; a head-dim-256 case's from
+    # phase 10, the path of that head dim
     counts = {k: counts[k] + train_counts[k] + quant_counts[k]
               + measure_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
-        "replaces": c["replaces"], "launches": counts[c["kernel"]],
+        "replaces": c["replaces"],
+        "launches": (wide_counts if c["head_dim"] == 256
+                     else counts)[c["kernel"]],
         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": c["library_ms"],

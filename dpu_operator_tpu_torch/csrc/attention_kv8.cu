@@ -42,7 +42,7 @@
 //   kernel too large for the instruction cache, left the decode shape at
 //   21-30 us; the per-CTA chain of dependent steps, not the memory, set
 //   the time.)
-// * tc (Sq > kRowsMax, bf16 at D 64 / 128: prefill chunks, wide verify):
+// * tc (Sq > kRowsMax, bf16 at D 64 / 128 / 256: prefill chunks, wide verify):
 //   attn_fwd_kv8_tc_kernel, attn_fwd_tc_kernel's structure (consumer
 //   warpgroups of 64 query rows, diagonal-only masking) with a converter
 //   warpgroup in the producer's place: it reads the int8 tiles one tile
@@ -111,8 +111,12 @@ __device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* f) {
 
 // ----------------------------------------------------------------- rows --
 //: CTAs of the rows kernel an SM must hold for the decode grid (8 slots x
-//: 12 heads x 8 CTAs) to run in one wave; it caps the registers at 72
-constexpr int kRowsCtasPerSm = 7;
+//: 12 heads x 8 CTAs) to run in one wave; it caps the registers at 72. At
+//: D 256 a lane's quarter of four int8 K rows alone takes 64 registers: 4
+//: CTAs an SM (128 registers) still hold the grid of the flagship's widths
+//: at head dim 256 (8 slots x 6 heads x 8 CTAs) in one wave
+template <int D>
+__host__ __device__ constexpr int rows_ctas_per_sm() { return D > 128 ? 4 : 7; }
 
 // barrier.cluster in two halves: arrive (release, or relaxed when it only
 // marks this CTA as running) and wait (acquire). Every thread of every CTA
@@ -199,7 +203,7 @@ struct RowsSmem {
 // barrier: a chunk past every row's keys contributes m = -inf, l = 0 and a
 // zero partial, with no early return.
 template <typename T, int D, int R>
-__global__ void __launch_bounds__(kRowsThreads, kRowsCtasPerSm)
+__global__ void __launch_bounds__(kRowsThreads, rows_ctas_per_sm<D>())
 attn_kv8_rows_kernel(AttnArgs a, KvScales sc, int nch, int nchl) {
   constexpr int P16 = D / 16;                       // 16-byte pieces of a key row
   constexpr int NP = std::is_same<T, float>::value ? 3 : 1;  // fp16 pieces of q
@@ -480,24 +484,27 @@ attn_kv8_rows_kernel(AttnArgs a, KvScales sc, int nch, int nchl) {
 }
 
 // ------------------------------------------------------------------- tc --
-constexpr int kKv8TcStages = 3;
 //: threads of the converter warpgroup
 constexpr int kConvThreads = 128;
 
 // Shared memory of attn_fwd_kv8_tc_kernel: the bf16 Q tile; a ring of
-// stages, each a converted bf16 K tile and V tile in the 128-byte swizzle;
-// each stage's k_s and v_s of its kBK keys; the barriers.
+// kStages stages, each a converted bf16 K tile and V tile in the 128-byte
+// swizzle; each stage's k_s and v_s of its kBK keys; the barriers. Three
+// stages, two at D 256, where a stage takes 64 KB (three would leave 1 KB of
+// the 227 KB; the O accumulator's 128 registers a thread allow one consumer
+// warpgroup there).
 template <int D, int NWG>
 struct TcKv8Smem {
+  static constexpr int kStages = D > 128 ? 2 : 3;
   static constexpr int kNH = D / 64;                     // 64-column blocks a row
   static constexpr uint32_t kQ = NWG * kNH * tc::kBlk;
   static constexpr uint32_t kTile = kNH * tc::kBlk;      // one converted tile
   static constexpr uint32_t kStage = 2 * kTile;          // K, then V
   static constexpr uint32_t kScales = 2 * kBK * 4;       // k_s, then v_s
-  static constexpr uint32_t kBars = (1 + 2 * kKv8TcStages) * 8;
+  static constexpr uint32_t kBars = (1 + 2 * kStages) * 8;
   // + 1024: the base is rounded up to the swizzle's 1024-byte period
   static constexpr size_t kBytes =
-      kQ + kKv8TcStages * (kStage + kScales) + kBars + 1024;
+      kQ + kStages * (kStage + kScales) + kBars + 1024;
 };
 
 // Four int8 (one 32-bit word) as two bf16x2, exactly (|x| <= 127 fits
@@ -542,6 +549,7 @@ attn_fwd_kv8_tc_kernel(const __grid_constant__ CUtensorMap tq, AttnArgs a, KvSca
   using L = TcKv8Smem<D, NWG>;
   constexpr int NH = L::kNH;
   constexpr int BM = 64 * NWG;
+  constexpr int kKv8TcStages = L::kStages;
   constexpr int NT = NWG * 128;                  // consumer threads
   constexpr int PPT = kBK * D / 16 / kConvThreads;  // 16-byte pieces a converter thread a tile
   extern __shared__ uint8_t kv8_smem[];
@@ -994,10 +1002,12 @@ cudaError_t launch_route(const AttnArgs& a, const KvScales& sc, int route, int t
   if (route == kRouteKv8Rows) return launch_rows_r<T, D>(a, sc, stream);
   if (route == kRouteKv8Tiled) return launch_tiled<T, D>(a, sc, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
-    if (tile_rows == 128) return launch_tc<D, 2>(a, sc, stream);
+    if constexpr (D != 256)
+      if (tile_rows == 128) return launch_tc<D, 2>(a, sc, stream);
     if (tile_rows == 64) return launch_tc<D, 1>(a, sc, stream);
   }
-  return cudaErrorInvalidValue;  // tc: bf16 at D 64 / 128, 64 or 128 rows a block
+  // tc: bf16 at D 64 / 128 (64 or 128 rows a block) or 256 (64 rows)
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1007,6 +1017,7 @@ cudaError_t launch_d(const AttnArgs& a, const KvScales& sc, int d, int route, in
     case 32: return launch_route<T, 32>(a, sc, route, tile_rows, stream);
     case 64: return launch_route<T, 64>(a, sc, route, tile_rows, stream);
     case 128: return launch_route<T, 128>(a, sc, route, tile_rows, stream);
+    case 256: return launch_route<T, 256>(a, sc, route, tile_rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1019,12 +1030,13 @@ extern "C" {
 // fp32, 1 bf16), k_q / v_q (B, Skv, H, D) int8, k_s / v_s (B, Skv, H, 1)
 // fp32; element strides for the batch, key (or row) and head dimensions of
 // q, k_q, k_s, v_q, v_s and o, in that order; q_pos0 (B,) int32 on the
-// device (read when causal). q, k_q, v_q and o 16-byte aligned with strides
-// of 16 bytes (the wrapper checks). route 1 (rows): 1 <= Sq <= kRowsMax,
-// chunk the kernel's kDecChunk, one cluster launch; route 2 (tc): bf16 at D
-// 64 or 128 with tile_rows 64 or 128 query rows a block; route 0 (tiled):
-// any Sq. Returns cudaGetLastError() (or the cluster launch's error), or an
-// error without launching when the arguments do not fit the route.
+// device (read when causal). D in {32, 64, 128, 256}. q, k_q, v_q and o
+// 16-byte aligned with strides of 16 bytes (the wrapper checks). route 1
+// (rows): 1 <= Sq <= kRowsMax, chunk the kernel's kDecChunk, one cluster
+// launch; route 2 (tc): bf16 at D 64 or 128 with tile_rows 64 or 128 query
+// rows a block, at D 256 with 64; route 0 (tiled): any Sq. Returns
+// cudaGetLastError() (or the cluster launch's error), or an error without
+// launching when the arguments do not fit the route.
 int attention_kv8(const void* q, const void* k_q, const void* k_s, const void* v_q,
                   const void* v_s, void* o, const void* q_pos0, int B, int Sq, int Skv,
                   int H, int D,

@@ -23,14 +23,16 @@
 //
 // Routes (the wrapper pads the head dim up to the route's next compiled D
 // and passes the true D's scales):
-// * dq in fp32 on the CUDA cores (route 0, D 32 / 64 / 128): one block per
+// * dq in fp32 on the CUDA cores (route 0, D 32 / 64 / 128 / 256): one block per
 //   (query tile of 32 rows, head, batch), 4 warps of 8 rows; walks 64-key
 //   tiles up to the tile's last row (causal), each lane two keys for the
 //   scores and D / 32 columns of dq.
-// * dkv in fp32 on the tensor cores (route 3, D 32 / 64 / 128):
+// * dkv in fp32 on the tensor cores (route 3, D 32 / 64 / 128 / 256):
 //   attn_bwd_dkv_tf32_kernel, 3xTF32 on mma.sync, below.
-// * dq and dkv in bf16 on the tensor cores (route 2, D 64 / 128):
-//   attn_bwd_dq_tc_kernel and attn_bwd_dkv_tc_kernel, below.
+// * dq and dkv in bf16 on the tensor cores (route 2, D 64 / 128 / 256):
+//   attn_bwd_dq_tc_kernel and attn_bwd_dkv_tc_kernel, below. At D 256 a
+//   block takes 64 query rows (dq: one warpgroup, 192 KB of shared memory)
+//   or 64 keys (dkv: two warpgroups that split the columns).
 //
 // Bound on the card: operations (dq: 6, dkv: 8 multiply-adds x 2 per
 // admitted (row, key) pair and head dimension). All kernels but the 3xTF32
@@ -201,7 +203,22 @@ attn_bwd_dq_kernel(BwdArgs a) {
 // query tile in order, and the two sums added once in a fixed order, so
 // gradients are the same from run to run. The wrapper takes 32-key blocks
 // (NW = 2) when 64-key blocks would not give every SM one.
+// At D 256 a warp's dK and dV for 16 keys would take 256 fp32 registers a
+// thread, so the two warps of a key group split the columns instead of the
+// query tiles: warp w holds columns DC (w / NW) .. + DC - 1 (DC = D / 2) of
+// its keys' dK and dV (128 registers, as at D 128), takes every query tile
+// and computes S^T and dP^T over the whole D (both warps alike: the same
+// products in the same order), and no sums are added at the end. Shared
+// memory holds 32-key blocks only (NW = 2: 200 KB).
 constexpr int kDBQ = 16;  // queries per staged tile
+
+//: the parts of the dK/dV accumulators' columns that the warps of a key
+//: group (3xTF32) or the warpgroups of a key tile (tensor cores) split
+//: between them: 2 at D 256, where one holds half the registers' worth;
+//: else 1 (the 3xTF32 kernel's warps split the query tiles, the tensor-core
+//: kernel's warpgroups the keys)
+template <int D>
+__host__ __device__ constexpr int dkv_col_split() { return D > 128 ? 2 : 1; }
 
 template <int D, int NW>
 struct Tf32DkvSmem {
@@ -213,14 +230,16 @@ struct Tf32DkvSmem {
   static constexpr size_t kStages = 4 * kTile;
   static constexpr size_t kBytes = (2 * kKV + kStages) * sizeof(float);
   // the odd half's dK and dV sums at the end, in the stages' place
-  static_assert(2 * (D / 2) * 32 * NW <= kStages, "reduction space");
+  static_assert(dkv_col_split<D>() > 1 || 2 * (D / 2) * 32 * NW <= kStages,
+                "reduction space");
 };
 
 template <int D, int NW>
 __global__ void __launch_bounds__(2 * NW * 32)
 attn_bwd_dkv_tf32_kernel(BwdArgs a) {
   using L = Tf32DkvSmem<D, NW>;
-  constexpr int NT = 2 * NW * 32, LD = L::kLd, BK = 16 * NW, NN = D / 8;
+  constexpr int CS = dkv_col_split<D>();
+  constexpr int NT = 2 * NW * 32, LD = L::kLd, BK = 16 * NW, DC = D / CS, NN = DC / 8;
   extern __shared__ float4 smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* vs = ks + L::kKV;
@@ -262,7 +281,9 @@ attn_bwd_dkv_tf32_kernel(BwdArgs a) {
   tf32::cp_commit();  // K, V and the first pair
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // half: the warp's query-tile parity (CS 1) or column half (CS 2)
   const int kg = warp % NW, half = warp / NW;
+  const int col0 = CS > 1 ? half * DC : 0;  // the warp's first dK / dV column
   const int g = lane >> 2, t = lane & 3;
   const int kw = k0 + 16 * kg;  // the warp's first key
   // query tiles before the warp's first key contribute nothing
@@ -284,68 +305,93 @@ attn_bwd_dkv_tf32_kernel(BwdArgs a) {
     tf32::cp_commit();
     tf32::cp_wait<1>();  // pair i (and K / V) landed for this thread ...
     __syncthreads();     // ... and for every thread
-    const int qt = qt0 + 2 * i + half;
-    if (kw < a.S && qt >= qt_w && qt < nqt) {
-      const float* qs = stg + ((i & 1) * 2 + half) * L::kTile;
-      const float* dos = qs + kDBQ * LD;
-      const float* l2s = qs + 2 * kDBQ * LD;
-      const float* dls = l2s + kDBQ;
-      // S^T (keys x queries) and dP^T, 8 queries a fragment
-      float st[2][4], dp[2][4];
-      {
-        float sb[2][4], ss[2][4], pb[2][4], pss[2][4];
+    // query tile `sub` of pair i (0: the even tile, 1: the odd one)
+    auto tile = [&](int sub) {
+      const int qt = qt0 + 2 * i + sub;
+      if (kw < a.S && qt >= qt_w && qt < nqt) {
+        const float* qs = stg + ((i & 1) * 2 + sub) * L::kTile;
+        const float* dos = qs + kDBQ * LD;
+        const float* l2s = qs + 2 * kDBQ * LD;
+        const float* dls = l2s + kDBQ;
+        // S^T (keys x queries) and dP^T, 8 queries a fragment
+        float st[2][4], dp[2][4];
+        {
+          float sb[2][4], ss[2][4], pb[2][4], pss[2][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = pb[j][e] = pss[j][e] = 0.f;
+            for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = pb[j][e] = pss[j][e] = 0.f;
 #pragma unroll 2
-        for (int kk = 0; kk < D / 8; ++kk) {
-          const tf32::Frag<4> fk = tf32::load_a(kws + 8 * kk, LD, g, t);
-          const tf32::Frag<4> fv = tf32::load_a(vws + 8 * kk, LD, g, t);
+          for (int kk = 0; kk < D / 8; ++kk) {
+            const tf32::Frag<4> fk = tf32::load_a(kws + 8 * kk, LD, g, t);
+            const tf32::Frag<4> fv = tf32::load_a(vws + 8 * kk, LD, g, t);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            tf32::mma3_split(sb[j], ss[j], fk,
-                             tf32::load_b_nrow(qs + 8 * j * LD + 8 * kk, LD, g, t));
-            tf32::mma3_split(pb[j], pss[j], fv,
-                             tf32::load_b_nrow(dos + 8 * j * LD + 8 * kk, LD, g, t));
+            for (int j = 0; j < 2; ++j) {
+              tf32::mma3_split(sb[j], ss[j], fk,
+                               tf32::load_b_nrow(qs + 8 * j * LD + 8 * kk, LD, g, t));
+              tf32::mma3_split(pb[j], pss[j], fv,
+                               tf32::load_b_nrow(dos + 8 * j * LD + 8 * kk, LD, g, t));
+            }
           }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              st[j][e] = sb[j][e] + ss[j][e];
+              dp[j][e] = pb[j][e] + pss[j][e];
+            }
         }
+        // P^T and dS^T in place of S^T and dP^T
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            st[j][e] = sb[j][e] + ss[j][e];
-            dp[j][e] = pb[j][e] + pss[j][e];
+            const int qi = 8 * j + 2 * t + (e & 1);  // query within the tile
+            const int qa = qt * kDBQ + qi;
+            const int kr = key[e >> 1];
+            const bool ok = kr < a.S && qa < a.S && !(a.causal && kr > qa);
+            const float p = ok ? exp2f(st[j][e] * a.scale2 - l2s[qi] * kLog2e) : 0.f;
+            st[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - dls[qi]) * a.sm_scale;
           }
-      }
-      // P^T and dS^T in place of S^T and dP^T
+        // dV += P^T dO and dK += dS^T Q, queries 8 j .. 8 j + 7 a k-step
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < 2; ++j) {
+          const tf32::Frag<4> fp = tf32::acc_to_a(st[j]);
+          const tf32::Frag<4> fs = tf32::acc_to_a(dp[j]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * t + (e & 1);  // query within the tile
-          const int qa = qt * kDBQ + qi;
-          const int kr = key[e >> 1];
-          const bool ok = kr < a.S && qa < a.S && !(a.causal && kr > qa);
-          const float p = ok ? exp2f(st[j][e] * a.scale2 - l2s[qi] * kLog2e) : 0.f;
-          st[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dls[qi]) * a.sm_scale;
-        }
-      // dV += P^T dO and dK += dS^T Q, queries 8 j .. 8 j + 7 a k-step
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const tf32::Frag<4> fp = tf32::acc_to_a(st[j]);
-        const tf32::Frag<4> fs = tf32::acc_to_a(dp[j]);
-#pragma unroll
-        for (int n = 0; n < NN; ++n) {
-          tf32::mma3(dv[n], fp, tf32::load_b_krow(dos + 8 * j * LD + 8 * n, LD, g, t));
-          tf32::mma3(dk[n], fs, tf32::load_b_krow(qs + 8 * j * LD + 8 * n, LD, g, t));
+          for (int n = 0; n < NN; ++n) {
+            tf32::mma3(dv[n], fp, tf32::load_b_krow(dos + 8 * j * LD + col0 + 8 * n, LD, g, t));
+            tf32::mma3(dk[n], fs, tf32::load_b_krow(qs + 8 * j * LD + col0 + 8 * n, LD, g, t));
+          }
         }
       }
+    };
+    if constexpr (CS > 1) {  // both tiles, in order
+      tile(0);
+      tile(1);
+    } else {                 // the tile of the warp's parity
+      tile(half);
     }
     __syncthreads();  // every warp is done with this buffer before it refills
   }
   tf32::cp_wait<0>();
+  if constexpr (CS > 1) {  // each warp writes its own columns
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (key[r] >= a.S) continue;
+      const long long off = b * a.g_sb + h * a.g_sh +
+                            static_cast<long long>(key[r]) * a.g_ss + col0 + 2 * t;
+      float* gk = static_cast<float*>(a.dk) + off;
+      float* gv = static_cast<float*>(a.dv) + off;
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        *reinterpret_cast<float2*>(gk + 8 * n) = make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(gv + 8 * n) = make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+    return;
+  }
   __syncthreads();  // the stages are free: the odd half's sums go there
 
   float* red = stg + kg * 2 * (D / 2) * 32;  // [dK, dV][D / 2][32 lanes]
@@ -410,7 +456,7 @@ __device__ __forceinline__ void patch_bf16(uint32_t (&v)[4][4], int slot, int hi
 }
 
 // ------------------------------------------------------ dq, tensor cores --
-// attn_bwd_dq_tc_kernel: dQ in bf16 at D 64 / 128 on wgmma, the dK/dV
+// attn_bwd_dq_tc_kernel: dQ in bf16 at D 64 / 128 / 256 on wgmma, the dK/dV
 // kernel's structure with the roles of queries and keys swapped. One block
 // per (query tile of 64 NWG rows, head, batch): NWG consumer warpgroups of 64
 // rows each and one producer warp. The producer loads the block's Q and dO
@@ -433,7 +479,9 @@ __device__ __forceinline__ void patch_bf16(uint32_t (&v)[4][4], int slot, int hi
 // No atomics: each dQ element is summed by one warpgroup, key tile by key
 // tile in order, so dQ is the same from run to run. The accumulator takes
 // D / 2 fp32 registers a thread besides 64 for S and dP, which fits the
-// 288-thread block's share without a setmaxnreg split.
+// 288-thread block's share without a setmaxnreg split. At D 256 (128 of
+// them) the block holds one warpgroup: its Q, dO and two K / V stages take
+// 192 KB, two warpgroups' 256 KB.
 constexpr int kDqStages = 2;
 
 template <int D, int NWG>
@@ -627,9 +675,9 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ----------------------------------------------------- dkv, tensor cores --
-// attn_bwd_dkv_tc_kernel: dK and dV in bf16 at D 64 / 128 on wgmma. One
+// attn_bwd_dkv_tc_kernel: dK and dV in bf16 at D 64 / 128 / 256 on wgmma. One
 // block per (key tile of 64 NWG keys, head, batch): NWG consumer warpgroups
-// of 64 keys each and one producer warp. K and V are loaded once; the
+// of 64 keys each and one producer warp (at D 256: below). K and V are loaded once; the
 // producer streams 64-row tiles of Q and dO by TMA, with their lse * log2 e
 // and delta (loaded by the producer's lanes: a (B, H, S) fp32 row of ragged
 // S breaks TMA's 16-byte stride rule), through a ring of kDkvStages,
@@ -659,16 +707,31 @@ attn_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
 // which lowers its limit to kProducerRegs so that the consumers can raise
 // theirs to kConsumerRegs; only its first warp works. With one consumer
 // warpgroup the block is 160 threads and needs no split.
+// At D 256 the accumulators of 64 keys would take 256 fp32 registers a
+// thread in one warpgroup, so the two consumer warpgroups share the block's
+// 64 keys and split the columns (FlashAttention-3's head-dim-256 backward
+// splits the same way): warpgroup w holds columns 128 w .. 128 w + 127 of
+// dK and dV (128 registers, as at D 128), and both compute S^T and dP^T
+// over the whole D, the same products in the same order (so the same P, dS
+// and re-decided roundings). Shared memory: K and V of 64 keys and two
+// stages of Q and dO, 192 KB.
 constexpr int kKBQ = 64;  // queries per tile
 constexpr int kDkvStages = 2;
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 template <int NWG>
-constexpr int dkv_threads() { return NWG * 128 + (NWG == 2 ? 128 : 32); }
+__host__ __device__ constexpr int dkv_threads() { return NWG * 128 + (NWG == 2 ? 128 : 32); }
+//: keys a block of attn_bwd_dkv_tc_kernel<D, NWG>
+template <int D, int NWG>
+__host__ __device__ constexpr int dkv_tc_keys() {
+  return dkv_col_split<D>() > 1 ? 64 : 64 * NWG;
+}
 
 template <int D, int NWG>
 struct TcDkvSmem {
+  static_assert(dkv_col_split<D>() == 1 || NWG == 2, "D 256: two warpgroups");
   static constexpr int kNH = D / 64;                      // 64-column blocks a row
-  static constexpr uint32_t kKV = NWG * kNH * tc::kBlk;   // K of the block's keys (V alike)
+  // K of the block's keys (V alike)
+  static constexpr uint32_t kKV = dkv_tc_keys<D, NWG>() / 64 * kNH * tc::kBlk;
   static constexpr uint32_t kStage = 2 * kNH * tc::kBlk;  // Q blocks, then dO
   static constexpr uint32_t kStats = 2 * 64 * 4;          // lse * log2 e, then delta
   static constexpr uint32_t kBars = (1 + 2 * kDkvStages) * 8;
@@ -685,7 +748,9 @@ attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tdo, BwdArgs a) {
   using L = TcDkvSmem<D, NWG>;
   constexpr int NH = L::kNH;
-  constexpr int BK = 64 * NWG;
+  constexpr bool kColSplit = dkv_col_split<D>() > 1;
+  constexpr int BK = dkv_tc_keys<D, NWG>();
+  constexpr int DC = kColSplit ? D / NWG : D;  // dK / dV columns a warpgroup holds
   extern __shared__ uint8_t tc_smem[];
   uint8_t* ks = tc::align_1024(tc_smem);
   uint8_t* vs = ks + L::kKV;
@@ -759,7 +824,8 @@ attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int w = threadIdx.x >> 7;           // consumer warpgroup
     const int warp = (threadIdx.x >> 5) & 3;  // warp in the warpgroup
     const int lane = threadIdx.x & 31;
-    const int kw = k0 + 64 * w;               // the warpgroup's first key
+    const int kw = kColSplit ? k0 : k0 + 64 * w;  // the warpgroup's first key
+    const int col0 = kColSplit ? DC * w : 0;       // ... and its first column
     const bool has_keys = kw < a.S;
     const int qt_w = a.causal ? kw / kKBQ : 0;
     // this thread's keys (rows of S^T) kw + lr and kw + lr + 8, and its
@@ -767,14 +833,14 @@ attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int lr = 16 * warp + (lane >> 2);
     const int c0 = 2 * (lane & 3);
     const int key[2] = {kw + lr, kw + lr + 8};
-    const uint8_t* kws = ks + w * NH * tc::kBlk;
-    const uint8_t* vws = vs + w * NH * tc::kBlk;
+    const uint8_t* kws = ks + (kColSplit ? 0 : w) * NH * tc::kBlk;
+    const uint8_t* vws = vs + (kColSplit ? 0 : w) * NH * tc::kBlk;
     // relative error of P from an error of kDotErr in S (exp2 domain)
     const float p_rel = 0.6931472f * a.scale2 * kDotErr;
 
-    float dk[D / 2], dv[D / 2];
+    float dk[DC / 2], dv[DC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.f;
     if (has_keys) tc::mbar_wait(full_kv, 0);
 
     for (int qt = qt0; qt < nqt; ++qt) {
@@ -843,11 +909,14 @@ attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
           patch_bf16(pa, slot, e & 1, p);
           patch_bf16(da, slot, e & 1, ds);
         }
+        // the warpgroup's columns of dO and Q (64-column blocks kBlk apart)
+        const uint8_t* dob = dos + col0 / 64 * tc::kBlk;
+        const uint8_t* qb = qs + col0 / 64 * tc::kBlk;
         tc::wg_fence();
 #pragma unroll
-        for (int t = 0; t < 4; ++t) tc::mma_rs<D, 1>(dv, pa[t], tc::desc_t(dos, t), 1);
+        for (int t = 0; t < 4; ++t) tc::mma_rs<DC, 1>(dv, pa[t], tc::desc_t(dob, t), 1);
 #pragma unroll
-        for (int t = 0; t < 4; ++t) tc::mma_rs<D, 1>(dk, da[t], tc::desc_t(qs, t), 1);
+        for (int t = 0; t < 4; ++t) tc::mma_rs<DC, 1>(dk, da[t], tc::desc_t(qb, t), 1);
         tc::wg_commit();
         tc::wg_wait<0>();
         tc::fence_regs(dv);
@@ -865,11 +934,11 @@ attn_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       if (!has_keys || key[r] >= a.S) continue;
       const long long off = b * a.g_sb + h * a.g_sh +
-                            static_cast<long long>(key[r]) * a.g_ss + c0;
+                            static_cast<long long>(key[r]) * a.g_ss + col0 + c0;
       __nv_bfloat16* gk = static_cast<__nv_bfloat16*>(a.dk) + off;
       __nv_bfloat16* gv = static_cast<__nv_bfloat16*>(a.dv) + off;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DC / 8; ++j) {
         *reinterpret_cast<__nv_bfloat162*>(gk + 8 * j) =
             __floats2bfloat162_rn(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
         *reinterpret_cast<__nv_bfloat162*>(gv + 8 * j) =
@@ -932,6 +1001,8 @@ cudaError_t launch_dkv_tf32_d(const BwdArgs& a, int d, int tile_keys, cudaStream
     case 32: return launch_dkv_tf32_keys<32>(a, tile_keys, s);
     case 64: return launch_dkv_tf32_keys<64>(a, tile_keys, s);
     case 128: return launch_dkv_tf32_keys<128>(a, tile_keys, s);
+    // D 256: 32-key blocks only (64 would take 266 KB of shared memory)
+    case 256: return tile_keys == 32 ? launch_dkv_tf32<256, 2>(a, s) : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -959,7 +1030,8 @@ cudaError_t launch_dkv_tc(const BwdArgs& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   if (!encode_maps(a, D, &tq, &tk, &tv, &tdo))
     return static_cast<cudaError_t>(port::kErrTensorMap);
-  const dim3 grid((a.S + 64 * NWG - 1) / (64 * NWG), a.H, a.B);
+  constexpr int BK = dkv_tc_keys<D, NWG>();
+  const dim3 grid((a.S + BK - 1) / BK, a.H, a.B);
   attn_bwd_dkv_tc_kernel<D, NWG><<<grid, dkv_threads<NWG>(), L::kBytes, stream>>>(
       tq, tk, tv, tdo, a);
   return cudaGetLastError();
@@ -991,6 +1063,10 @@ cudaError_t launch_tc_d(const BwdArgs& a, int d, int tile_rows, bool dkv,
   if (tile_rows == 128 && d == 128) return launch_tc<128, 2>(a, dkv, s);
   if (tile_rows == 64 && d == 64) return launch_tc<64, 1>(a, dkv, s);
   if (tile_rows == 64 && d == 128) return launch_tc<128, 1>(a, dkv, s);
+  // D 256, 64 rows (dQ) or keys (dK/dV) a block: dQ on one warpgroup, dK/dV
+  // on two that split the columns
+  if (tile_rows == 64 && d == 256)
+    return dkv ? launch_dkv_tc<256, 2>(a, s) : launch_dq_tc<256, 1>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -999,6 +1075,7 @@ cudaError_t launch_dq_d(const BwdArgs& a, int d, cudaStream_t s) {
     case 32: return launch_dq<32>(a, s);
     case 64: return launch_dq<64>(a, s);
     case 128: return launch_dq<128>(a, s);
+    case 256: return launch_dq<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1027,12 +1104,13 @@ extern "C" {
 
 // q, k, v, dout (B, S, H, D) with element strides for the batch, sequence
 // and head dimensions (last dimension contiguous); lse, delta (B, H, S) fp32
-// contiguous; dq (and dk, dv) written with strides g_*. D in {32, 64, 128};
-// every pointer 16-byte aligned and every stride a multiple of 16 bytes (the
-// wrapper checks). dtype: 0 fp32, 1 bf16. Each returns cudaGetLastError().
-// route: 0 the CUDA-core dq kernel (fp32), 2 the tensor cores (bf16, D 64
-// or 128) with tile_rows 64 or 128 query rows (dq) or keys (dkv) a block, 3
-// the 3xTF32 dkv kernel (fp32) with tile_rows 32 or 64 keys a block.
+// contiguous; dq (and dk, dv) written with strides g_*. D in {32, 64, 128,
+// 256}; every pointer 16-byte aligned and every stride a multiple of 16 bytes
+// (the wrapper checks). dtype: 0 fp32, 1 bf16. Each returns
+// cudaGetLastError(). route: 0 the CUDA-core dq kernel (fp32), 2 the tensor
+// cores (bf16, D 64, 128 or 256) with tile_rows 64 or 128 query rows (dq) or
+// keys (dkv) a block (64 at D 256), 3 the 3xTF32 dkv kernel (fp32) with
+// tile_rows 32 or 64 keys a block (32 at D 256).
 int attention_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int S, int H, int D,

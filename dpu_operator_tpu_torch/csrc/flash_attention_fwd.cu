@@ -22,10 +22,11 @@
 //
 // Three routes; the wrapper picks one (and pads the head dim up to the
 // route's next compiled D, scaling by the true D's 1 / sqrt(D)):
-// * tensor cores in bf16 (route 2: Sq > 1 or with the lse, D 64 or 128):
-//   attn_fwd_tc_kernel, below.
+// * tensor cores in bf16 (route 2: Sq > 1 or with the lse, D 64, 128 or
+//   256): attn_fwd_tc_kernel, below.
 // * tensor cores in fp32 (route 3: Sq > 1 or with the lse, D 32, 64 or
-//   128): attn_fwd_tf32_kernel, 3xTF32 on mma.sync, below.
+//   128): attn_fwd_tf32_kernel, 3xTF32 on TF32 wgmma; D 256:
+//   attn_fwd_tf32_wide_kernel, 3xTF32 on mma.sync; below.
 // * decode (Sq == 1 without the lse; its own entry point, attention_decode):
 //   attn_decode_split_kernel splits each row's keys into fixed chunks across
 //   blocks, attn_decode_combine_kernel folds the chunks' partials; below.
@@ -361,6 +362,182 @@ attn_fwd_tf32_kernel(AttnArgs a) {
   }
 }
 
+// attn_fwd_tf32_wide_kernel: the fp32 forward at head dim 256, where
+// attn_fwd_tf32_kernel's split tiles do not fit: Q's hi and lo parts alone
+// take 128 KB, two split sets of K and V^T 256 KB more. Same function and
+// bound, on mma.sync m16n8k8 in 3xTF32 with fragments read from fp32 tiles
+// in shared memory (attn_bwd_dkv_tf32_kernel's building blocks, tf32.cuh).
+// One block of 4 warps per (query tile of kWideBQ rows, head, batch),
+// heaviest tiles first; warp w owns rows 16 w .. 16 w + 15 (one m16 row
+// block). Q stays fp32 in shared memory; key tiles of kWideBK keys (K, then
+// V) are staged by cp.async into two buffers, tile kb + 1 loading while
+// tile kb is multiplied. Per key tile a warp takes
+//   S = Q K^T over D / 8 k-steps, each Q and K fragment split into TF32 hi /
+//   lo parts as it is loaded;
+//   the online softmax in registers on the tiles that cross the diagonal or
+//   the ragged edge only masked (the n_full / nkb split), max and sum over
+//   the four lanes of a quad (they share a row); P stays fp32;
+//   O += P V: P from the S accumulator as the A operand with its k index
+//   permuted (acc_to_a), V read with its rows as the permuted k index
+//   (load_b_krow), over D / 8 output fragments: O is 128 fp32 registers a
+//   thread.
+// Key tiles stay anchored at key 0 and a row's arithmetic involves no other
+// row, so chunked prefill equals whole prefill bit for bit. Shared memory:
+// Q 66.5 KB and two K / V buffers of 66.5 KB (rows of D + 4 floats, free of
+// bank conflicts for every fragment load): 200 KB, one block an SM.
+constexpr int kWideBQ = 64;  // query rows a block: 4 warps of 16
+constexpr int kWideBK = 32;  // keys a tile
+
+template <int D>
+struct Tf32WideSmem {
+  static constexpr int kLd = D + 4;  // floats a staged row
+  static constexpr size_t kQ = static_cast<size_t>(kWideBQ) * kLd;
+  static constexpr size_t kTile = 2 * static_cast<size_t>(kWideBK) * kLd;  // K, then V
+  static constexpr size_t kBytes = (kQ + 2 * kTile) * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+attn_fwd_tf32_wide_kernel(AttnArgs a) {
+  using L = Tf32WideSmem<D>;
+  constexpr int LD = L::kLd, NN = D / 8, NJ = kWideBK / 8;
+  extern __shared__ float4 wide_smem[];
+  float* qs = reinterpret_cast<float*>(wide_smem);
+  float* kvs = qs + L::kQ;  // [2][K, V][kWideBK][LD]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kWideBQ;  // heaviest tiles first
+  const int nrows = min(kWideBQ, a.Sq - r0);
+  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
+  const int nkb_all = (a.Skv + kWideBK - 1) / kWideBK;
+  const int p_lo = pos0 + r0, p_hi = pos0 + r0 + nrows - 1;
+  const int nkb = a.causal ? min(nkb_all, p_hi / kWideBK + 1) : nkb_all;
+  // tiles wholly at or below the block's first row need no mask
+  int n_full = a.Skv / kWideBK;
+  if (a.causal) n_full = min(n_full, (p_lo + 1) / kWideBK);
+  n_full = min(n_full, nkb);
+
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  auto stage = [&](int kb) {  // key tile kb into buffer kb % 2
+    float* dst = kvs + (kb & 1) * L::kTile;
+    const int j0 = kb * kWideBK, valid = min(kWideBK, a.Skv - j0);
+    tf32::stage_rows<D, 128>(dst, k + j0 * a.k_ss, a.k_ss, kWideBK, valid);
+    tf32::stage_rows<D, 128>(dst + kWideBK * LD, v + j0 * a.v_ss, a.v_ss, kWideBK, valid);
+  };
+  tf32::stage_rows<D, 128>(qs, static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh +
+                                   r0 * a.q_ss, a.q_ss, kWideBQ, nrows);
+  stage(0);
+  tf32::cp_commit();  // Q and key tile 0
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this thread's rows 16 w + g and 16 w + g + 8 of the tile, and its keys
+  // 8 j + 2 t (+ 1) of every key tile (the accumulator map)
+  const int lr = 16 * warp + g;
+  const int prow[2] = {pos0 + r0 + lr, pos0 + r0 + lr + 8};
+  const float* qw = qs + 16 * warp * LD;
+
+  float o[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    if (kb + 1 < nkb) stage(kb + 1);
+    tf32::cp_commit();
+    tf32::cp_wait<1>();  // tile kb (and Q) landed for this thread ...
+    __syncthreads();     // ... and for every thread
+    const float* ks = kvs + (kb & 1) * L::kTile;
+    const float* vs = ks + kWideBK * LD;
+    float sc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const tf32::Frag<4> fq = tf32::load_a(qw + 8 * kk, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        tf32::mma3(sc[j], fq, tf32::load_b_nrow(ks + 8 * j * LD + 8 * kk, LD, g, t));
+    }
+
+    const int j0 = kb * kWideBK;
+    const bool masked = kb >= n_full;  // only diagonal / ragged tiles
+    float bm[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j0 + 8 * j + 2 * t + (e & 1);
+        float x = sc[j][e] * a.scale2;
+        if (masked && (col >= a.Skv || (a.causal && col > prow[e >> 1]))) x = kNegInf;
+        sc[j][e] = x;
+        bm[e >> 1] = fmaxf(bm[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 1));
+      bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 2));
+      const float mn = fmaxf(m[r], bm[r]);
+      corr[r] = exp2f(m[r] - mn);
+      m[r] = mn;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2f(sc[j][e] - m[e >> 1]);
+        ps[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      l[r] = l[r] * corr[r] + ps[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // O += P V, keys 8 j .. 8 j + 7 a k-step
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const tf32::Frag<4> fp = tf32::acc_to_a(sc[j]);
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+        tf32::mma3(o[n], fp, tf32::load_b_krow(vs + 8 * j * LD + 8 * n, LD, g, t));
+    }
+    __syncthreads();  // every warp is done with this buffer before it refills
+  }
+  tf32::cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = lr + 8 * r;
+    if (row >= nrows) continue;
+    const float denom = fmaxf(l[r], 1e-20f);
+    float* orow = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
+                  static_cast<long long>(r0 + row) * a.o_ss + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    // m and l are equal on the four lanes of the quad; one writes
+    if (a.lse != nullptr && t == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + r0 + row] =
+          (m[r] + log2f(denom)) / kLog2e;
+  }
+}
+
 // --------------------------------------------------------------- decode --
 // One query row without the lse (decode, verify at width 1), split over
 // keys. A row's admitted keys, min(q_pos0[b] + 1, Skv) when causal, are cut
@@ -373,8 +550,10 @@ attn_fwd_tf32_kernel(AttnArgs a) {
 // cache rows (all heads of a key lie together) at about the same time. Warp
 // w takes keys [16 w, 16 w + 16) of the chunk. A key row of D elements is
 // read by LPK neighbouring lanes, 16 bytes each (at D 128 in bf16, 16 lanes a
-// 256-byte row: one warp-wide load serves two keys), and its score summed by
-// shuffles inside the lane group; V is read the same way for the PV sum.
+// 256-byte row: one warp-wide load serves two keys; a row of more than 32
+// pieces, D 256 in fp32, takes PPL pieces a lane, 32 lanes apart), and its
+// score summed by shuffles inside the lane group; V is read the same way for
+// the PV sum.
 // (Of the shapes tried on the H100, 4 warps of 32 keys in a chunk-major grid,
 // with or without every load held in registers, 16 warps of 8 keys, chunks
 // of 32, 64 and 256 keys, and the combine folded into the last block of a
@@ -393,7 +572,9 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kDecWarps * 32)
 attn_decode_split_kernel(AttnArgs a, float* part) {
   constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte piece
-  constexpr int LPK = D / VEC;         // lanes that read one key row
+  constexpr int PIECES = D / VEC;      // 16-byte pieces of a key row
+  constexpr int LPK = PIECES < 32 ? PIECES : 32;  // lanes that read one key row
+  constexpr int PPL = PIECES / LPK;    // pieces a lane reads of a row
   constexpr int KPL = 32 / LPK;        // keys of one warp-wide load
   constexpr int NG = kDecKeysPerWarp / KPL;  // loads for the warp's keys
   using P = port::Pack<T, VEC>;
@@ -405,12 +586,15 @@ attn_decode_split_kernel(AttnArgs a, float* part) {
   const int k0 = c * kDecChunk;
   if (k0 >= n_keys) return;  // past the row's keys: no partial
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane % LPK;  // this lane's piece of a row
+  const int sub = lane % LPK;  // this lane's piece of a row (and sub + LPK p)
   const int kw = k0 + kDecKeysPerWarp * warp + lane / LPK;  // its key of load 0
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh + sub * VEC;
   const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh + sub * VEC;
-  const P qp = *reinterpret_cast<const P*>(q + sub * VEC);
+  P qp[PPL];
+#pragma unroll
+  for (int p = 0; p < PPL; ++p)
+    qp[p] = *reinterpret_cast<const P*>(q + (sub + LPK * p) * VEC);
 
   float s[NG];
 #pragma unroll
@@ -418,9 +602,13 @@ attn_decode_split_kernel(AttnArgs a, float* part) {
     const int key = kw + g * KPL;
     float dot = 0.f;
     if (key < n_keys) {
-      const P kp = *reinterpret_cast<const P*>(k + key * a.k_ss);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) dot = fmaf(port::to_f(qp.v[e]), port::to_f(kp.v[e]), dot);
+      for (int p = 0; p < PPL; ++p) {
+        const P kp = *reinterpret_cast<const P*>(k + key * a.k_ss + LPK * VEC * p);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          dot = fmaf(port::to_f(qp[p].v[e]), port::to_f(kp.v[e]), dot);
+      }
     }
     s[g] = dot;
   }
@@ -439,20 +627,24 @@ attn_decode_split_kernel(AttnArgs a, float* part) {
 #pragma unroll
   for (int w = 1; w < kDecWarps; ++w) m = fmaxf(m, wm[w]);  // finite: k0 < n_keys
 
-  float l = 0.f, acc[VEC];
+  float l = 0.f, acc[PPL * VEC];
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int e = 0; e < PPL * VEC; ++e) acc[e] = 0.f;
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
     const int key = kw + g * KPL;
     if (key < n_keys) {
-      const float p = exp2f(s[g] - m);
-      l += p;
+      const float pr = exp2f(s[g] - m);
+      l += pr;
       // P enters the PV product in the input type (bf16 P on bf16 inputs)
-      const float pb = port::round_to<T>(p);
-      const P vp = *reinterpret_cast<const P*>(v + key * a.v_ss);
+      const float pb = port::round_to<T>(pr);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(pb, port::to_f(vp.v[e]), acc[e]);
+      for (int p = 0; p < PPL; ++p) {
+        const P vp = *reinterpret_cast<const P*>(v + key * a.v_ss + LPK * VEC * p);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[p * VEC + e] = fmaf(pb, port::to_f(vp.v[e]), acc[p * VEC + e]);
+      }
     }
   }
   // sum over the warp's lane groups (each group holds the same l)
@@ -460,11 +652,13 @@ attn_decode_split_kernel(AttnArgs a, float* part) {
   for (int o = LPK; o < 32; o <<= 1) {
     l += __shfl_xor_sync(0xffffffffu, l, o);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+    for (int e = 0; e < PPL * VEC; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
   }
   if (lane < LPK) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) wacc[warp][lane * VEC + e] = acc[e];
+    for (int p = 0; p < PPL; ++p)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) wacc[warp][(lane + LPK * p) * VEC + e] = acc[p * VEC + e];
   }
   if (lane == 0) wl[warp] = l;
   __syncthreads();
@@ -508,7 +702,7 @@ attn_decode_combine_kernel(AttnArgs a, const float* part, int nch_max) {
 }
 
 // -------------------------------------------------------- tensor cores --
-// attn_fwd_tc_kernel: the bf16 forward at D 64 / 128 on wgmma. One block per
+// attn_fwd_tc_kernel: the bf16 forward at D 64 / 128 / 256 on wgmma. One block per
 // (query tile of 64 NWG rows, head, batch): NWG consumer warpgroups of 64
 // rows each and one producer warp. The producer loads the Q tile once and
 // streams 64-key K / V tiles through a ring of kTcStages by TMA (bf16 in
@@ -528,7 +722,9 @@ attn_decode_combine_kernel(AttnArgs a, const float* part, int nch_max) {
 //
 // Bound: operations (4 * admitted pairs * D on the bf16 tensor cores) at
 // prefill and training shapes. Shared memory: the Q tile and two K / V
-// stages in bf16, 96 KB at D 128 with two warpgroups.
+// stages in bf16, 96 KB at D 128 with two warpgroups; at D 256 the O
+// accumulator takes 128 fp32 registers a thread, so a block holds one
+// warpgroup (160 KB).
 constexpr int kTcStages = 2;
 
 template <int D, int NWG>
@@ -743,12 +939,29 @@ cudaError_t launch_tf32(const AttnArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_tf32_wide(const AttnArgs& a, cudaStream_t stream) {
+  using L = Tf32WideSmem<D>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_tf32_wide_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kBytes));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid((a.Sq + kWideBQ - 1) / kWideBQ, a.H, a.B);
+  attn_fwd_tf32_wide_kernel<D><<<grid, 128, L::kBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_tf32_d(const AttnArgs& a, int d, int tile_rows, cudaStream_t s) {
   if (tile_rows != 64) return cudaErrorInvalidValue;
   switch (d) {
     case 32: return launch_tf32<32>(a, s);
     case 64: return launch_tf32<64>(a, s);
     case 128: return launch_tf32<128>(a, s);
+    case 256: return launch_tf32_wide<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -769,6 +982,7 @@ cudaError_t launch_decode_d(const AttnArgs& a, int d, float* part, cudaStream_t 
     case 32: return launch_decode<T, 32>(a, part, stream);
     case 64: return launch_decode<T, 64>(a, part, stream);
     case 128: return launch_decode<T, 128>(a, part, stream);
+    case 256: return launch_decode<T, 256>(a, part, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -799,6 +1013,9 @@ cudaError_t launch_tc_d(const AttnArgs& a, int d, int tile_rows, cudaStream_t s)
   if (tile_rows == 128 && d == 128) return launch_tc<128, 2>(a, s);
   if (tile_rows == 64 && d == 64) return launch_tc<64, 1>(a, s);
   if (tile_rows == 64 && d == 128) return launch_tc<128, 1>(a, s);
+  // D 256: one warpgroup a block (two would leave 168 registers a thread
+  // for its 128 of O: ptxas spills)
+  if (tile_rows == 64 && d == 256) return launch_tc<256, 1>(a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -820,12 +1037,13 @@ extern "C" {
 
 // q (B, Sq, H, D), k / v (B, Skv, H, D), o (B, Sq, H, D): element strides
 // for the batch, sequence and head dimensions; the last dimension is
-// contiguous. q_pos0: (B,) int32 on the device. D in {32, 64, 128}; every
-// pointer 16-byte aligned and every stride a multiple of 16 bytes (the
+// contiguous. q_pos0: (B,) int32 on the device. D in {32, 64, 128, 256};
+// every pointer 16-byte aligned and every stride a multiple of 16 bytes (the
 // wrapper checks). dtype: 0 fp32, 1 bf16. route: 2 the bf16 tensor-core
-// kernel (D 64 or 128) with tile_rows 64 or 128 query rows a block, 3 the
-// fp32 3xTF32 kernel (D 32, 64 or 128) with tile_rows 64 (one query
-// row takes attention_decode). Returns
+// kernel (D 64, 128 or 256) with tile_rows 64 or 128 query rows a block (64
+// at D 256), 3
+// the fp32 3xTF32 kernels (D 32, 64, 128 or 256) with tile_rows 64 (one
+// query row takes attention_decode). Returns
 // cudaGetLastError(), or an error without launching when the route does not
 // take the arguments.
 int attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -39,7 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "rmsnorm_fwd": (_I, [_P, _P, _P, _I, _I, _F, _I, _I, _P]),
+    "rmsnorm_fwd": (_I, [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P]),
     "attention_fwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                       + [_L] * 12 + [_I, _F, _I, _I, _I, _P]),
     "attention_fwd_lse": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I]

@@ -32,15 +32,18 @@ lse takes the decode kernels, which split each row's keys into chunks of
 (:func:`_decode_chunks`; :func:`attention_decode_plain` is the same split in
 plain PyTorch). A launch that fails raises: no route falls back to another.
 
-Head dims: the kernels are compiled at 32, 64 and 128 (the bf16
-tensor-core kernels at 64 and 128). Every head dim from 1 to 128 runs: a
-route takes the smallest of its head dims at or above D
+Head dims: the kernels are compiled at 32, 64, 128 and 256 (the bf16
+tensor-core kernels at 64, 128 and 256). Every head dim from 1 to 256 runs:
+a route takes the smallest of its head dims at or above D
 (:func:`_padded_dim`), the wrapper zero-pads the last dim of its inputs to
 it, launches there and slices the outputs back to D. Zero columns add exact
 zeros to every q . k and P . v, so the lse, delta and the first D columns
 are unchanged (the padded columns of dQ, dK and dV are zero); the scale
 stays ``1 / sqrt(D)`` of the true D. A padded cache view is copied on every
-call. A head dim above 128 raises (ROADMAP queue 3, F4b).
+call. A head dim above 256 raises. At 256 some kernels hold a smaller tile
+than at 128 (:func:`_capped_tile`): the fp32 forward takes a design of its
+own (``attn_fwd_tf32_wide_kernel``), and the bf16 and fp32 dK/dV kernels
+split each key tile's columns between two warpgroups or warps.
 
 The int8 KV cache (KV8): :func:`attention_fwd_kv8` attends q over int8
 K / V with one fp32 scale per (key, head), the cache of
@@ -51,11 +54,11 @@ kernels. Up to ``KV8_ROWS_MAX`` query rows (decode, verify) take one
 launch over a thread-block cluster a (head, batch), whose blocks split the
 keys in chunks of ``DECODE_CHUNK`` and share each row's softmax statistics
 through distributed shared memory; more rows take the tensor cores in bf16
-at head dim 64 / 128 (int8 tiles converted to bf16 in shared memory), else
-the tiled KV8 kernel (:func:`_kv8_route`). Every route takes two passes
-over the keys, so that P * v_s is rounded to the input type with P the
-row's normalized softmax, where the reference rounds it. Its plain version
-is :func:`attention_kv8_plain`. No bf16 copy of the cache is made.
+at head dim 64 / 128 / 256 (int8 tiles converted to bf16 in shared
+memory), else the tiled KV8 kernel (:func:`_kv8_route`). Every route takes
+two passes over the keys, so that P * v_s is rounded to the input type with
+P the row's normalized softmax, where the reference rounds it. Its plain
+version is :func:`attention_kv8_plain`. No bf16 copy of the cache is made.
 
 Training: :func:`flash_attention_vjp` (a :class:`FlashAttentionFn`) saves
 the per-row logsumexp of :func:`attention_fwd_lse`; its backward computes
@@ -82,9 +85,18 @@ BLOCK_K = 64
 BLOCK_Q = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are compiled at; a route pads D up to the next
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
 #: head dims the bf16 tensor-core kernels take
-_TC_HEAD_DIMS = (64, 128)
+_TC_HEAD_DIMS = (64, 128, 256)
+#: the largest tile (query rows a block; keys a block for dK/dV) of the
+#: kernels that hold less at head dim 256 than :func:`_tile_rows` gives:
+#: the bf16 forward and the KV8 tensor-core kernel (one warpgroup: its O
+#: takes 128 registers a thread), the bf16 dQ (its Q, dO and two K / V
+#: stages take 192 KB for one warpgroup), the bf16 dK/dV (two warpgroups
+#: split one 64-key tile's columns) and the 3xTF32 dK/dV (32-key blocks: 64
+#: would take 266 KB)
+_TILE_CAP_256 = {"fwd_tc": 64, "kv8_tc": 64, "dq_tc": 64, "dkv_tc": 64,
+                 "dkv_tf32": 32}
 #: route codes of the C entry points (one query row takes its own entry
 #: point, ``attention_decode``): ``simt`` the CUDA-core dQ kernel, ``tc``
 #: the bf16 tensor-core kernels, ``tf32`` the fp32 3xTF32 kernels
@@ -101,13 +113,12 @@ _KV8_ROUTE_CODES = {"simt": 0, "rows": 1, "tc": 2}
 def _padded_dim(route: str, d: int) -> int:
     """D', the head dim a launch of *route* runs at: the smallest head dim
     its kernels are compiled at that is >= *d* (the bf16 tensor-core
-    routes: 64 or 128; every other route: 32, 64 or 128). Above 128 no
-    kernel is compiled: ValueError."""
+    routes: 64, 128 or 256; every other route: 32, 64, 128 or 256). Above
+    256 no kernel is compiled: ValueError."""
     dims = _TC_HEAD_DIMS if route == "tc" else _HEAD_DIMS
     if d < 1 or d > dims[-1]:
-        raise ValueError(f"head dim {d}: the CUDA kernels take 1 to "
-                         f"{dims[-1]} (a larger head dim is ROADMAP queue 3, "
-                         "F4b)")
+        raise ValueError(f"head dim {d}: the CUDA kernels take head dims 1 "
+                         f"to {dims[-1]}")
     return next(x for x in dims if x >= d)
 
 
@@ -124,8 +135,9 @@ def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
 def _kv8_route(dtype: torch.dtype, d: int, sq: int) -> str:
     """The KV8 kernel a CUDA launch takes: ``"rows"`` (the cluster kernel)
     for 1 to ``KV8_ROWS_MAX`` query rows, ``"tc"`` (tensor cores) for more
-    rows in bf16 at a padded head dim of 64 or 128, ``"simt"`` (the tiled
-    CUDA-core KV8 kernel) otherwise (fp32, or a padded head dim of 32)."""
+    rows in bf16 at a padded head dim of 64, 128 or 256, ``"simt"`` (the
+    tiled CUDA-core KV8 kernel) otherwise (fp32, or a padded head dim of
+    32)."""
     if sq <= KV8_ROWS_MAX:
         return "rows"
     if dtype == torch.bfloat16 and _padded_dim("simt", d) in _TC_HEAD_DIMS:
@@ -165,12 +177,23 @@ def _tile_rows(b: int, n: int, h: int, sms: int, big: int = 128) -> int:
     return big if -(-n // big) * h * b >= sms else big // 2
 
 
-def _fwd_tile_rows(route: str, b: int, n: int, h: int,
+def _capped_tile(kernel: str, dp: int, rows: int) -> int:
+    """*rows* (a tile of :func:`_tile_rows`), at most the cap
+    :data:`_TILE_CAP_256` sets *kernel* at head dim 256 (any other padded
+    head dim *dp*: *rows*)."""
+    return min(rows, _TILE_CAP_256[kernel]) if dp == 256 else rows
+
+
+def _fwd_tile_rows(route: str, dp: int, b: int, n: int, h: int,
                    device: torch.device) -> int:
-    """Query rows per block of a forward launch: :func:`_tile_rows` for the
-    bf16 kernel; 64 (one warpgroup) for the 3xTF32 kernel, whose 224 KB of
-    shared memory at head dim 128 take one block an SM either way."""
-    return _tile_rows(b, n, h, _sms(device)) if route == "tc" else 64
+    """Query rows per block of a forward launch at padded head dim *dp*:
+    :func:`_tile_rows` for the bf16 kernel (at most 64 at head dim 256); 64
+    (one warpgroup, or four warps at head dim 256) for the 3xTF32 kernels,
+    whose 224 KB (200 KB at 256) of shared memory take one block an SM
+    either way."""
+    if route != "tc":
+        return 64
+    return _capped_tile("fwd_tc", dp, _tile_rows(b, n, h, _sms(device)))
 
 
 def _sms(device: torch.device) -> int:
@@ -412,7 +435,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             pos.data_ptr(), b, sq, skv, h, dp, *_strides(q, k, v, out),
             int(causal), scale2, _DTYPE_CODES[q.dtype],
-            _ROUTE_CODES[route], _fwd_tile_rows(route, b, sq, h, q.device),
+            _ROUTE_CODES[route], _fwd_tile_rows(route, dp, b, sq, h,
+                                                q.device),
             stream)
     attention_fwd.launches += 1
     if route == "decode":
@@ -441,8 +465,8 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the KV8
     kernel of :func:`_kv8_route` (up to ``KV8_ROWS_MAX`` rows: the cluster
-    kernel; more rows: the tensor cores in bf16 at a padded head dim of 64 /
-    128, else the tiled KV8 kernel) at the route's padded head dim, or
+    kernel; more rows: the tensor cores in bf16 at a padded head dim of 64,
+    128 or 256, else the tiled KV8 kernel) at the route's padded head dim, or
     raises. Returns a new contiguous (B, Sq, H, D) tensor in q's type."""
     b, sq, h, d = q.shape
     if (k_q.shape[0] != b or k_q.shape[2:] != (h, d)
@@ -478,7 +502,7 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
         h, dp, *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
         _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
         _KV8_ROUTE_CODES[route], DECODE_CHUNK,
-        _tile_rows(b, sq, h, _sms(q.device)),
+        _capped_tile("kv8_tc", dp, _tile_rows(b, sq, h, _sms(q.device))),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd_kv8.launches += 1
     if route == "rows":
@@ -550,7 +574,7 @@ def attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, dp, *_strides(q, k, v, out),
         int(causal), _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
-        _ROUTE_CODES[route], _fwd_tile_rows(route, b, s, h, q.device),
+        _ROUTE_CODES[route], _fwd_tile_rows(route, dp, b, s, h, q.device),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd_lse.launches += 1
     if route == "tc":
@@ -695,7 +719,7 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, dp,
         *_strides(q, k, v, do, dq), int(causal), scale2, sm_scale,
         _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
-        _tile_rows(b, s, h, _sms(q.device)),
+        _capped_tile("dq_tc", dp, _tile_rows(b, s, h, _sms(q.device))),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_bwd_dq.launches += 1
     if route == "tc":
@@ -735,7 +759,8 @@ def attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, s, h, dp, *_strides(q, k, v, do, dk), int(causal), scale2,
         sm_scale, _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
-        _tile_rows(b, s, h, _sms(q.device), 128 if route == "tc" else 64),
+        _capped_tile("dkv_" + route, dp, _tile_rows(
+            b, s, h, _sms(q.device), 128 if route == "tc" else 64)),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_bwd_dkv.launches += 1
     if route == "tc":

@@ -5,6 +5,15 @@ Pallas ``_kernel``); the kernel is ``csrc/rmsnorm.cu``. The function: per
 row of x (..., D), the mean of squares in fp32, then
 ``x * rsqrt(var + eps) * scale`` in fp32 and one cast to x's type.
 
+On the card a row of whole aligned 16-byte pieces, at most 32 x 8 of them
+in bf16 and 32 x 12 in fp32, takes the warp layout (:func:`_rms_pieces`
+picks how many pieces a lane holds): one warp a row with the row held in
+registers, or, for fewer rows than the card has SMs, one block a row with
+the same arithmetic to the bit; any other row one block a row of its own
+design. The choice of arithmetic depends on D, the type and the alignment
+alone, never on the number of rows, so a row's result does not depend on
+the rows launched with it.
+
 The model's serving path calls this where the JAX model calls
 ``model._rmsnorm``. The two differ in one rounding: ``_rmsnorm`` rounds
 ``rsqrt(var + eps)`` to x's type and multiplies in that type, while
@@ -26,6 +35,23 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: 16-byte pieces a lane holds of a row on the warp-per-row route (the
+#: kernel is compiled for each; 12 in fp32 only: bf16 pieces hold twice the
+#: values, and ptxas spills there)
+_RMS_PIECES = (1, 2, 4, 6, 8, 12)
+
+
+def _rms_pieces(d: int, elt: int, vectorized: bool) -> int:
+    """Pieces of 16 bytes each of the 32 lanes holds of a row of *d*
+    elements of *elt* bytes on the warp-per-row route: the fewest of
+    :data:`_RMS_PIECES` that hold the row; 0 (the block-per-row route) for
+    a row not in aligned 16-byte pieces or longer than the warp holds (bf16
+    D above 2048, fp32 above 1536)."""
+    if not vectorized:
+        return 0
+    need = -(-(d * elt // 16) // 32)
+    most = 12 if elt == 4 else 8
+    return next((p for p in _RMS_PIECES if need <= p <= most), 0)
 
 
 def fused_rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -69,11 +95,12 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if rows == 0:
         return out.reshape(x.shape)
     vec = 16 // x.element_size()
-    vectorized = int(d % vec == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x2, scale, out)))
+    vectorized = d % vec == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x2, scale, out))
     lib = _build.library()
     rc = lib.rmsnorm_fwd(x2.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                         rows, d, eps, _DTYPE_CODES[x.dtype], vectorized,
+                         rows, d, eps, _DTYPE_CODES[x.dtype], int(vectorized),
+                         _rms_pieces(d, x.element_size(), vectorized),
                          torch.cuda.current_stream(x.device).cuda_stream)
     fused_rmsnorm.launches += 1
     _build.check(rc, "rmsnorm_fwd")

@@ -66,13 +66,14 @@ def test_attention_plain_matches_jax_flash_attention(causal):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", [8, 48])
+@pytest.mark.parametrize("d", [8, 48, 160, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_plain_matches_jax_flash_attention_at_other_head_dims(
         d, causal):
-    """The same parity at bench.py's head dim (8) and at one between the
-    kernels' compiled head dims (48): the card zero-pads both (to 32 and
-    64) and scales by 1 / sqrt(D), the function this holds to JAX's."""
+    """The same parity at bench.py's head dim (8), at ones between the
+    kernels' compiled head dims (48, 160) and at the largest (256): the card
+    zero-pads 8, 48 and 160 (to 32, 64 and 256) and scales by 1 / sqrt(D),
+    the function this holds to JAX's."""
     rng = _rng(7)
     q, k, v = (rng.standard_normal((2, 48, 2, d)).astype(np.float32)
                for _ in range(3))

@@ -5,9 +5,9 @@ dK/dV kernels; fp32 takes the 3xTF32 forward and dK/dV kernels and the
 CUDA-core dQ kernel; the one-row decode shape takes the decode kernels,
 split over keys; attention over the int8 KV cache (KV8) takes the cluster
 kernel for up to ``KV8_ROWS_MAX`` rows, the tensor cores for more rows in
-bf16 at a padded head dim of 64 / 128, else the tiled KV8 kernel. Every
-head dim from 1 to 128 runs, zero-padded to the route's next compiled head
-dim. On the CPU these tests hold the routing functions, the padded head
+bf16 at a padded head dim of 64 / 128 / 256, else the tiled KV8 kernel.
+Every head dim from 1 to 256 runs, zero-padded to the route's next compiled
+head dim. On the CPU these tests hold the routing functions, the padded head
 dim, the tile-height rule and the decode chunk rule, the exactness of the
 pad on the plain versions, a CPU emulation of the 3xTF32 products, and the
 properties the forward and decode kernels are built around (a row's result
@@ -84,6 +84,9 @@ def cuda():
     (BF16, 16, 1, False, "decode"),
     (F32, 16, 64, True, "tf32"),
     (F32, 8, 48, False, "tf32"),        # bench.py's config
+    (BF16, 256, 512, False, "tc"),      # head dim 256 (Gemma's)
+    (BF16, 160, 1, False, "decode"),
+    (F32, 256, 1024, True, "tf32"),
 ])
 def test_attention_route(dtype, d, sq, with_lse, route):
     assert fa._attn_route(dtype, d, sq, with_lse) == route
@@ -95,13 +98,13 @@ KV8_WIDTHS = (1, 2, fa.KV8_ROWS_MAX, fa.KV8_ROWS_MAX + 1, 256)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128, 160, 256])
 @pytest.mark.parametrize("sq", KV8_WIDTHS)
 def test_kv8_route(dtype, d, sq):
     """Up to KV8_ROWS_MAX rows take the cluster kernel in every type and
     head dim; more rows the tensor cores in bf16 at a padded head dim of 64
-    / 128 (D 33-128) and the tiled CUDA-core KV8 kernel otherwise (fp32, or
-    D up to 32, padded to 32)."""
+    / 128 / 256 (D 33-256) and the tiled CUDA-core KV8 kernel otherwise
+    (fp32, or D up to 32, padded to 32)."""
     if sq <= 8:
         want = "rows"
     elif dtype == BF16 and d > 32:
@@ -115,7 +118,7 @@ def test_kv8_route(dtype, d, sq):
 @pytest.mark.parametrize("dtype,d,route", [
     (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "tc"),
     (BF16, 16, "tc"), (F32, 128, "tf32"), (F32, 64, "tf32"),
-    (F32, 16, "tf32")])
+    (F32, 16, "tf32"), (BF16, 256, "tc"), (F32, 200, "tf32")])
 def test_dkv_route(dtype, d, route):
     assert fa._dkv_route(dtype, d) == route
 
@@ -123,34 +126,50 @@ def test_dkv_route(dtype, d, route):
 @pytest.mark.parametrize("dtype,d,route", [
     (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "tc"),
     (BF16, 16, "tc"), (F32, 128, "simt"), (F32, 64, "simt"),
-    (F32, 16, "simt")])
+    (F32, 16, "simt"), (BF16, 256, "tc"), (F32, 200, "simt")])
 def test_dq_route(dtype, d, route):
     assert fa._dq_route(dtype, d) == route
 
 
 #: D' of every route at the head dims of the repository's configs (8:
-#: bench.py; 16: the default config; 128: the flagship) and between:
-#: (the bf16 tensor-core routes, every other route)
+#: bench.py; 16: the default config; 128: the flagship; 256: the flagship
+#: at 6 heads, and Gemma's) and between: (the bf16 tensor-core routes,
+#: every other route)
 PAD_CASES = {1: (64, 32), 8: (64, 32), 16: (64, 32), 33: (64, 64),
              48: (64, 64), 64: (64, 64), 80: (128, 128), 96: (128, 128),
-             128: (128, 128)}
+             128: (128, 128), 129: (256, 256), 160: (256, 256),
+             192: (256, 256), 256: (256, 256)}
 
 
 @pytest.mark.parametrize("route", ["tc", "tf32", "simt", "decode", "rows"])
 @pytest.mark.parametrize("d", sorted(PAD_CASES))
 def test_padded_dim(route, d):
-    """The bf16 tensor-core routes pad to 64 or 128; every other route
-    (fp32 3xTF32, the CUDA-core dQ and KV8 kernels, decode, the KV8
-    cluster kernel) to 32, 64 or 128."""
+    """The bf16 tensor-core routes pad to 64, 128 or 256; every other
+    route (fp32 3xTF32, the CUDA-core dQ and KV8 kernels, decode, the KV8
+    cluster kernel) to 32, 64, 128 or 256."""
     want = PAD_CASES[d][0 if route == "tc" else 1]
     assert fa._padded_dim(route, d) == want
 
 
 @pytest.mark.parametrize("route", ["tc", "tf32", "simt", "decode", "rows"])
-@pytest.mark.parametrize("d", [0, 129, 256])
+@pytest.mark.parametrize("d", [0, 257, 512])
 def test_padded_dim_refuses_what_no_kernel_takes(route, d):
-    with pytest.raises(ValueError, match="F4b"):
+    with pytest.raises(ValueError, match="take head dims 1 to 256"):
         fa._padded_dim(route, d)
+
+
+@pytest.mark.parametrize("kernel,cap", [("fwd_tc", 64), ("kv8_tc", 64),
+                                        ("dq_tc", 64), ("dkv_tc", 64),
+                                        ("dkv_tf32", 32)])
+@pytest.mark.parametrize("rows", [32, 64, 128])
+def test_capped_tile_at_head_dim_256(kernel, cap, rows):
+    """At head dim 256 the bf16 forward, dQ, dK/dV and KV8 kernels take
+    64-row (64-key) blocks and the 3xTF32 dK/dV kernel 32-key blocks,
+    whatever :func:`_tile_rows` gives; every other head dim keeps its
+    tile."""
+    assert fa._capped_tile(kernel, 256, rows) == min(rows, cap)
+    for dp in (32, 64, 128):
+        assert fa._capped_tile(kernel, dp, rows) == rows
 
 
 @pytest.mark.parametrize("b,n,h,sms,rows", [
@@ -179,7 +198,8 @@ def test_tile_rows_of_the_3xtf32_kernels(b, n, h, sms, rows):
     3xTF32 forward always takes 64 rows (one warpgroup)."""
     assert fa._tile_rows(b, n, h, sms, 64) == rows
     cpu = torch.device("cpu")
-    assert fa._fwd_tile_rows("tf32", b, n, h, cpu) == 64
+    assert fa._fwd_tile_rows("tf32", 128, b, n, h, cpu) == 64
+    assert fa._fwd_tile_rows("tf32", 256, b, n, h, cpu) == 64
 
 
 def test_launch_counts_name_every_route_and_reset():
@@ -325,7 +345,7 @@ def test_plain_chunk_equals_whole_at_tc_head_dims(d, offset, width):
 #: over the last dim is vectorized differently at the two widths (fp32
 #: noise, measured at most about 3e-7 here)
 TOL_PAD = 2e-6
-PAD_DIMS = (8, 16, 48, 80)
+PAD_DIMS = (8, 16, 48, 80, 160)
 
 
 def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -956,9 +976,134 @@ def test_cuda_tf32_chunk_equals_whole_prefill(cuda, d):
         assert torch.equal(part, whole[:, a:b]), (a, b)
 
 
-def test_cuda_head_dim_above_128_raises(cuda):
-    q = torch.zeros((1, 4, 1, 160), device=cuda)
+def test_cuda_head_dim_above_256_raises(cuda):
+    q = torch.zeros((1, 4, 1, 257), device=cuda)
     for call in (lambda: attention_fwd(q, q, q),
                  lambda: attention_fwd_lse(q, q, q)):
-        with pytest.raises(ValueError, match="F4b"):
+        with pytest.raises(ValueError, match="take head dims 1 to 256"):
             call()
+
+
+# -- head dims 129-256, on the card ----------------------------------------------
+
+#: past 128: a head dim padded to 256, and 256 itself
+WIDE_DIMS = (160, 256)
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_wide_head_dim_training_wrappers_match_plain(cuda, dtype, tol, d,
+                                                          causal):
+    """The forward, the forward with the lse, dQ and dK/dV at head dims
+    160 and 256 (q / k / v views of one projection, a ragged 200 rows), each
+    against its plain version (one tile height: :func:`_capped_tile`); dQ
+    and dK/dV twice equal (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(71)
+    b, s, h = 2, 200, 2
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device=cuda).to(dtype)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+    do = torch.randn((b, s, h, d), generator=g, device=cuda).to(dtype)
+    tc = dtype == BF16
+    out, names = _counted(lambda: attention_fwd(q, k, v, None, causal))
+    assert names == ["attention_fwd_tc" if tc else "attention_fwd_tf32"]
+    assert _scaled_err(out, attention_fwd_plain(q, k, v, None, causal)) \
+        <= tol
+    (o, lse), names = _counted(lambda: attention_fwd_lse(q, k, v, causal))
+    assert names == ["attention_fwd_lse_tc" if tc
+                     else "attention_fwd_lse_tf32"]
+    o_p, lse_p = attention_fwd_plain(q, k, v, None, causal, return_lse=True)
+    assert _scaled_err(o, o_p) <= tol and _scaled_err(lse, lse_p) <= tol
+    assert torch.equal(o, out)
+    delta = attention_delta(do, o)
+    dq, names = _counted(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  causal))
+    assert names == ["attention_bwd_dq_tc" if tc else "attention_bwd_dq"]
+    assert _scaled_err(dq, attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  causal)) <= tol
+    (dk, dv), names = _counted(lambda: attention_bwd_dkv(q, k, v, do, lse,
+                                                         delta, causal))
+    assert names == ["attention_bwd_dkv_tc" if tc
+                     else "attention_bwd_dkv_tf32"]
+    dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    assert _scaled_err(dk, dk_p) <= tol and _scaled_err(dv, dv_p) <= tol
+    assert torch.equal(dq, attention_bwd_dq(q, k, v, do, lse, delta, causal))
+    again = attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_cuda_wide_head_dim_decode_and_offsets_match_plain(cuda, dtype, tol,
+                                                           d):
+    """At head dims 160 and 256: the split decode kernels (one row a slot
+    at POSITIONS over a 1024-key cache row) against the forward's plain
+    version and the plain split, and a chunk of 130 rows at an offset over
+    one slot's row of the cache against the plain forward."""
+    q, ck, cv, pos = _decode_inputs(dtype, d, h=2, device=cuda)
+    got, names = _counted(lambda: attention_fwd(q, ck, cv, pos))
+    assert names == ["attention_fwd_decode"]
+    assert _scaled_err(got, attention_fwd_plain(q, ck, cv, pos)) <= tol
+    assert _scaled_err(got, attention_decode_plain(q, ck, cv, pos)) <= tol
+    g = torch.Generator(device=cuda).manual_seed(72)
+    qc = torch.randn((1, 130, 2, d), generator=g, device=cuda).to(dtype)
+    for off in (0, 300):
+        p = torch.tensor([off], dtype=torch.int32, device=cuda)
+        got = attention_fwd(qc, ck[2:3], cv[2:3], p)
+        assert _scaled_err(got, attention_fwd_plain(qc, ck[2:3], cv[2:3],
+                                                    p)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("sq", [1, 5, fa.KV8_ROWS_MAX, 40])
+def test_cuda_wide_head_dim_kv8_matches_plain(cuda, dtype, tol, d, sq):
+    """Each KV8 route at head dims 160 and 256: the cluster kernel (1-8
+    rows), then the tensor cores (bf16) or the tiled kernel (fp32), one
+    slot at each of KV8_POSITIONS[1024]."""
+    pos0 = KV8_POSITIONS[1024]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, len(pos0), sq, 1024, 2, d,
+                                    73)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    got, names = _counted(lambda: attention_fwd_kv8(q, kq, ks, vq, vs, pos))
+    assert names == [_kv8_route_name(dtype, d, sq)]
+    assert _scaled_err(got, attention_kv8_plain(q, kq, ks, vq, vs, pos)) \
+        <= tol
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_cuda_head_dim_256_chunk_equals_whole_prefill(cuda, dtype):
+    """The forward's invariant at head dim 256: chunks of a prompt against
+    the cache row equal the whole prompt's rows bit for bit (bf16: the
+    tensor-core kernel; fp32: the 3xTF32 kernel of head dim 256)."""
+    g = torch.Generator(device=cuda).manual_seed(74)
+    h, p, max_seq, d = 2, 512, 1024, 256
+    q, k, v = (torch.randn((1, p, h, d), generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    whole = attention_fwd(q, k, v)
+    ck, cv = (torch.randn((2, max_seq, h, d), generator=g,
+                          device=cuda).to(dtype) for _ in range(2))
+    ck[1, :p], cv[1, :p] = k[0], v[0]
+    for a, b in ((0, 256), (256, 512), (64, 130), (300, 512)):
+        pos = torch.tensor([a], dtype=torch.int32, device=cuda)
+        part = attention_fwd(q[:, a:b], ck[1:2], cv[1:2], pos)
+        assert torch.equal(part, whole[:, a:b]), (a, b)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("sq", [2, 5, fa.KV8_ROWS_MAX])
+def test_cuda_head_dim_256_kv8_verify_row_equals_decode_row(cuda, dtype, sq):
+    """The cluster kernel's invariant at head dim 256: row i of a launch of
+    sq rows equals the one-row launch of its query at its position under
+    ``torch.equal``; a slot decoded alone equals its row of the batch."""
+    pos0 = KV8_POSITIONS[1024]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, len(pos0), sq, 1024, 2, 256,
+                                    75)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    rows = attention_fwd_kv8(q, kq, ks, vq, vs, pos)
+    for i in range(sq):
+        one = attention_fwd_kv8(q[:, i:i + 1], kq, ks, vq, vs, pos + i)
+        assert torch.equal(one, rows[:, i:i + 1]), i
+    alone = attention_fwd_kv8(*(t[1:2] for t in (q, kq, ks, vq, vs)),
+                              pos[1:2])
+    assert torch.equal(alone, rows[1:2])
