@@ -15,10 +15,10 @@ Phases, each of which passes or raises (a failure exits non-zero):
    one PyTorch library call's (a yardstick the port never calls) and the
    least time the card could take (its bound). bf16 takes the tensor-core
    kernels (D 64 at 1x1000 and 2x1024, D 32 padded to 64 at 1x1000), fp32
-   the 3xTF32 forward and dK/dV on the tensor cores and the CUDA-core dQ,
-   one query row the decode kernels split over keys (the fp32 prefill and
-   training cases log the earlier CUDA-core design's time beside the new
-   one); a 256-row chunk at offset 256 must equal rows 256-511 of the whole
+   the 3xTF32 forward, dQ and dK/dV on the tensor cores, one query row the
+   decode kernels split over keys (the fp32 prefill and training cases log
+   the earlier CUDA-core design's time beside the new one); a 256-row chunk
+   at offset 256 must equal rows 256-511 of the whole
    512-row prefill bit for bit, in bf16 and in fp32, and slot 0's decode row
    launched alone must equal
    its row of the 8-slot launch bit for bit; speculative verify's shape (8
@@ -26,11 +26,13 @@ Phases, each of which passes or raises (a failure exits non-zero):
    8 x 128, causal) take the tensor-core forward. Over
    the same cache quantized to int8 (KV8), the decode and verify shapes
    take the KV8 cluster kernel and the 256-row chunk the KV8 tensor-core
-   kernel in bf16 (fp32: the cluster kernel, and the tiled KV8 kernel for
-   the chunk), each held to ``attention_kv8_plain`` beside the earlier
+   kernel in bf16 (fp32: the cluster kernel, and the fp32 KV8 kernel on the
+   tensor cores for the chunk; the chunk also at head dims 16 and 32, bf16
+   padded to 64), each held to ``attention_kv8_plain`` beside the earlier
    design's time (slot 0's KV8 decode row alone equals its row of the
-   8-slot launch, and each verify row equals a one-row launch at its
-   position); the W8A8 products at the decode shapes are timed beside the
+   8-slot launch, each verify row equals a one-row launch at its position,
+   and the fp32 KV8 chunk equals the whole KV8 prefill's rows bit for
+   bit); the W8A8 products at the decode shapes are timed beside the
    bf16 GEMMs. Then every route again at head dim 256 (the flagship's
    d_model over 6 heads of 256): prefill, chunk, decode (bf16 and fp32),
    verify, the training batch (bf16) and one fp32 sequence, and over the
@@ -48,7 +50,10 @@ Phases, each of which passes or raises (a failure exits non-zero):
    default ``TransformerConfig()`` (head dim 16, which every kernel takes
    zero-padded): in fp32 greedy streams equal, logits close, a serve whose
    streams equal ``generate`` and one train step matching the CPU's; in
-   bf16 forward logits close to the CPU's;
+   bf16 forward logits close to the CPU's; last a KV8 chunked prefill of
+   the tiny fp32 model (the fp32 KV8 kernel) and 8 decode steps, tokens
+   equal to the CPU's. The phase's launches are counted from 0 (the fp32
+   kernels' launches on the kernels' line);
 5. serve the flagship (bf16, about 391M parameters, random weights from a
    seed) through ``Scheduler`` and ``TorchSlotExecutor``: 16 requests on 8
    slots with chunked prefill; every kernel of the path must have launched,
@@ -114,10 +119,12 @@ an empty kernel, the card's floor for one launch.
 The last two lines of standard output are the kernels' JSON line and the
 device JSON line.
 
-``python3 chip_smoke.py --time-train B S H D DTYPE`` runs phases 1-2 and
-times the training path's three kernels at that shape (no other phase, no
-JSON lines): it uses the public wrappers alone, so the same script run
-beside an older checkout of the package times that checkout's kernels.
+``python3 chip_smoke.py --time CASE ARGS`` runs phases 1-2 and times one
+case (no other phase, no JSON lines): ``train B S H D DTYPE`` the training
+path's three kernels at that shape, ``kv8-chunk H D DTYPE`` phase 3's KV8
+chunk at H heads of head dim D. It uses the public wrappers alone, so the
+same script run beside an older checkout of the package times that
+checkout's kernels.
 """
 
 from __future__ import annotations
@@ -156,13 +163,17 @@ TRAIN_KERNELS = ("attention_fwd_lse_tc", "attention_bwd_dq_tc",
 SERVE_NOT = ("attention_fwd_tf32",)
 #: phase 9's flash bench shape (B, S, H, D), bf16 causal (bench.py's)
 FLASH_BENCH = (4, 2048, 8, 128)
-TRAIN_NOT = ("attention_fwd_lse_tf32", "attention_bwd_dq",
+TRAIN_NOT = ("attention_fwd_lse_tf32", "attention_bwd_dq_tf32",
              "attention_bwd_dkv_tf32")
 #: the fp32 and head-dim-32 cases' times under the earlier design (the
 #: tiled CUDA-core forward and dK/dV kernels, which also took bf16 at head
-#: dim 32), us a launch under graph replay, NVIDIA H100 80GB HBM3 at 700 W
-#: (PERF.md's kernel table; the head-dim-32 times from ``--time-train`` run
-#: over the checkout before the change), by the case name
+#: dim 32; the CUDA-core dQ and tiled KV8 kernels, which also took bf16 KV8
+#: chunks at head dim 16 / 32), us a launch under graph replay, NVIDIA H100
+#: 80GB HBM3 at 700 W (PERF.md's kernel table; the head-dim-32 times from
+#: ``--time train`` run over the checkout before the change; the dQ and KV8
+#: times from this script, and its ``--time kv8-chunk`` at head dims 16 /
+#: 32, run over the checkout before the change on the same card in turns
+#: with the change: the mean of its two runs), by the case name
 TF32_EARLIER_US = {
     "attention_fwd_tf32[prefill 1x512x12x128 float32]": 132.7,
     "attention_fwd_lse_tf32[1x1024x12x128 float32]": 334.8,
@@ -172,6 +183,19 @@ TF32_EARLIER_US = {
     "attention_fwd_lse_tc[1x1000x12x32 bfloat16]": 95.6,
     "attention_bwd_dq_tc[1x1000x12x32 bfloat16]": 97.0,
     "attention_bwd_dkv_tc[1x1000x12x32 bfloat16]": 185.1,
+    "attention_bwd_dq_tf32[1x1024x12x128 float32]": 393.2,
+    "attention_bwd_dq_tf32[1x1000x12x128 float32]": 391.8,
+    "attention_bwd_dq_tf32[1x1024x6x256 float32]": 652.9,
+    "attention_kv8_tf32[chunk 1x256x12x128@256 vs slot row of 8x1024 "
+    "float32]": 117.0,
+    "attention_kv8_tf32[chunk 1x256x6x256@256 vs slot row of 8x1024 "
+    "float32]": 185.8,
+    "attention_kv8_tc[chunk 1x256x12x16@256 vs slot row of 8x1024]": 58.5,
+    "attention_kv8_tf32[chunk 1x256x12x16@256 vs slot row of 8x1024 "
+    "float32]": 58.5,
+    "attention_kv8_tc[chunk 1x256x12x32@256 vs slot row of 8x1024]": 45.6,
+    "attention_kv8_tf32[chunk 1x256x12x32@256 vs slot row of 8x1024 "
+    "float32]": 45.4,
 }
 
 
@@ -300,25 +324,28 @@ def phase_build() -> None:
 # -- phase 3 ------------------------------------------------------------------
 def _bound(nbytes: float, flops: float, dname: str) -> tuple:
     """The least time (ms) for *nbytes* over HBM and *flops* at the rate of
-    *dname*, the larger, and which one it is. ``"tf32x3"``: fp32-exact
-    products as three TF32 products on the tensor cores (a third of the TF32
-    rate), the fp32 attention kernels' work."""
+    *dname*, the larger, and which one it is. ``"tf32xN"``: fp32-exact
+    products as N TF32 products on the tensor cores (an N-th of the TF32
+    rate), the fp32 attention kernels' work: three a product, two where one
+    operand is exact in TF32 (int8 K and V)."""
     peaks = card_peaks()
-    rate = peaks["tf32"] / 3 if dname == "tf32x3" else peaks[dname]
+    rate = peaks["tf32"] / int(dname[5:]) if dname.startswith("tf32x") \
+        else peaks[dname]
     t_bytes = nbytes / peaks["hbm_bytes_per_s"] * 1e3
     t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def _attn_bound(nbytes: float, flops: float, dname: str) -> dict:
-    """An attention case's bound: bf16 at the bf16 rate, fp32 at a third of
-    the TF32 rate, with (fp32) the bound at the CUDA cores' 67 TFLOP/s
-    beside it (the earlier designs' yardstick)."""
+def _attn_bound(nbytes: float, flops: float, dname: str,
+                products: int = 3) -> dict:
+    """An attention case's bound: bf16 at the bf16 rate, fp32 at the TF32
+    rate over *products* TF32 products a term, with (fp32) the bound at the
+    CUDA cores' 67 TFLOP/s beside it (the earlier designs' yardstick)."""
     if dname != "float32":
         bound, by = _bound(nbytes, flops, dname)
         return {"bound_ms": bound, "bound_by": by}
-    bound, by = _bound(nbytes, flops, "tf32x3")
+    bound, by = _bound(nbytes, flops, f"tf32x{products}")
     return {"bound_ms": bound, "bound_by": by,
             "bound_cores_ms": _bound(nbytes, flops, "float32")[0]}
 
@@ -446,6 +473,8 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
     delta = attention_delta(do, out)
     dq, dq_name = launched(lambda: attention_bwd_dq(q, k, v, do, lse, delta))
     dq_p = attention_bwd_dq_plain(q, k, v, do, lse, delta)
+    require(torch.equal(dq, attention_bwd_dq(q, k, v, do, lse, delta)),
+            f"two {dq_name} launches on the same inputs differ")
     (dk, dv), dkv_name = launched(
         lambda: attention_bwd_dkv(q, k, v, do, lse, delta))
     dk_p, dv_p = attention_bwd_dkv_plain(q, k, v, do, lse, delta)
@@ -515,7 +544,7 @@ def _train_cases(gen, b: int, s: int, h: int, d: int, dtype) -> list:
 
 
 def time_train(b: int, s: int, h: int, d: int, dname: str) -> None:
-    """``--time-train``: the training path's three kernels at (B, S, H, D)
+    """``--time train``: the training path's three kernels at (B, S, H, D)
     in *dname*, causal, each timed under graph replay as phase 3 times
     them, with the ``launch_counts`` name of the kernel each call took.
     Only the public wrappers: an older checkout's kernels time the same
@@ -540,8 +569,39 @@ def time_train(b: int, s: int, h: int, d: int, dname: str) -> None:
                      (dq, lambda: attention_bwd_dq(q, k, v, do, lse, delta)),
                      (dkv, lambda: attention_bwd_dkv(q, k, v, do, lse,
                                                      delta))):
-        log(f"[time-train] {name}[{b}x{s}x{h}x{d} {dname}]: kernel "
+        log(f"[time train] {name}[{b}x{s}x{h}x{d} {dname}]: kernel "
             f"{graph_ms(fn, reps=5, replays=4):.4f} ms under graph replay")
+
+
+def _kv8_chunk_inputs(h: int, d: int, s_max: int) -> tuple:
+    """Phase 3's KV8 chunk at H heads of head dim D, from a generator of its
+    own: ``(q (1, 256, H, D) fp32, slot 3's row (k_q, k_s, v_q, v_s) of an
+    8 x s_max int8 cache, the offset 256)``."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import _kv_quant
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    row = tuple(t[3:4] for t in (*_kv_quant(torch.randn(
+        (8, s_max, h, d), generator=gen, device="cuda")), *_kv_quant(
+        torch.randn((8, s_max, h, d), generator=gen, device="cuda"))))
+    q = torch.randn((1, 256, h, d), generator=gen, device="cuda")
+    return q, row, torch.full((1,), 256, dtype=torch.int32, device="cuda")
+
+
+def time_kv8_chunk(h: int, d: int, dname: str) -> None:
+    """``--time kv8-chunk``: phase 3's KV8 chunk (256 rows at offset 256
+    over slot 3's row of an 8 x 1024 int8 cache) at H heads of head dim D in
+    *dname*, timed under graph replay as phase 3 times it, with the
+    ``launch_counts`` name of the kernel it took. Only the public wrapper:
+    an older checkout's kernels time the same way."""
+    import torch
+    from dpu_operator_tpu_torch.ops import attention_fwd_kv8
+    q, row, off = _kv8_chunk_inputs(h, d, 1024)
+    q = q.to(getattr(torch, dname))
+    _, name = launched(lambda: attention_fwd_kv8(q, *row, off))
+    ms = graph_ms(lambda: attention_fwd_kv8(q, *row, off))
+    log(f"[time kv8-chunk] {name}[chunk 1x256x{h}x{d}@256 vs slot row of "
+        f"8x1024 {dname}]: kernel {ms:.4f} ms under graph replay")
 
 
 def _chunk_equals_whole(q, k, v, ck, cv) -> None:
@@ -600,8 +660,9 @@ def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
     the same mask over a copy of the dequantized K / V in q's type; making
     the copy is not timed) and its bound: int8 K / V at 1 byte an element
     plus the fp32 scale per (key, head), q and the output in q's type, or
-    the score and PV operations at q's type's rate, the larger. The call
-    must take the ``launch_counts`` name *route*."""
+    the score and PV operations at q's type's rate (the fp32 kernel: two
+    TF32 products a term, int8 K / V being exact in TF32), the larger. The
+    call must take the ``launch_counts`` name *route*."""
     import torch
     import torch.nn.functional as F
     from dpu_operator_tpu_torch.ops import (attention_fwd_kv8,
@@ -619,7 +680,8 @@ def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
     keys = sum(min(int(p) + sq, skv) for p in pos_h)
     dname = str(q.dtype).replace("torch.", "")
     bound = _attn_bound(2 * b * sq * h * d * q.element_size()
-                        + 2 * keys * h * (d + 4), 4.0 * pairs * h * d, dname)
+                        + 2 * keys * h * (d + 4), 4.0 * pairs * h * d, dname,
+                        products=2 if kernel == "attention_kv8_tf32" else 3)
     rows = torch.as_tensor(pos_h, device="cuda")[:, None] \
         + torch.arange(sq, device="cuda")
     mask = (torch.arange(skv, device="cuda")[None, None, :]
@@ -635,10 +697,13 @@ def _kv8_case(label: str, q, kv8: tuple, pos, route: str) -> dict:
         return attention_fwd_kv8(q, kq, ks, vq, vs, pos)
 
     earlier = KV8_EARLIER_US.get(label.split()[0]) \
-        if dname == "bfloat16" and d == 128 else None
+        if dname == "bfloat16" and d == 128 \
+        else TF32_EARLIER_US.get(f"{kernel}[{label}]")
     return {
         "name": f"{kernel}[{label}]", "kernel": kernel, "dtype": dname,
-        "head_dim": d, "source": "dpu_operator_tpu_torch/csrc/attention_kv8.cu",
+        "head_dim": d, "source": "dpu_operator_tpu_torch/csrc/" + (
+            "attention_kv8_tf32.cu" if kernel == "attention_kv8_tf32"
+            else "attention_kv8.cu"),
         "replaces": "dpu_operator_tpu/ops/flash_attention.py:35",
         "max_abs_err": max_abs, "scaled_err": scaled, "earlier_us": earlier,
         "ms": graph_ms(run), "eager_ms": cuda_ms(run, 20),
@@ -676,6 +741,54 @@ def _kv8_decode_row_alone(q, kv8: tuple, pos, qv, pv) -> None:
     require(repeat, "two KV8 decode launches on the same inputs differ")
     require(not apart, f"KV8 verify rows {apart} differ from the one-row "
             "launches at their positions")
+
+
+def _kv8_chunk_equals_whole(q, kv8: tuple) -> None:
+    """The fp32 KV8 kernel's invariants: the 256-row chunk at offset 256
+    over slot 3's int8 cache row equals rows 256-511 of the whole 512-row
+    KV8 prefill over the same row's first 512 keys under ``torch.equal``,
+    and a second launch of the chunk gives the same output."""
+    import torch
+    from dpu_operator_tpu_torch.ops import attention_fwd_kv8
+    p = q.shape[1]
+    row = tuple(t[3:4] for t in kv8)
+    whole, kernel = launched(lambda: attention_fwd_kv8(
+        q, *(t[:, :p] for t in row)))
+    off = torch.full((1,), 256, dtype=torch.int32, device="cuda")
+    part, kernel_c = launched(lambda: attention_fwd_kv8(q[:, 256:p], *row,
+                                                        off))
+    again = attention_fwd_kv8(q[:, 256:p], *row, off)
+    torch.cuda.synchronize()
+    same, repeat = torch.equal(part, whole[:, 256:p]), torch.equal(again,
+                                                                   part)
+    log(f"[kernels] KV8 chunk 256@256 ({kernel_c}, {q.dtype}, head dim "
+        f"{q.shape[3]}) equals rows 256-{p - 1} of the whole KV8 prefill "
+        f"({kernel}) bit for bit: {same}; a second launch equal: {repeat}")
+    require(kernel == kernel_c == "attention_kv8_tf32",
+            f"the fp32 KV8 prefill took {kernel} / {kernel_c}")
+    require(same, "the fp32 KV8 chunk at offset 256 differs from the whole "
+            "KV8 prefill")
+    require(repeat, "two fp32 KV8 chunk launches on the same inputs differ")
+
+
+def _kv8_small_dim_cases(cfg) -> list:
+    """The KV8 chunk (:func:`_kv8_chunk_inputs` at *cfg*'s heads) at head
+    dims 16 (the default config's) and 32: bf16 on the KV8 tensor-core
+    kernel at head dim 64 (zero-padded), fp32 on the fp32 KV8 kernel at 32.
+    Its own generator leaves the later cases' inputs those of a run without
+    these cases."""
+    import torch
+    h, s_max = cfg.n_heads, cfg.max_seq
+    cases = []
+    for dh in (16, 32):
+        qc, row, off = _kv8_chunk_inputs(h, dh, s_max)
+        for dt, route in ((torch.bfloat16, "attention_kv8_tc"),
+                          (torch.float32, "attention_kv8_tf32")):
+            tag = "" if dt == torch.bfloat16 else " float32"
+            cases.append(_kv8_case(
+                f"chunk 1x256x{h}x{dh}@256 vs slot row of 8x{s_max}{tag}",
+                qc.to(dt), row, off, route))
+    return cases
 
 
 def _int8_gemm_log(gen, cfg) -> None:
@@ -792,7 +905,7 @@ def _route_cases(gen, cfg, decodes: tuple, trains: tuple) -> list:
     (ckq, cks), (cvq, cvs) = _kv_quant(ck), _kv_quant(cv)
     kv8 = (ckq, cks, cvq, cvs)
     for dt, chunk_route in ((bf16, "attention_kv8_tc"),
-                            (f32, "attention_kv8_tiled")):
+                            (f32, "attention_kv8_tf32")):
         tag = "" if dt == bf16 else " float32"
         cases.append(_kv8_case(f"decode 8x1 vs 8x{s_max}x{shape}{tag}",
                                qd.to(dt), kv8, pos, "attention_kv8_rows"))
@@ -802,6 +915,7 @@ def _route_cases(gen, cfg, decodes: tuple, trains: tuple) -> list:
             f"chunk 1x256x{shape}@256 vs slot row of 8x{s_max}{tag}",
             qc.to(dt), tuple(t[3:4] for t in kv8), off, chunk_route))
     _kv8_decode_row_alone(qd, kv8, pos, qv, pv)
+    _kv8_chunk_equals_whole(q.float(), kv8)
     return cases
 
 
@@ -824,6 +938,8 @@ def phase_kernels(cfg) -> list:
         ((8, s_max, dh, bf16), (1, s_max, dh, bf16), (1, 1000, dh, bf16),
          (1, s_max, dh, f32), (1, 1000, dh, f32), (1, 1000, 64, bf16),
          (2, s_max, 64, bf16), (1, 1000, 32, bf16))))
+    # the KV8 chunk at head dims 16 and 32
+    cases.extend(_kv8_small_dim_cases(cfg))
     # RMSNorm at the training shape (batch 8 x 1024 tokens)
     cases.append(_rms_case(gen, 8 * s_max, d, bf16))
     # the flash bench's shape (phase 9's measure_flash_attention):
@@ -849,7 +965,7 @@ def phase_kernels(cfg) -> list:
         "a copy of the dequantized K / V in q's type, the copy made outside "
         "the timing; 'earlier' is the earlier design's time (KV8: the "
         "two-pass decode kernels and the tiled KV8 kernel; fp32, and bf16 at "
-        "head dim 32: the tiled CUDA-core kernels); fp32 attention bounds at "
+        "head dim 16 / 32: the CUDA-core kernels); fp32 attention bounds at "
         "a third of the TF32 rate (3xTF32)")
     for c in cases:
         earlier = "" if c.get("earlier_us") is None \
@@ -1007,7 +1123,7 @@ def _default_config_parity() -> None:
              if c != before[n]}
     log(f"[parity] default config fp32 launches: {moved}")
     for name in ("attention_fwd_tf32", "attention_fwd_decode",
-                 "attention_fwd_lse_tf32", "attention_bwd_dq",
+                 "attention_fwd_lse_tf32", "attention_bwd_dq_tf32",
                  "attention_bwd_dkv_tf32"):
         require(moved.get(name, 0) > 0, f"default config fp32: {name} "
                 "never launched")
@@ -1028,16 +1144,36 @@ def _default_config_parity() -> None:
             f"card vs CPU: scaled error {err:.3g}")
 
 
-def phase_cpu_parity() -> None:
+#: phase 4 must launch each of these (the fp32 routes of the tiny and the
+#: default config)
+CPU_PARITY_KERNELS = ("attention_fwd_tf32", "attention_fwd_decode",
+                      "attention_fwd_lse_tf32", "attention_bwd_dq_tf32",
+                      "attention_bwd_dkv_tf32", "attention_kv8_rows",
+                      "attention_kv8_tf32")
+
+
+def phase_cpu_parity() -> dict:
+    """Phase 4; the launch counters are set to 0 before it and read after
+    it (the fp32 kernels' launches on the kernels' line). Returns the
+    launches."""
     import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
     from dpu_operator_tpu_torch.workloads.model import TransformerConfig
+    reset_launch_counts()
     cfg = TransformerConfig(vocab=512, d_model=256, n_heads=4, n_layers=2,
                             d_ff=512, max_seq=128, dtype=torch.float32)
     p_cpu, p_gpu = _parity(cfg, 7, "tiny fp32")
     _spec_preempt_parity(p_gpu, cfg)
     _spec_kv8_parity(p_gpu, cfg)
     _train_parity(cfg, p_cpu)
+    _kv8_chunk_parity(p_cpu, p_gpu, cfg, "tiny fp32")
     _default_config_parity()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[parity] launches of the phase: {counts}")
+    for name in CPU_PARITY_KERNELS:
+        require(counts[name] > 0, f"phase 4: {name} never launched")
+    return counts
 
 
 class OracleDrafter:
@@ -2232,13 +2368,13 @@ def phase_measure(cfg) -> dict:
 # -- phase 10 -----------------------------------------------------------------
 #: phase 10's main path must launch each of these (every route of head dim
 #: 256: the flagship's bf16 serving, KV8 and training kernels, and the
-#: tiny fp32 config's 3xTF32, CUDA-core dQ, decode and KV8 kernels)
+#: tiny fp32 config's 3xTF32, decode and KV8 kernels)
 WIDE_KERNELS = ("fused_rmsnorm", "attention_fwd_tc", "attention_fwd_decode",
                 "attention_kv8_rows", "attention_kv8_tc",
                 "attention_fwd_lse_tc", "attention_bwd_dq_tc",
                 "attention_bwd_dkv_tc", "attention_fwd_tf32",
-                "attention_fwd_lse_tf32", "attention_bwd_dq",
-                "attention_bwd_dkv_tf32", "attention_kv8_tiled")
+                "attention_fwd_lse_tf32", "attention_bwd_dq_tf32",
+                "attention_bwd_dkv_tf32", "attention_kv8_tf32")
 
 
 def _wide_serve(params, cfg) -> None:
@@ -2360,24 +2496,18 @@ def _wide_train(cfg) -> None:
 KV8_PARITY_TOL = 1e-2
 
 
-def _wide_tiny_parity() -> None:
-    """A tiny fp32 config at head dim 256 (d_model 512 over 2 heads) on the
-    card against the CPU, as phase 4 holds the default config: greedy
-    streams, logits and a serve (:func:`_parity`), one train step
-    (:func:`_train_parity`), and a KV8 chunked prefill (two chunks of 16
-    rows: the tiled KV8 kernel in fp32) with 8 greedy decode steps after it
-    (the KV8 cluster kernel): the tokens equal, the logits within
-    :data:`KV8_PARITY_TOL`."""
+def _kv8_chunk_parity(p_cpu, p_gpu, cfg, label: str) -> None:
+    """A KV8 chunked prefill of *cfg* (fp32: two chunks of 16 rows, the
+    fp32 KV8 kernel on the card) with 8 greedy decode steps after it (the
+    KV8 cluster kernel), on the card and on the CPU from the same weights:
+    the tokens equal, the logits within :data:`KV8_PARITY_TOL`."""
     import torch
+    from dpu_operator_tpu_torch.ops import launch_counts
     from dpu_operator_tpu_torch.workloads.decode import (
         decode_step, init_kv_cache, prefill_chunk)
-    from dpu_operator_tpu_torch.workloads.model import TransformerConfig
-    cfg = TransformerConfig(vocab=512, d_model=512, n_heads=2, n_layers=2,
-                            d_ff=1024, max_seq=128, dtype=torch.float32)
-    p_cpu, p_gpu = _parity(cfg, 11, f"tiny fp32 at head dim {cfg.d_head}")
-    _train_parity(cfg, p_cpu)
     ids = np.random.default_rng(12).integers(0, cfg.vocab, 30)
     got = {}
+    before = launch_counts()
     for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
         cache = init_kv_cache(cfg, 2, device=dev, kv_int8=True)
         for off in (0, 16):
@@ -2395,15 +2525,36 @@ def _wide_tiny_parity() -> None:
             step, _ = decode_step(p, cfg, cache, last, pos)
             logits.append(step[1].cpu())
         got[dev] = (toks, logits)
+    chunks = launch_counts()["attention_kv8_tf32"] \
+        - before["attention_kv8_tf32"]
     err = max(float((a - b).abs().max())
               for a, b in zip(got["cpu"][1], got["cuda"][1]))
-    log(f"[wide] tiny fp32 KV8 chunked prefill (2 chunks of 16) and 8 decode "
-        f"steps card vs CPU: tokens equal {got['cpu'][0] == got['cuda'][0]}, "
-        f"logits max |diff| {err:.3g} (tol {KV8_PARITY_TOL})")
-    require(got["cpu"][0] == got["cuda"][0], "tiny fp32 KV8: greedy tokens "
+    log(f"[parity] {label} KV8 chunked prefill (2 chunks of 16, "
+        f"{chunks} launches of the fp32 KV8 kernel) and 8 decode steps card "
+        f"vs CPU: tokens equal {got['cpu'][0] == got['cuda'][0]}, logits max "
+        f"|diff| {err:.3g} (tol {KV8_PARITY_TOL})")
+    require(chunks == 2 * cfg.n_layers, f"{label} KV8 chunked prefill: "
+            f"{chunks} launches of the fp32 KV8 kernel")
+    require(got["cpu"][0] == got["cuda"][0], f"{label} KV8: greedy tokens "
             f"card {got['cuda'][0]} vs CPU {got['cpu'][0]}")
-    require(err <= KV8_PARITY_TOL, f"tiny fp32 KV8 chunked prefill: logits "
+    require(err <= KV8_PARITY_TOL, f"{label} KV8 chunked prefill: logits "
             f"card vs CPU differ by {err}")
+
+
+def _wide_tiny_parity() -> None:
+    """A tiny fp32 config at head dim 256 (d_model 512 over 2 heads) on the
+    card against the CPU, as phase 4 holds the default config: greedy
+    streams, logits and a serve (:func:`_parity`), one train step
+    (:func:`_train_parity`), and a KV8 chunked prefill
+    (:func:`_kv8_chunk_parity`)."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import TransformerConfig
+    cfg = TransformerConfig(vocab=512, d_model=512, n_heads=2, n_layers=2,
+                            d_ff=1024, max_seq=128, dtype=torch.float32)
+    label = f"tiny fp32 at head dim {cfg.d_head}"
+    p_cpu, p_gpu = _parity(cfg, 11, label)
+    _train_parity(cfg, p_cpu)
+    _kv8_chunk_parity(p_cpu, p_gpu, cfg, label)
 
 
 def phase_wide(cfg) -> dict:
@@ -2451,13 +2602,13 @@ def main(argv: list) -> int:
     t_start = time.monotonic()
     dev = phase_device()
     phase_build()
-    if argv[:1] == ["--time-train"]:
-        b, s, h, d = (int(x) for x in argv[1:5])
-        time_train(b, s, h, d, argv[5])
+    if argv[:1] == ["--time"]:
+        timer = {"train": time_train, "kv8-chunk": time_kv8_chunk}[argv[1]]
+        timer(*(int(x) if x.isdigit() else x for x in argv[2:]))
         return 0
     cfg = flagship_config()
     cases = phase_kernels(cfg)
-    phase_cpu_parity()
+    parity_counts = phase_cpu_parity()
     t0 = time.monotonic()
     params = init_params(0, cfg, device="cuda")
     torch.cuda.synchronize()
@@ -2480,12 +2631,12 @@ def main(argv: list) -> int:
     measure_counts = phase_measure(cfg)["launches"]
     torch.cuda.empty_cache()
     wide_counts = phase_wide(wide_config(cfg))
-    # each kernel's launches on the main paths (the four serve runs, the
-    # two chaos runs, the train run, the quantized phase and the
-    # measurement phase), each read from zero; a head-dim-256 case's from
-    # phase 10, the path of that head dim
-    counts = {k: counts[k] + train_counts[k] + quant_counts[k]
-              + measure_counts[k] for k in counts}
+    # each kernel's launches on the main paths (phase 4's fp32 models, the
+    # four serve runs, the two chaos runs, the train run, the quantized
+    # phase and the measurement phase), each read from zero; a
+    # head-dim-256 case's from phase 10, the path of that head dim
+    counts = {k: counts[k] + parity_counts[k] + train_counts[k]
+              + quant_counts[k] + measure_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"],

@@ -1,9 +1,12 @@
 // Arguments and tile constants shared by the attention forward kernels
 // (flash_attention_fwd.cu) and the attention over the int8 KV cache
-// (attention_kv8.cu).
+// (attention_kv8.cu, attention_kv8_tf32.cu).
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cstddef>
+#include <cstdint>
 
 namespace attn {
 
@@ -35,26 +38,30 @@ struct KvScales {
   long long vs_sb, vs_ss, vs_sh;
 };
 
-// The tiled CUDA-core KV8 kernel (attention_kv8.cu): one block per (query
-// tile of kBQ rows, head, batch), key tiles of kBK staged in shared memory as
-// fp32.
-constexpr int kBQ = 32;      // query rows per block
-constexpr int kBK = 64;      // keys per shared-memory tile
-constexpr int kWarps = 4;    // 128 threads
-constexpr int kRPW = kBQ / kWarps;  // rows per warp
-
-template <int D>
-struct TiledSmem {
-  static constexpr int kStride = D + 4;  // floats; keeps float4 reads conflict-free
-  static constexpr size_t kQ = static_cast<size_t>(kBQ) * kStride;
-  static constexpr size_t kK = static_cast<size_t>(kBK) * kStride;
-  static constexpr size_t kV = static_cast<size_t>(kBK) * kStride;
-  static constexpr size_t kP = static_cast<size_t>(kWarps) * kRPW * kBK;
-  static constexpr size_t kBytes = (kQ + kK + kV + kP) * sizeof(float);
-};
+// Keys per shared-memory tile of the bf16 tensor-core forward and of the
+// bf16 KV8 kernel of many rows: tiles are anchored at key 0.
+constexpr int kBK = 64;
 
 // Keys per chunk of the kernels that split a row's keys across blocks (the
 // wrapper's DECODE_CHUNK): chunks are anchored at key 0.
 constexpr int kDecChunk = 128;
+
+// int8 to fp32 without the quarter-rate integer conversion: a byte biased
+// to x + 128 becomes the low mantissa bits of 2^23 + x + 128, and the bias
+// is subtracted in fp32 (exact for every int8).
+constexpr float kInt8Bias = 8388736.f;  // 2^23 + 128
+
+// The four int8 of a 32-bit word, lowest byte first, as fp32.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - kInt8Bias;
+}
+
+// The fp32 KV8 kernel of many query rows (attention_kv8_tf32.cu), launched
+// by attention_kv8.cu's C entry: D in {32, 64, 128, 256}, 16 query rows a
+// block.
+cudaError_t launch_kv8_tf32(const AttnArgs& a, const KvScales& sc, int d, cudaStream_t stream);
 
 }  // namespace attn

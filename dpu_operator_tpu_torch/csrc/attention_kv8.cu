@@ -42,7 +42,7 @@
 //   kernel too large for the instruction cache, left the decode shape at
 //   21-30 us; the per-CTA chain of dependent steps, not the memory, set
 //   the time.)
-// * tc (Sq > kRowsMax, bf16 at D 64 / 128 / 256: prefill chunks, wide verify):
+// * tc (Sq > kRowsMax in bf16, D 64 / 128 / 256: prefill chunks, wide verify):
 //   attn_fwd_kv8_tc_kernel, attn_fwd_tc_kernel's structure (consumer
 //   warpgroups of 64 query rows, diagonal-only masking) with a converter
 //   warpgroup in the producer's place: it reads the int8 tiles one tile
@@ -52,12 +52,14 @@
 //   pass 2 recomputes S and feeds round(exp2(s - m) / l * v_s) as the
 //   register A operand of the PV product against the converted v_q.
 //   Bound: operations.
-// * tiled (Sq > kRowsMax in fp32 or at D 32): attn_tiled_kv8_kernel, the
-//   tiled CUDA-core kernel's blocks, warps, masking and staging, with int8
-//   rows converted to fp32 as they are staged, both passes inside a block.
+//   A bf16 head dim of 32 or less is padded to 64 by the wrapper.
+// * tf32 (Sq > kRowsMax in fp32): attn_fwd_kv8_tf32_kernel
+//   (attention_kv8_tf32.cu), the same two passes on the tensor cores by
+//   mma.sync: int8 K and V exact in TF32, q and P' split into TF32 hi / lo,
+//   two products a term. Bound: operations.
 //
 // A row's result depends only on its query, its keys and the route's fixed
-// tiling (rows: kDecChunk and C; tc / tiled: key tiles of kBK), not on the
+// tiling (rows: kDecChunk and C; tc: key tiles of kBK; tf32: of 32), not on the
 // other rows of the launch: row i of a rows launch at position p equals a
 // one-row launch of the same query at p + i bit for bit.
 #include <cooperative_groups.h>
@@ -74,7 +76,7 @@ namespace {
 using namespace attn;
 namespace cg = cooperative_groups;
 
-constexpr int kRouteKv8Tiled = 0, kRouteKv8Rows = 1, kRouteKv8Tc = 2;
+constexpr int kRouteKv8Rows = 1, kRouteKv8Tc = 2, kRouteKv8Tf32 = 3;
 //: the most query rows the rows route takes (the wrapper's KV8_ROWS_MAX)
 constexpr int kRowsMax = 8;
 //: one thread a key of the chunk
@@ -94,19 +96,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// int8 to fp32 without the quarter-rate integer conversion: a byte biased
-// to x + 128 becomes the low mantissa bits of 2^23 + x + 128, and the bias
-// is subtracted in fp32 (exact for every int8).
-constexpr float kInt8Bias = 8388736.f;  // 2^23 + 128
-
-// The four int8 of a 32-bit word, lowest byte first, as fp32.
-__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - kInt8Bias;
 }
 
 // ----------------------------------------------------------------- rows --
@@ -770,146 +759,6 @@ attn_fwd_kv8_tc_kernel(const __grid_constant__ CUtensorMap tq, AttnArgs a, KvSca
   }
 }
 
-// ---------------------------------------------------------------- tiled --
-// Many rows in fp32 or at D 32: the tiled CUDA-core kernel's blocks of kBQ
-// rows, warps, masking and staging (flash_attention_fwd.cu), with int8 rows
-// converted to fp32 as they are staged, both passes inside the block.
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_tiled_kv8_kernel(AttnArgs a, KvScales sc) {
-  constexpr int NT = kWarps * 32;
-  constexpr int DPL = D / 32;  // output columns per lane
-  constexpr int S = D + 4;
-  extern __shared__ float4 smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + TiledSmem<D>::kQ;
-  float* Vs = Ks + TiledSmem<D>::kK;
-  float* Ps = Vs + TiledSmem<D>::kV;
-
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = tile * kBQ;
-  const int nrows = min(kBQ, a.Sq - r0);
-  const int pos0 = a.q_pos0 ? a.q_pos0[b] : 0;
-  const int p_lo = pos0 + r0;
-  const int p_hi = pos0 + r0 + nrows - 1;
-
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_ss;
-  const int8_t* k = static_cast<const int8_t*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const int8_t* v = static_cast<const int8_t*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* ks = sc.ks + b * sc.ks_sb + h * sc.ks_sh;
-  const float* vs = sc.vs + b * sc.vs_sb + h * sc.vs_sh;
-  port::stage_rows<T, D, NT>(Qs, q, a.q_ss, kBQ, nrows);
-
-  const int nkb_all = (a.Skv + kBK - 1) / kBK;
-  int nkb = nkb_all, n_full = a.Skv / kBK;
-  if (a.causal) {
-    nkb = min(nkb_all, p_hi / kBK + 1);
-    n_full = min(n_full, (p_lo + 1) / kBK);
-  }
-  n_full = min(n_full, nkb);
-  const float* qw = Qs + warp * kRPW * S;
-  float* pw = Ps + warp * kRPW * kBK;
-
-  // this warp's masked scores against keys j0 + lane and j0 + lane + 32 of
-  // the K tile staged in Ks, in the exp2 domain
-  auto scores = [&](int kb, float (&s)[kRPW][2]) {
-    const int j0 = kb * kBK;
-    float kscale[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = j0 + lane + 32 * t;
-      kscale[t] = j < a.Skv ? ks[j * sc.ks_ss] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) s[r][0] = s[r][1] = 0.f;
-    port::dot_rows2<kRPW, D>(s, qw, Ks + lane * S, Ks + (lane + 32) * S);
-    const bool masked = kb >= n_full;
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      const int row_pos = pos0 + r0 + warp * kRPW + r;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = j0 + lane + 32 * t;
-        s[r][t] = s[r][t] * kscale[t] * a.scale2;
-        if (masked && (j >= a.Skv || (a.causal && j > row_pos))) s[r][t] = kNegInf;
-      }
-    }
-  };
-
-  // pass 1: each row's max and sum over its keys
-  float m[kRPW], l[kRPW];
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int j0 = kb * kBK;
-    __syncthreads();
-    port::stage_rows<int8_t, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, min(kBK, a.Skv - j0));
-    __syncthreads();
-    float s[kRPW][2];
-    scores(kb, s);
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r) {
-      const float m_new = fmaxf(m[r], port::warp_max(fmaxf(s[r][0], s[r][1])));
-      l[r] = l[r] * exp2f(m[r] - m_new) +
-             port::warp_sum(exp2f(s[r][0] - m_new) + exp2f(s[r][1] - m_new));
-      m[r] = m_new;
-    }
-  }
-
-  // pass 2: out = sum of round(P * v_s) * v_q with P = exp2(s - m) / l
-  float acc[kRPW][DPL];
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r)
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int j0 = kb * kBK;
-    const int kvalid = min(kBK, a.Skv - j0);
-    __syncthreads();
-    port::stage_rows<int8_t, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kBK, kvalid);
-    port::stage_rows<int8_t, D, NT>(Vs, v + j0 * a.v_ss, a.v_ss, kBK, kvalid);
-    __syncthreads();
-    float s[kRPW][2];
-    scores(kb, s);
-    float vscale[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int j = j0 + lane + 32 * t;
-      vscale[t] = j < a.Skv ? vs[j * sc.vs_ss] : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < kRPW; ++r)
-#pragma unroll
-      for (int t = 0; t < 2; ++t)
-        pw[r * kBK + lane + 32 * t] =
-            port::round_to<T>(exp2f(s[r][t] - m[r]) / l[r] * vscale[t]);
-    __syncwarp();
-    for (int j = 0; j < kvalid; ++j) {
-      float vv[DPL];
-      port::load_cols<DPL>(vv, Vs + j * S + lane * DPL);
-#pragma unroll
-      for (int r = 0; r < kRPW; ++r) {
-        const float pj = pw[r * kBK + j];
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRPW; ++r) {
-    const int lr = warp * kRPW + r;
-    if (lr >= nrows) continue;
-    T* o = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + (r0 + lr) * a.o_ss + lane * DPL;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) o[c] = port::from_f<T>(acc[r][c]);
-  }
-}
-
 // ----------------------------------------------------------- launching --
 template <typename T, int D, int R>
 cudaError_t launch_rows(const AttnArgs& a, const KvScales& sc, cudaStream_t stream) {
@@ -981,26 +830,9 @@ cudaError_t launch_tc(const AttnArgs& a, const KvScales& sc, cudaStream_t stream
 }
 
 template <typename T, int D>
-cudaError_t launch_tiled(const AttnArgs& a, const KvScales& sc, cudaStream_t stream) {
-  constexpr size_t smem = TiledSmem<D>::kBytes;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_tiled_kv8_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
-  attn_tiled_kv8_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(a, sc);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
 cudaError_t launch_route(const AttnArgs& a, const KvScales& sc, int route, int tile_rows,
                          cudaStream_t stream) {
   if (route == kRouteKv8Rows) return launch_rows_r<T, D>(a, sc, stream);
-  if (route == kRouteKv8Tiled) return launch_tiled<T, D>(a, sc, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D != 32) {
     if constexpr (D != 256)
       if (tile_rows == 128) return launch_tc<D, 2>(a, sc, stream);
@@ -1034,7 +866,8 @@ extern "C" {
 // 16-byte aligned with strides of 16 bytes (the wrapper checks). route 1
 // (rows): 1 <= Sq <= kRowsMax, chunk the kernel's kDecChunk, one cluster
 // launch; route 2 (tc): bf16 at D 64 or 128 with tile_rows 64 or 128 query
-// rows a block, at D 256 with 64; route 0 (tiled): any Sq. Returns
+// rows a block, at D 256 with 64; route 3 (tf32): fp32, any Sq, 16 query
+// rows a block (attention_kv8_tf32.cu; tile_rows is not read). Returns
 // cudaGetLastError() (or the cluster launch's error), or an error without
 // launching when the arguments do not fit the route.
 int attention_kv8(const void* q, const void* k_q, const void* k_s, const void* v_q,
@@ -1050,7 +883,7 @@ int attention_kv8(const void* q, const void* k_q, const void* k_s, const void* v
                   int tile_rows, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || B > 65535 || H > 65535 ||
       k_s == nullptr || v_s == nullptr || (causal && q_pos0 == nullptr) ||
-      (route != kRouteKv8Tiled && route != kRouteKv8Rows && route != kRouteKv8Tc) ||
+      (route != kRouteKv8Rows && route != kRouteKv8Tc && route != kRouteKv8Tf32) ||
       (route == kRouteKv8Rows && (Sq > kRowsMax || chunk != kDecChunk)))
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a{q, k_q, v_q, o, static_cast<const int*>(q_pos0), nullptr, B, Sq, Skv, H,
@@ -1059,6 +892,9 @@ int attention_kv8(const void* q, const void* k_q, const void* k_s, const void* v
   const KvScales sc{static_cast<const float*>(k_s), static_cast<const float*>(v_s),
                     ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteKv8Tf32)
+    return static_cast<int>(dtype == port::kDtypeF32 ? launch_kv8_tf32(a, sc, D, s)
+                                                     : cudaErrorInvalidValue);
   if (dtype == port::kDtypeF32)
     return static_cast<int>(launch_d<float>(a, sc, D, route, tile_rows, s));
   if (dtype == port::kDtypeBF16)

@@ -26,9 +26,6 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-template <> __device__ __forceinline__ float to_f<int8_t>(int8_t v) {
-  return static_cast<float>(v);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -53,74 +50,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Copy rows [0, nrows) x D of a strided (S, D) slice into shared memory as
-// fp32 rows of D + 4 floats (the pad keeps float4 reads of neighbouring rows
-// on different banks); rows past `valid` are zero-filled. The attention
-// kernels stage every Q / K / V / dO tile with it.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
-                                           long long row_stride, int nrows,
-                                           int valid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int kPerRow = D / VEC;
-  using P = Pack<T, VEC>;
-  for (int idx = threadIdx.x; idx < nrows * kPerRow; idx += NT) {
-    const int r = idx / kPerRow;
-    const int c = (idx - r * kPerRow) * VEC;
-    float* d = dst + r * (D + 4) + c;
-    if (r < valid) {
-      const P p = *reinterpret_cast<const P*>(src + r * row_stride + c);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) d[e] = to_f(p.v[e]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) d[e] = 0.f;
-    }
-  }
-}
-
-// `DPL` consecutive fp32 values from shared memory (one lane's output
-// columns of a staged row), as one vector load where the width allows.
-template <int DPL>
-__device__ __forceinline__ void load_cols(float (&dst)[DPL], const float* src) {
-  if constexpr (DPL == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  } else if constexpr (DPL == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    dst[0] = t.x; dst[1] = t.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) dst[c] = src[c];
-  }
-}
-
-// Partial dot products of kRows broadcast rows (a, stride S floats) against
-// two per-lane rows (b0, b1) over D: acc[r][t] += a[r] . b_t. Every row is
-// D + 4 floats apart, so float4 reads stay conflict-free.
-template <int kRows, int D>
-__device__ __forceinline__ void dot_rows2(float (&acc)[kRows][2], const float* a,
-                                          const float* b0, const float* b1) {
-  constexpr int S = D + 4;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(b0 + d);
-    const float4 x1 = *reinterpret_cast<const float4*>(b1 + d);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 y = *reinterpret_cast<const float4*>(a + r * S + d);
-      acc[r][0] = fmaf(y.x, x0.x, acc[r][0]);
-      acc[r][0] = fmaf(y.y, x0.y, acc[r][0]);
-      acc[r][0] = fmaf(y.z, x0.z, acc[r][0]);
-      acc[r][0] = fmaf(y.w, x0.w, acc[r][0]);
-      acc[r][1] = fmaf(y.x, x1.x, acc[r][1]);
-      acc[r][1] = fmaf(y.y, x1.y, acc[r][1]);
-      acc[r][1] = fmaf(y.z, x1.z, acc[r][1]);
-      acc[r][1] = fmaf(y.w, x1.w, acc[r][1]);
-    }
-  }
 }
 
 // Round to T's precision and back: where the reference rounds an fp32

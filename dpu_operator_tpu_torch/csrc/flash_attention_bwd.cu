@@ -23,12 +23,9 @@
 //
 // Routes (the wrapper pads the head dim up to the route's next compiled D
 // and passes the true D's scales):
-// * dq in fp32 on the CUDA cores (route 0, D 32 / 64 / 128 / 256): one block per
-//   (query tile of 32 rows, head, batch), 4 warps of 8 rows; walks 64-key
-//   tiles up to the tile's last row (causal), each lane two keys for the
-//   scores and D / 32 columns of dq.
-// * dkv in fp32 on the tensor cores (route 3, D 32 / 64 / 128 / 256):
-//   attn_bwd_dkv_tf32_kernel, 3xTF32 on mma.sync, below.
+// * dq and dkv in fp32 on the tensor cores (route 3, D 32 / 64 / 128 / 256):
+//   attn_bwd_dq_tf32_kernel and attn_bwd_dkv_tf32_kernel, 3xTF32 on
+//   mma.sync, below.
 // * dq and dkv in bf16 on the tensor cores (route 2, D 64 / 128 / 256):
 //   attn_bwd_dq_tc_kernel and attn_bwd_dkv_tc_kernel, below. At D 256 a
 //   block takes 64 query rows (dq: one warpgroup, 192 KB of shared memory)
@@ -36,7 +33,7 @@
 //
 // Bound on the card: operations (dq: 6, dkv: 8 multiply-adds x 2 per
 // admitted (row, key) pair and head dimension). All kernels but the 3xTF32
-// one at small D need more than 48 KB of shared memory (set per kernel at
+// ones at small D need more than 48 KB of shared memory (set per kernel at
 // first launch).
 #include "common.cuh"
 #include "tf32.cuh"
@@ -67,109 +64,212 @@ struct BwdArgs {
   float sm_scale;  // 1 / sqrt(D)
 };
 
-// ------------------------------------------------------------------- dq --
-constexpr int kQBQ = 32;                // query rows per block
-constexpr int kQBK = 64;                // keys per tile
-constexpr int kQWarps = 4;              // 128 threads
-constexpr int kQRPW = kQBQ / kQWarps;   // rows per warp
+// ------------------------------------------------------ dq, fp32: 3xTF32 --
+// attn_bwd_dq_tf32_kernel: dQ in fp32 on the tensor cores.
+// Bound: operations, 6 * admitted pairs * D, in three TF32 products each
+// (495 / 3 TFLOP/s on the H100's tensor cores).
+//
+// Design: attn_bwd_dkv_tf32_kernel's (below) with the roles of queries and
+// keys swapped. One block per (query tile of 64 rows, head, batch),
+// heaviest tiles first, of KH x 4 warps: warp w owns rows 16 (w % 4) .. + 15
+// (one m16 row block of mma.sync m16n8k8) for the key tiles of parity w / 4
+// (KH 2), so a row group's walk over the keys takes two warps, not one;
+// each keeps its rows' dQ in fp32 registers (D / 2 a thread), and the odd
+// half adds its sums to the even half's through shared memory at the end
+// (one fixed order). Q and dO are staged once; key tiles of dq_tf32_keys
+// keys (K, then V) are staged KH at a time (one for each half) by cp.async
+// into two buffers, so tiles i + KH .. load while tiles i .. are multiplied.
+// Every tile stays fp32 in shared memory (rows of D + 4 floats: every
+// fragment load is free of bank conflicts) and each warp splits the
+// fragments it loads into TF32 hi / lo parts (tf32.cuh). Per key tile a
+// warp takes
+//   S = Q K^T and dP = dO V^T: both operands D-contiguous as staged, each in
+//   two accumulator chains (the small terms, the large one);
+//   P = exp2(S scale2 - lse * log2 e), exactly 0 where masked, and
+//   dS = P (dP - delta) sm_scale, in registers (fp32: no rounding);
+//   dQ += dS K: dS from the accumulator as the A operand (acc_to_a), K read
+//   with its rows as the permuted k index (load_b_krow), over D / 8 output
+//   fragments.
+// No atomics: each dQ element is summed by KH warps, key tile by key tile in
+// order, and the sums added once in a fixed order, so gradients are the same
+// from run to run. Shared memory at D 128: Q and dO 2 x 64 (D + 4) floats and
+// two buffers of two 32-key K / V tiles, 203 KB. At D 256, where dQ takes
+// 128 registers a thread, one warp a row group (KH 1) and 16-key tiles keep
+// it to 195 KB.
+constexpr int kDqWarps = 4;  // row groups of 16: 64 query rows a block
+
+//: keys a staged tile of the 3xTF32 dQ kernel: 32, or 16 at D 256 (Q, dO
+//: and two K / V buffers in 227 KB)
+template <int D>
+__host__ __device__ constexpr int dq_tf32_keys() { return D > 128 ? 16 : 32; }
+
+//: warps a row group of the 3xTF32 dQ kernel, on the key tiles of one
+//: parity each: 2, or 1 at D 256 (two tiles a buffer would not fit)
+template <int D>
+__host__ __device__ constexpr int dq_tf32_halves() { return D > 128 ? 1 : 2; }
 
 template <int D>
-struct DqSmem {
-  static constexpr size_t kRow = static_cast<size_t>(D + 4);
-  static constexpr size_t kQ = kQBQ * kRow;       // Q, then dO
-  static constexpr size_t kK = kQBK * kRow;       // K, then V
-  static constexpr size_t kDs = static_cast<size_t>(kQWarps) * kQRPW * kQBK;
-  static constexpr size_t kBytes = (2 * kQ + 2 * kK + kDs) * sizeof(float);
+struct Tf32DqSmem {
+  static constexpr int kLd = D + 4;  // floats a staged row
+  static constexpr size_t kRows = static_cast<size_t>(16 * kDqWarps) * kLd;  // Q (dO alike)
+  static constexpr size_t kTile = 2 * static_cast<size_t>(dq_tf32_keys<D>()) * kLd;  // K, V
+  static constexpr size_t kBuf = dq_tf32_halves<D>() * kTile;  // one tile a half
+  static constexpr size_t kBytes = (2 * kRows + 2 * kBuf) * sizeof(float);
+  // the odd half's dQ sums at the end, in the buffers' place
+  static_assert(dq_tf32_halves<D>() == 1 || kDqWarps * 32 * (D / 2) <= 2 * kBuf,
+                "reduction space");
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kQWarps * 32)
-attn_bwd_dq_kernel(BwdArgs a) {
-  constexpr int NT = kQWarps * 32;
-  constexpr int DPL = D / 32;
-  constexpr int S = D + 4;
+template <int D>
+__global__ void __launch_bounds__(dq_tf32_halves<D>() * kDqWarps * 32, 1)
+attn_bwd_dq_tf32_kernel(BwdArgs a) {
+  using L = Tf32DqSmem<D>;
+  constexpr int KH = dq_tf32_halves<D>();
+  constexpr int NT = KH * kDqWarps * 32, LD = L::kLd, BQ = 16 * kDqWarps, NN = D / 8;
+  constexpr int BK = dq_tf32_keys<D>(), NJ = BK / 8;
   extern __shared__ float4 smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* DOs = Qs + DqSmem<D>::kQ;
-  float* Ks = DOs + DqSmem<D>::kQ;
-  float* Vs = Ks + DqSmem<D>::kK;
-  float* DSs = Vs + DqSmem<D>::kK;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + L::kRows;
+  float* kvs = dos + L::kRows;  // [2][KH][K, V][BK][LD]
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = tile * kQBQ;
-  const int nrows = min(kQBQ, a.S - r0);
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_ss;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.d_sb + h * a.d_sh + r0 * a.d_ss;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  port::stage_rows<T, D, NT>(Qs, q, a.q_ss, kQBQ, nrows);
-  port::stage_rows<T, D, NT>(DOs, dout, a.d_ss, kQBQ, nrows);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest tiles first
+  const int nrows = min(BQ, a.S - r0);
+  const int nkb_all = (a.S + BK - 1) / BK;
+  // key tiles past the block's last row contribute nothing
+  const int nkb = a.causal ? min(nkb_all, (r0 + nrows - 1) / BK + 1) : nkb_all;
+  const int nsets = (nkb + KH - 1) / KH;
+  const float* k = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* v = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  // key tiles KH i .. KH i + KH - 1 into buffer i % 2
+  auto stage = [&](int i) {
+    for (int hh = 0; hh < KH; ++hh) {
+      const int kb = KH * i + hh;
+      if (kb >= nkb) break;
+      float* dst = kvs + ((i & 1) * KH + hh) * L::kTile;
+      const int j0 = kb * BK, valid = min(BK, a.S - j0);
+      tf32::stage_rows<D, NT>(dst, k + j0 * a.k_ss, a.k_ss, BK, valid);
+      tf32::stage_rows<D, NT>(dst + BK * LD, v + j0 * a.v_ss, a.v_ss, BK, valid);
+    }
+  };
+  tf32::stage_rows<D, NT>(qs, static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh +
+                                  r0 * a.q_ss, a.q_ss, BQ, nrows);
+  tf32::stage_rows<D, NT>(dos, static_cast<const float*>(a.dout) + b * a.d_sb + h * a.d_sh +
+                                   r0 * a.d_ss, a.d_ss, BQ, nrows);
+  stage(0);
+  tf32::cp_commit();  // Q, dO and the first key tiles
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp % kDqWarps, half = warp / kDqWarps;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = r0 + 16 * rg;  // the warp's first row
+  // this thread's rows rw + g and rw + g + 8, and its keys 8 j + 2 t (+ 1)
+  // of the tile (the accumulator map)
+  const int row[2] = {rw + g, rw + g + 8};
   const long long stat0 = (static_cast<long long>(b) * a.H + h) * a.S;
-  float lse2[kQRPW], dlt[kQRPW], dq[kQRPW][DPL];
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int r = 0; r < kQRPW; ++r) {
-    const int row = r0 + warp * kQRPW + r;
-    const bool ok = row < a.S;
-    lse2[r] = ok ? a.lse[stat0 + row] * kLog2e : 0.f;
-    dlt[r] = ok ? a.delta[stat0 + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) dq[r][c] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = row[r] < a.S;
+    lse2[r] = ok ? a.lse[stat0 + row[r]] * kLog2e : 0.f;
+    dlt[r] = ok ? a.delta[stat0 + row[r]] : 0.f;
   }
-  const float* qw = Qs + warp * kQRPW * S;
-  const float* dow = DOs + warp * kQRPW * S;
-  float* dsw = DSs + warp * kQRPW * kQBK;
+  // key tiles past the warp's last row contribute nothing
+  const int nkb_w = rw >= a.S ? 0
+                    : a.causal ? min(nkb_all, min(rw + 15, a.S - 1) / BK + 1) : nkb_all;
+  const float* qw = qs + 16 * rg * LD;
+  const float* dow = dos + 16 * rg * LD;
 
-  const int nkb_all = (a.S + kQBK - 1) / kQBK;
-  // key tiles past the query tile's last row contribute nothing
-  const int nkb = a.causal ? min(nkb_all, (r0 + nrows - 1) / kQBK + 1) : nkb_all;
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int j0 = kb * kQBK;
-    const int kvalid = min(kQBK, a.S - j0);
-    __syncthreads();  // previous tile fully consumed
-    port::stage_rows<T, D, NT>(Ks, k + j0 * a.k_ss, a.k_ss, kQBK, kvalid);
-    port::stage_rows<T, D, NT>(Vs, v + j0 * a.v_ss, a.v_ss, kQBK, kvalid);
+  float dq[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int i = 0; i < nsets; ++i) {
+    if (i + 1 < nsets) stage(i + 1);
+    tf32::cp_commit();
+    tf32::cp_wait<1>();  // tiles KH i .. (and Q, dO) landed for this thread ...
+    __syncthreads();     // ... and for every thread
+    const int kb = KH * i + half;  // this warp's tile
+    if (kb < nkb_w) {
+      const float* ks = kvs + ((i & 1) * KH + half) * L::kTile;
+      const float* vs = ks + BK * LD;
+      // S and dP (rows x keys), 8 keys a fragment
+      float s[NJ][4], dp[NJ][4];
+      {
+        float sb[NJ][4], ss[NJ][4], pb[NJ][4], pss[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = pb[j][e] = pss[j][e] = 0.f;
+#pragma unroll 2
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const tf32::Frag<4> fq = tf32::load_a(qw + 8 * kk, LD, g, t);
+          const tf32::Frag<4> fo = tf32::load_a(dow + 8 * kk, LD, g, t);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            tf32::mma3_split(sb[j], ss[j], fq,
+                             tf32::load_b_nrow(ks + 8 * j * LD + 8 * kk, LD, g, t));
+            tf32::mma3_split(pb[j], pss[j], fo,
+                             tf32::load_b_nrow(vs + 8 * j * LD + 8 * kk, LD, g, t));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = sb[j][e] + ss[j][e];
+            dp[j][e] = pb[j][e] + pss[j][e];
+          }
+      }
+      // P in place of S, dS in place of dP
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = kb * BK + 8 * j + 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = key < a.S && row[r] < a.S && !(a.causal && key > row[r]);
+          const float p = ok ? exp2f(s[j][e] * a.scale2 - lse2[r]) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dlt[r]) * a.sm_scale;
+        }
+      // dQ += dS K, keys 8 j .. 8 j + 7 a k-step
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const tf32::Frag<4> fs = tf32::acc_to_a(dp[j]);
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+          tf32::mma3(dq[n], fs, tf32::load_b_krow(ks + 8 * j * LD + 8 * n, LD, g, t));
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer before it refills
+  }
+  tf32::cp_wait<0>();
+
+  if constexpr (KH > 1) {  // the odd half's sums into the buffers, then added
+    float* red = kvs + rg * (D / 2) * 32;  // [D / 2][32 lanes]
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(4 * n + e) * 32 + lane] = dq[n][e];
+    }
     __syncthreads();
-
-    float s[kQRPW][2], dp[kQRPW][2];
+    if (half == 1) return;
 #pragma unroll
-    for (int r = 0; r < kQRPW; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-    port::dot_rows2<kQRPW, D>(s, qw, Ks + lane * S, Ks + (lane + 32) * S);
-    port::dot_rows2<kQRPW, D>(dp, dow, Vs + lane * S, Vs + (lane + 32) * S);
+    for (int n = 0; n < NN; ++n)
 #pragma unroll
-    for (int r = 0; r < kQRPW; ++r) {
-      const int row = r0 + warp * kQRPW + r;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = j0 + lane + 32 * t;
-        const bool ok = row < a.S && j < a.S && !(a.causal && j > row);
-        const float p = ok ? exp2f(s[r][t] * a.scale2 - lse2[r]) : 0.f;
-        // dS enters the dQ product in the input type
-        dsw[r * kQBK + lane + 32 * t] =
-            port::round_to<T>(p * (dp[r][t] - dlt[r]) * a.sm_scale);
-      }
-    }
-    __syncwarp();
-    for (int j = 0; j < kvalid; ++j) {
-      float kv[DPL];
-      port::load_cols<DPL>(kv, Ks + j * S + lane * DPL);
-#pragma unroll
-      for (int r = 0; r < kQRPW; ++r) {
-        const float ds = dsw[r * kQBK + j];
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) dq[r][c] = fmaf(ds, kv[c], dq[r][c]);
-      }
-    }
+      for (int e = 0; e < 4; ++e) dq[n][e] += red[(4 * n + e) * 32 + lane];
   }
-
 #pragma unroll
-  for (int r = 0; r < kQRPW; ++r) {
-    const int lr = warp * kQRPW + r;
-    if (lr >= nrows) continue;
-    T* o = static_cast<T*>(a.dq) + b * a.g_sb + h * a.g_sh + (r0 + lr) * a.g_ss + lane * DPL;
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= a.S) continue;
+    float* gq = static_cast<float*>(a.dq) + b * a.g_sb + h * a.g_sh +
+                static_cast<long long>(row[r]) * a.g_ss + 2 * t;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) o[c] = port::from_f<T>(dq[r][c]);
+    for (int n = 0; n < NN; ++n)
+      *reinterpret_cast<float2*>(gq + 8 * n) = make_float2(dq[n][2 * r], dq[n][2 * r + 1]);
   }
 }
 
@@ -483,6 +583,7 @@ __device__ __forceinline__ void patch_bf16(uint32_t (&v)[4][4], int slot, int hi
 // them) the block holds one warpgroup: its Q, dO and two K / V stages take
 // 192 KB, two warpgroups' 256 KB.
 constexpr int kDqStages = 2;
+constexpr int kQBK = 64;  // keys a staged tile
 
 template <int D, int NWG>
 struct TcDqSmem {
@@ -968,13 +1069,14 @@ bool encode_maps(const BwdArgs& a, int d, CUtensorMap* tq, CUtensorMap* tk,
 }
 
 template <int D>
-cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = DqSmem<D>::kBytes;
+cudaError_t launch_dq_tf32(const BwdArgs& a, cudaStream_t stream) {
+  using L = Tf32DqSmem<D>;
   static bool configured = false;
-  const cudaError_t e = allow_smem(attn_bwd_dq_kernel<float, D>, smem, configured);
+  const cudaError_t e = allow_smem(attn_bwd_dq_tf32_kernel<D>, L::kBytes, configured);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.S + kQBQ - 1) / kQBQ, a.H, a.B);
-  attn_bwd_dq_kernel<float, D><<<grid, kQWarps * 32, smem, stream>>>(a);
+  const dim3 grid((a.S + 16 * kDqWarps - 1) / (16 * kDqWarps), a.H, a.B);
+  attn_bwd_dq_tf32_kernel<D>
+      <<<grid, dq_tf32_halves<D>() * kDqWarps * 32, L::kBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1070,17 +1172,17 @@ cudaError_t launch_tc_d(const BwdArgs& a, int d, int tile_rows, bool dkv,
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_dq_d(const BwdArgs& a, int d, cudaStream_t s) {
+cudaError_t launch_dq_tf32_d(const BwdArgs& a, int d, cudaStream_t s) {
   switch (d) {
-    case 32: return launch_dq<32>(a, s);
-    case 64: return launch_dq<64>(a, s);
-    case 128: return launch_dq<128>(a, s);
-    case 256: return launch_dq<256>(a, s);
+    case 32: return launch_dq_tf32<32>(a, s);
+    case 64: return launch_dq_tf32<64>(a, s);
+    case 128: return launch_dq_tf32<128>(a, s);
+    case 256: return launch_dq_tf32<256>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-constexpr int kRouteSimt = 0, kRouteTc = 2, kRouteTf32 = 3;
+constexpr int kRouteTc = 2, kRouteTf32 = 3;
 
 int run(const BwdArgs& a, int d, int dtype, bool dkv, int route, int tile_rows,
         void* stream) {
@@ -1091,11 +1193,10 @@ int run(const BwdArgs& a, int d, int dtype, bool dkv, int route, int tile_rows,
     if (dtype != port::kDtypeBF16) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch_tc_d(a, d, tile_rows, dkv, s));
   }
-  if (dtype != port::kDtypeF32) return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kRouteSimt && !dkv) return static_cast<int>(launch_dq_d(a, d, s));
-  if (route == kRouteTf32 && dkv)
-    return static_cast<int>(launch_dkv_tf32_d(a, d, tile_rows, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != port::kDtypeF32 || route != kRouteTf32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dkv ? launch_dkv_tf32_d(a, d, tile_rows, s)
+                              : launch_dq_tf32_d(a, d, s));
 }
 
 }  // namespace
@@ -1107,10 +1208,11 @@ extern "C" {
 // contiguous; dq (and dk, dv) written with strides g_*. D in {32, 64, 128,
 // 256}; every pointer 16-byte aligned and every stride a multiple of 16 bytes
 // (the wrapper checks). dtype: 0 fp32, 1 bf16. Each returns
-// cudaGetLastError(). route: 0 the CUDA-core dq kernel (fp32), 2 the tensor
-// cores (bf16, D 64, 128 or 256) with tile_rows 64 or 128 query rows (dq) or
-// keys (dkv) a block (64 at D 256), 3 the 3xTF32 dkv kernel (fp32) with
-// tile_rows 32 or 64 keys a block (32 at D 256).
+// cudaGetLastError(). route: 2 the tensor cores (bf16, D 64, 128 or 256)
+// with tile_rows 64 or 128 query rows (dq) or keys (dkv) a block (64 at D
+// 256), 3 the 3xTF32 kernels (fp32): dq with 64 query rows a block
+// (tile_rows is not read), dkv with tile_rows 32 or 64 keys a block (32 at
+// D 256).
 int attention_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int B, int S, int H, int D,

@@ -23,10 +23,9 @@ __all__ = ["FlashAttentionFn", "RmsNormFn", "attention_bwd_dkv",
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel: each wrapper's launches split by
     the route they took (``_tc``: the bf16 tensor-core kernel; ``_tf32``:
-    the fp32 3xTF32 tensor-core kernel; ``attention_bwd_dq``: the fp32
-    CUDA-core dQ kernel; decode-shaped attention apart; the int8-cache
-    attention under ``attention_kv8_*``: ``_rows`` the cluster kernel,
-    ``_tc`` the tensor cores, ``_tiled`` the CUDA-core kernel)."""
+    the fp32 3xTF32 tensor-core kernel; decode-shaped attention apart; the
+    int8-cache attention under ``attention_kv8_*``: ``_rows`` the cluster
+    kernel, ``_tc`` the bf16 tensor-core kernel, ``_tf32`` the fp32 one)."""
     fwd, lse, kv8 = attention_fwd, attention_fwd_lse, attention_fwd_kv8
     dq, dkv = attention_bwd_dq, attention_bwd_dkv
     return {
@@ -37,11 +36,11 @@ def launch_counts() -> dict:
         "attention_fwd_tc": fwd.tc_launches,
         "attention_kv8_rows": kv8.rows_launches,
         "attention_kv8_tc": kv8.tc_launches,
-        "attention_kv8_tiled": (kv8.launches - kv8.rows_launches
-                                - kv8.tc_launches),
+        "attention_kv8_tf32": (kv8.launches - kv8.rows_launches
+                               - kv8.tc_launches),
         "attention_fwd_lse_tf32": lse.launches - lse.tc_launches,
         "attention_fwd_lse_tc": lse.tc_launches,
-        "attention_bwd_dq": dq.launches - dq.tc_launches,
+        "attention_bwd_dq_tf32": dq.launches - dq.tc_launches,
         "attention_bwd_dq_tc": dq.tc_launches,
         "attention_bwd_dkv_tf32": dkv.launches - dkv.tc_launches,
         "attention_bwd_dkv_tc": dkv.tc_launches,

@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("rmsnorm.cu", "flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "attention_kv8.cu")
+           "attention_kv8.cu", "attention_kv8_tf32.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

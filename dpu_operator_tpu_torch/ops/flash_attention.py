@@ -24,10 +24,10 @@ at key 0, P rounded to the input type before the PV product, and
 Kernels by route (:func:`_attn_route`, :func:`_dq_route`,
 :func:`_dkv_route`): bf16 takes the tensor-core (``wgmma``) forward, dQ and
 dK/dV kernels, in query or key tiles of :func:`_tile_rows`; fp32 takes the
-3xTF32 tensor-core forward (TF32 ``wgmma``) and dK/dV (``mma.sync``), each
-operand split into a TF32 high and low part (fp32's limits, which one TF32
-product would miss), and the CUDA-core dQ kernel; one query row without the
-lse takes the decode kernels, which split each row's keys into chunks of
+3xTF32 tensor-core forward (TF32 ``wgmma``), dQ and dK/dV (``mma.sync``),
+each operand split into a TF32 high and low part (fp32's limits, which one
+TF32 product would miss); one query row without the lse takes the decode
+kernels, which split each row's keys into chunks of
 ``DECODE_CHUNK`` across blocks and fold the chunks' partials in chunk order
 (:func:`_decode_chunks`; :func:`attention_decode_plain` is the same split in
 plain PyTorch). A launch that fails raises: no route falls back to another.
@@ -53,9 +53,11 @@ whose attention (the ``"k_q"`` branches of ``_verify_one`` and
 kernels. Up to ``KV8_ROWS_MAX`` query rows (decode, verify) take one
 launch over a thread-block cluster a (head, batch), whose blocks split the
 keys in chunks of ``DECODE_CHUNK`` and share each row's softmax statistics
-through distributed shared memory; more rows take the tensor cores in bf16
-at head dim 64 / 128 / 256 (int8 tiles converted to bf16 in shared
-memory), else the tiled KV8 kernel (:func:`_kv8_route`). Every route takes
+through distributed shared memory; more rows take the tensor cores: in bf16
+on ``wgmma`` at head dim 64 / 128 / 256 (int8 tiles converted to bf16 in
+shared memory; a head dim of 32 or less padded to 64), in fp32 on
+``mma.sync`` with q and P split into TF32 high and low parts against the
+int8 K and V, which TF32 holds exactly (:func:`_kv8_route`). Every route takes
 two passes over the keys, so that P * v_s is rounded to the input type with
 P the row's normalized softmax, where the reference rounds it. Its plain
 version is :func:`attention_kv8_plain`. No bf16 copy of the cache is made.
@@ -98,16 +100,16 @@ _TC_HEAD_DIMS = (64, 128, 256)
 _TILE_CAP_256 = {"fwd_tc": 64, "kv8_tc": 64, "dq_tc": 64, "dkv_tc": 64,
                  "dkv_tf32": 32}
 #: route codes of the C entry points (one query row takes its own entry
-#: point, ``attention_decode``): ``simt`` the CUDA-core dQ kernel, ``tc``
-#: the bf16 tensor-core kernels, ``tf32`` the fp32 3xTF32 kernels
-_ROUTE_CODES = {"simt": 0, "tc": 2, "tf32": 3}
+#: point, ``attention_decode``): ``tc`` the bf16 tensor-core kernels,
+#: ``tf32`` the fp32 3xTF32 kernels
+_ROUTE_CODES = {"tc": 2, "tf32": 3}
 #: keys per chunk of the decode kernels' split (the kernel's kDecChunk)
 DECODE_CHUNK = 128
 #: the most query rows a KV8 call takes on the cluster kernel (decode and
 #: verify; the kernel's kRowsMax)
 KV8_ROWS_MAX = 8
 #: route codes of the C entry point ``attention_kv8``
-_KV8_ROUTE_CODES = {"simt": 0, "rows": 1, "tc": 2}
+_KV8_ROUTE_CODES = {"rows": 1, "tc": 2, "tf32": 3}
 
 
 def _padded_dim(route: str, d: int) -> int:
@@ -134,15 +136,13 @@ def _attn_route(dtype: torch.dtype, d: int, sq: int, with_lse: bool) -> str:
 
 def _kv8_route(dtype: torch.dtype, d: int, sq: int) -> str:
     """The KV8 kernel a CUDA launch takes: ``"rows"`` (the cluster kernel)
-    for 1 to ``KV8_ROWS_MAX`` query rows, ``"tc"`` (tensor cores) for more
-    rows in bf16 at a padded head dim of 64, 128 or 256, ``"simt"`` (the
-    tiled CUDA-core KV8 kernel) otherwise (fp32, or a padded head dim of
-    32)."""
+    for 1 to ``KV8_ROWS_MAX`` query rows; for more rows ``"tc"`` (the bf16
+    tensor-core kernel, at a padded head dim of 64, 128 or 256) in bf16 and
+    ``"tf32"`` (the fp32 kernel on the tensor cores, 32 to 256) in
+    fp32."""
     if sq <= KV8_ROWS_MAX:
         return "rows"
-    if dtype == torch.bfloat16 and _padded_dim("simt", d) in _TC_HEAD_DIMS:
-        return "tc"
-    return "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32"
 
 
 def _dkv_route(dtype: torch.dtype, d: int) -> str:
@@ -152,9 +152,9 @@ def _dkv_route(dtype: torch.dtype, d: int) -> str:
 
 
 def _dq_route(dtype: torch.dtype, d: int) -> str:
-    """The dQ kernel a CUDA launch takes: ``"tc"`` for bf16, ``"simt"``
-    (the CUDA-core kernel) for fp32."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    """The dQ kernel a CUDA launch takes: ``"tc"`` for bf16, ``"tf32"``
+    (3xTF32) for fp32."""
+    return "tc" if dtype == torch.bfloat16 else "tf32"
 
 
 def _decode_chunks(pos: int, skv: int, causal: bool = True) -> int:
@@ -465,8 +465,8 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the KV8
     kernel of :func:`_kv8_route` (up to ``KV8_ROWS_MAX`` rows: the cluster
-    kernel; more rows: the tensor cores in bf16 at a padded head dim of 64,
-    128 or 256, else the tiled KV8 kernel) at the route's padded head dim, or
+    kernel; more rows: the tensor cores, bf16 on ``wgmma``, fp32 on
+    ``mma.sync`` in two TF32 products) at the route's padded head dim, or
     raises. Returns a new contiguous (B, Sq, H, D) tensor in q's type."""
     b, sq, h, d = q.shape
     if (k_q.shape[0] != b or k_q.shape[2:] != (h, d)
@@ -496,13 +496,15 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return _unpad(out, d)
+    # the fp32 kernel's blocks are fixed (16 rows); the C entry ignores rows
+    rows = 0 if route == "tf32" else \
+        _capped_tile("kv8_tc", dp, _tile_rows(b, sq, h, _sms(q.device)))
     rc = _build.library().attention_kv8(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), out.data_ptr(), pos.data_ptr(), b, sq, k_q.shape[1],
         h, dp, *_strides(q, k_q, k_s, v_q, v_s, out), int(causal),
         _LOG2E / math.sqrt(d), _DTYPE_CODES[q.dtype],
-        _KV8_ROUTE_CODES[route], DECODE_CHUNK,
-        _capped_tile("kv8_tc", dp, _tile_rows(b, sq, h, _sms(q.device))),
+        _KV8_ROUTE_CODES[route], DECODE_CHUNK, rows,
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_fwd_kv8.launches += 1
     if route == "rows":
@@ -513,8 +515,8 @@ def attention_fwd_kv8(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     return _unpad(out, d)
 
 
-#: launches of every KV8 route, of the cluster kernel and of the
-#: tensor-core kernel alone
+#: launches of every KV8 route, of the cluster kernel and of the bf16
+#: tensor-core kernel alone (the rest: the fp32 kernel)
 attention_fwd_kv8.launches = 0  # type: ignore[attr-defined]
 attention_fwd_kv8.rows_launches = 0  # type: ignore[attr-defined]
 attention_fwd_kv8.tc_launches = 0  # type: ignore[attr-defined]
@@ -700,8 +702,8 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dQ (B, S, H, D) in q's type from q, k, v, dO (B, S, H, D), the
     forward's lse and delta (B, H, S) fp32 (JAX ``_bwd_dq_kernel``). A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel of
-    :func:`_dq_route` (the tensor cores in bf16, the CUDA-core kernel in
-    fp32) at the route's padded head dim, or raises."""
+    :func:`_dq_route` (bf16 on ``wgmma``, fp32 in 3xTF32) at the route's
+    padded head dim, or raises."""
     _self_shapes("attention_bwd_dq", q, k, v, do)
     if _device_of("attention_bwd_dq", q) == "cpu":
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
@@ -719,6 +721,7 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, dp,
         *_strides(q, k, v, do, dq), int(causal), scale2, sm_scale,
         _DTYPE_CODES[q.dtype], _ROUTE_CODES[route],
+        0 if route == "tf32" else    # the 3xTF32 dQ's blocks are fixed
         _capped_tile("dq_tc", dp, _tile_rows(b, s, h, _sms(q.device))),
         torch.cuda.current_stream(q.device).cuda_stream)
     attention_bwd_dq.launches += 1
@@ -728,7 +731,8 @@ def attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _unpad(dq, d)
 
 
-#: launches of both routes, and of the tensor-core kernel alone
+#: launches of both routes, and of the bf16 tensor-core kernel alone (the
+#: rest: the 3xTF32 kernel)
 attention_bwd_dq.launches = 0  # type: ignore[attr-defined]
 attention_bwd_dq.tc_launches = 0  # type: ignore[attr-defined]
 

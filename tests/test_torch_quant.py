@@ -533,7 +533,7 @@ def test_kv8_wrapper_takes_the_plain_path_on_the_cpu():
                        attention_kv8_plain(q, kq, ks, vq, vs, pos))
     assert launch_counts() == before
     assert {"attention_kv8_rows", "attention_kv8_tc",
-            "attention_kv8_tiled"} <= set(before)
+            "attention_kv8_tf32"} <= set(before)
 
 
 def test_kv8_wrapper_refuses_bad_shapes_and_devices():

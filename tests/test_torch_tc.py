@@ -1,15 +1,16 @@
 """The tensor-core attention kernels of the PyTorch/CUDA port.
 
 bf16 takes the ``wgmma`` forward (with and without the logsumexp), dQ and
-dK/dV kernels; fp32 takes the 3xTF32 forward and dK/dV kernels and the
-CUDA-core dQ kernel; the one-row decode shape takes the decode kernels,
-split over keys; attention over the int8 KV cache (KV8) takes the cluster
-kernel for up to ``KV8_ROWS_MAX`` rows, the tensor cores for more rows in
-bf16 at a padded head dim of 64 / 128 / 256, else the tiled KV8 kernel.
+dK/dV kernels; fp32 takes the 3xTF32 forward, dQ and dK/dV kernels; the
+one-row decode shape takes the decode kernels, split over keys; attention
+over the int8 KV cache (KV8) takes the cluster kernel for up to
+``KV8_ROWS_MAX`` rows and the tensor cores for more rows (bf16 at a padded
+head dim of 64 / 128 / 256, fp32 in two TF32 products a term).
 Every head dim from 1 to 256 runs, zero-padded to the route's next compiled
 head dim. On the CPU these tests hold the routing functions, the padded head
 dim, the tile-height rule and the decode chunk rule, the exactness of the
-pad on the plain versions, a CPU emulation of the 3xTF32 products, and the
+pad on the plain versions, CPU emulations of the 3xTF32 products and of the
+fp32 KV8 kernel's two TF32 products, and the
 properties the forward and decode kernels are built around (a row's result
 does not depend on its tile, nor on the batch it is decoded in) on the
 plain versions at the kernels' shapes. The ``cuda`` tests hold the kernels
@@ -102,15 +103,15 @@ KV8_WIDTHS = (1, 2, fa.KV8_ROWS_MAX, fa.KV8_ROWS_MAX + 1, 256)
 @pytest.mark.parametrize("sq", KV8_WIDTHS)
 def test_kv8_route(dtype, d, sq):
     """Up to KV8_ROWS_MAX rows take the cluster kernel in every type and
-    head dim; more rows the tensor cores in bf16 at a padded head dim of 64
-    / 128 / 256 (D 33-256) and the tiled CUDA-core KV8 kernel otherwise
-    (fp32, or D up to 32, padded to 32)."""
+    head dim; more rows the tensor cores: the bf16 kernel (D up to 64
+    padded to 64, then 128 and 256) or the fp32 one in two TF32 products
+    (D padded to 32 / 64 / 128 / 256)."""
     if sq <= 8:
         want = "rows"
-    elif dtype == BF16 and d > 32:
+    elif dtype == BF16:
         want = "tc"
     else:
-        want = "simt"
+        want = "tf32"
     assert fa.KV8_ROWS_MAX == 8
     assert fa._kv8_route(dtype, d, sq) == want
 
@@ -125,8 +126,8 @@ def test_dkv_route(dtype, d, route):
 
 @pytest.mark.parametrize("dtype,d,route", [
     (BF16, 128, "tc"), (BF16, 64, "tc"), (BF16, 32, "tc"),
-    (BF16, 16, "tc"), (F32, 128, "simt"), (F32, 64, "simt"),
-    (F32, 16, "simt"), (BF16, 256, "tc"), (F32, 200, "simt")])
+    (BF16, 16, "tc"), (F32, 128, "tf32"), (F32, 64, "tf32"),
+    (F32, 16, "tf32"), (BF16, 256, "tc"), (F32, 200, "tf32")])
 def test_dq_route(dtype, d, route):
     assert fa._dq_route(dtype, d) == route
 
@@ -141,17 +142,17 @@ PAD_CASES = {1: (64, 32), 8: (64, 32), 16: (64, 32), 33: (64, 64),
              192: (256, 256), 256: (256, 256)}
 
 
-@pytest.mark.parametrize("route", ["tc", "tf32", "simt", "decode", "rows"])
+@pytest.mark.parametrize("route", ["tc", "tf32", "decode", "rows"])
 @pytest.mark.parametrize("d", sorted(PAD_CASES))
 def test_padded_dim(route, d):
     """The bf16 tensor-core routes pad to 64, 128 or 256; every other
-    route (fp32 3xTF32, the CUDA-core dQ and KV8 kernels, decode, the KV8
-    cluster kernel) to 32, 64, 128 or 256."""
+    route (fp32 3xTF32, the fp32 KV8 kernel, decode, the KV8 cluster
+    kernel) to 32, 64, 128 or 256."""
     want = PAD_CASES[d][0 if route == "tc" else 1]
     assert fa._padded_dim(route, d) == want
 
 
-@pytest.mark.parametrize("route", ["tc", "tf32", "simt", "decode", "rows"])
+@pytest.mark.parametrize("route", ["tc", "tf32", "decode", "rows"])
 @pytest.mark.parametrize("d", [0, 257, 512])
 def test_padded_dim_refuses_what_no_kernel_takes(route, d):
     with pytest.raises(ValueError, match="take head dims 1 to 256"):
@@ -202,17 +203,61 @@ def test_tile_rows_of_the_3xtf32_kernels(b, n, h, sms, rows):
     assert fa._fwd_tile_rows("tf32", 256, b, n, h, cpu) == 64
 
 
+def _kv8_split_stats(s: torch.Tensor, nkb: int) -> tuple:
+    """Each row's (m, l) of exp2-domain scores *s* (rows, keys; masked
+    -1e30) as the fp32 KV8 kernel's pass 1 takes them over *nkb* key tiles
+    of 32: warp w's online max and sum over tiles w, w + 4, ... (a max of
+    -1e30 subtracts 0), then the four folded in warp order."""
+    parts = []
+    for w in range(4):
+        m = torch.full(s.shape[:1], -1e30)
+        l = torch.zeros(s.shape[:1])
+        for kb in range(w, nkb, 4):
+            x = s[:, 32 * kb:32 * (kb + 1)]
+            mn = torch.maximum(m, x.amax(-1))
+            ms = torch.where(mn == -1e30, 0.0, mn)
+            l = l * torch.exp2(m - ms) + torch.exp2(x - ms[:, None]).sum(-1)
+            m = mn
+        parts.append((m, l))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = torch.zeros_like(m)
+    for mw, lw in parts:
+        l = l + lw * torch.exp2(mw - m)
+    return m, l
+
+
+@pytest.mark.parametrize("pos", [0, 5, 31, 32, 100, 127, 128, 300])
+def test_kv8_tf32_split_stats_do_not_depend_on_the_block(pos):
+    """The fp32 KV8 kernel splits a row's key tiles over four warps and
+    folds their (m, l) in warp order; a block walks the tiles its last row
+    needs, so a row may see tiles past its own keys, wholly masked. Those
+    leave (m, l) unchanged bit for bit (a chunked prefill equals the whole
+    prefill), and the fold equals the row's softmax statistics."""
+    g = torch.Generator().manual_seed(58)
+    rows = pos + torch.arange(16)
+    s = torch.randn((16, 512), generator=g) * 3
+    s = torch.where(torch.arange(512)[None, :] <= rows[:, None], s, -1e30)
+    own = _kv8_split_stats(s, int(rows[-1]) // 32 + 1)
+    whole = _kv8_split_stats(s, 16)
+    assert torch.equal(own[0], whole[0]) and torch.equal(own[1], whole[1])
+    m = s.amax(-1)
+    assert torch.equal(own[0], m)
+    want = torch.exp2(s - m[:, None]).sum(-1)
+    assert float(((own[1] - want).abs() / want).max()) <= 1e-6
+
+
 def test_launch_counts_name_every_route_and_reset():
     counts = launch_counts()
     for name in ("attention_fwd_tf32", "attention_fwd_decode",
                  "attention_fwd_tc", "attention_fwd_lse_tf32",
-                 "attention_fwd_lse_tc", "attention_bwd_dq",
+                 "attention_fwd_lse_tc", "attention_bwd_dq_tf32",
                  "attention_bwd_dq_tc", "attention_bwd_dkv_tf32",
                  "attention_bwd_dkv_tc"):
         assert name in counts
-    # the CUDA-core forward and dK/dV kernels are gone
+    # the CUDA-core forward, dQ, dK/dV and KV8 kernels are gone
     assert not {"attention_fwd_tiled", "attention_fwd_lse",
-                "attention_bwd_dkv"} & set(counts)
+                "attention_bwd_dq", "attention_bwd_dkv",
+                "attention_kv8_tiled"} & set(counts)
     fa.attention_fwd.tc_launches += 1
     try:
         assert launch_counts()["attention_fwd_tc"] == \
@@ -224,8 +269,9 @@ def test_launch_counts_name_every_route_and_reset():
 
 def test_launch_counts_carry_the_kv8_routes_and_reset():
     """Each KV8 route counts under its own name: the cluster kernel as
-    ``attention_kv8_rows``, the tensor cores as ``attention_kv8_tc``, the
-    tiled kernel as ``attention_kv8_tiled`` (the rest of the launches)."""
+    ``attention_kv8_rows``, the bf16 tensor-core kernel as
+    ``attention_kv8_tc``, the fp32 one as ``attention_kv8_tf32`` (the rest
+    of the launches)."""
     before = launch_counts()
     kv8 = fa.attention_fwd_kv8
     kv8.launches += 6
@@ -234,19 +280,19 @@ def test_launch_counts_carry_the_kv8_routes_and_reset():
     try:
         after = launch_counts()
         for name, n in (("attention_kv8_rows", 3), ("attention_kv8_tc", 2),
-                        ("attention_kv8_tiled", 1)):
+                        ("attention_kv8_tf32", 1)):
             assert after[name] == before[name] + n, name
         assert "attention_kv8_decode" not in after
     finally:
         reset_launch_counts()
     assert all(launch_counts()[name] == 0 for name in (
-        "attention_kv8_rows", "attention_kv8_tc", "attention_kv8_tiled"))
+        "attention_kv8_rows", "attention_kv8_tc", "attention_kv8_tf32"))
     assert kv8.launches == kv8.rows_launches == kv8.tc_launches == 0
 
 
 def test_launch_counts_split_dq_by_route_and_reset():
-    """dQ's tensor-core launches count as ``attention_bwd_dq_tc`` and only
-    there; ``attention_bwd_dq`` is the CUDA-core route alone."""
+    """dQ's bf16 launches count as ``attention_bwd_dq_tc`` and only there;
+    ``attention_bwd_dq_tf32`` is the 3xTF32 route alone."""
     before = launch_counts()
     fa.attention_bwd_dq.launches += 3
     fa.attention_bwd_dq.tc_launches += 2
@@ -254,7 +300,8 @@ def test_launch_counts_split_dq_by_route_and_reset():
         after = launch_counts()
         assert after["attention_bwd_dq_tc"] == \
             before["attention_bwd_dq_tc"] + 2
-        assert after["attention_bwd_dq"] == before["attention_bwd_dq"] + 1
+        assert after["attention_bwd_dq_tf32"] == \
+            before["attention_bwd_dq_tf32"] + 1
     finally:
         reset_launch_counts()
     assert launch_counts()["attention_bwd_dq_tc"] == 0
@@ -384,12 +431,36 @@ def test_plain_kv8_at_the_padded_head_dim(d, causal):
     """``attention_kv8_plain`` over int8 K / V padded with zero columns (the
     scales are per key and head: not padded) at the true D's scale."""
     g = torch.Generator().manual_seed(52)
-    dp = fa._padded_dim("simt", d)
+    dp = fa._padded_dim("tf32", d)
     (kq, ks), (vq, vs) = (decode._kv_quant(torch.randn((2, 150, 3, d),
                                                        generator=g))
                           for _ in range(2))
     q = torch.randn((2, 9, 3, d), generator=g)
     pos = torch.tensor([3, 120], dtype=torch.int32)
+    want = attention_kv8_plain(q, kq, ks, vq, vs, pos, causal)
+    got = attention_kv8_plain(_pad(q, dp), _pad(kq, dp), ks, _pad(vq, dp),
+                              vs, pos, causal, sm_scale=d ** -0.5)
+    assert _scaled_err(got[..., :d], want) <= TOL_PAD
+    assert not got[..., d:].any()
+
+
+@pytest.mark.parametrize("d", [1, 8, 16, 32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_kv8_at_the_tc_padded_head_dim(d, causal):
+    """A bf16 KV8 chunk of head dim 32 or less takes the bf16 tensor-core
+    kernel at head dim 64: ``attention_kv8_plain`` over q and int8 K / V
+    zero-padded to 64 at the true D's scale equals the unpadded run in its
+    first D columns (fp32, where only the summation order may differ) and
+    its padded columns are zero."""
+    assert fa._kv8_route(BF16, d, 40) == "tc"
+    dp = fa._padded_dim("tc", d)
+    assert dp == 64
+    g = torch.Generator().manual_seed(57)
+    (kq, ks), (vq, vs) = (decode._kv_quant(torch.randn((2, 150, 3, d),
+                                                       generator=g))
+                          for _ in range(2))
+    q = torch.randn((2, 40, 3, d), generator=g)
+    pos = torch.tensor([0, 100], dtype=torch.int32)
     want = attention_kv8_plain(q, kq, ks, vq, vs, pos, causal)
     got = attention_kv8_plain(_pad(q, dp), _pad(kq, dp), ks, _pad(vq, dp),
                               vs, pos, causal, sm_scale=d ** -0.5)
@@ -489,6 +560,61 @@ def test_3xtf32_attention_holds_fp32_and_one_product_does_not():
     one = _scaled_err(_attention_tf32(q, k, v, 1), want)
     assert three <= 1e-5, three
     assert one > 10 * TOL_F32, one
+
+
+def _kv8_tf32(q, kq, ks, vq, vs, pos, split: bool) -> torch.Tensor:
+    """``attention_kv8_plain``'s function (fp32, causal at the per-row
+    offset) with the fp32 KV8 kernel's products: int8 K and V as they are
+    (exact in TF32), q and P' = softmax * v_s split into TF32 hi / lo
+    parts, ``q_lo K + q_hi K`` and ``P'_lo V + P'_hi V`` (*split*), or one
+    product of the rounded q and P'."""
+    b, sq, h, d = q.shape
+    skv = kq.shape[1]
+    qh = q.permute(0, 2, 1, 3)                               # (B, H, Sq, D)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (kq, vq))
+    hi = _tf32(qh)
+    s = hi @ kf.transpose(-1, -2)
+    if split:
+        s = _tf32(qh - hi) @ kf.transpose(-1, -2) + s
+    s = s * ks[..., 0].permute(0, 2, 1)[:, :, None] / math.sqrt(d)
+    rows = pos[:, None].long() + torch.arange(sq)
+    ok = torch.arange(skv)[None, None, :] <= rows[:, :, None]
+    s = torch.where(ok[:, None], s, -1e9)
+    pv = torch.softmax(s, -1) * vs[..., 0].permute(0, 2, 1)[:, :, None]
+    p_hi = _tf32(pv)
+    out = p_hi @ vf
+    if split:
+        out = _tf32(pv - p_hi) @ vf + out
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("seed", [55, 56])
+def test_2xtf32_kv8_attention_holds_fp32_and_one_product_does_not(seed):
+    """Why the fp32 KV8 kernel takes two TF32 products a term and no more:
+    int8 K and V are exact in TF32, so splitting q and P' alone holds
+    ``attention_kv8_plain`` within 1e-5 scaled error at a 256-row chunk at
+    offset 256 (1 x 2 heads x 128, unit normal q, K and V quantized as the
+    cache stores them), while one product of the rounded q and P' misses
+    the fp32 limit of 1e-4 (TOL_F32) by an order of magnitude."""
+    g = torch.Generator().manual_seed(seed)
+    (kq, ks), (vq, vs) = (decode._kv_quant(torch.randn((1, 512, 2, 128),
+                                                       generator=g))
+                          for _ in range(2))
+    q = torch.randn((1, 256, 2, 128), generator=g)
+    pos = torch.tensor([256], dtype=torch.int32)
+    want = attention_kv8_plain(q, kq, ks, vq, vs, pos)
+    two = _scaled_err(_kv8_tf32(q, kq, ks, vq, vs, pos, True), want)
+    one = _scaled_err(_kv8_tf32(q, kq, ks, vq, vs, pos, False), want)
+    assert two <= 1e-5, two
+    assert one > 10 * TOL_F32, one
+
+
+def test_int8_is_exact_in_tf32():
+    """Every int8 value is a TF32 value (at most 7 significant bits of
+    TF32's 11), so the fp32 KV8 kernel feeds K and V to the tensor cores
+    as they are, with no split."""
+    x = torch.arange(-128, 128, dtype=torch.int8).float()
+    assert torch.equal(_tf32(x), x)
 
 
 # -- the kernels, on the card ----------------------------------------------------
@@ -633,11 +759,10 @@ def test_cuda_tc_dkv_matches_plain_at_the_train_shape(cuda, seed):
     assert _scaled_err(dv, dv_p) <= TOL_BF16
 
 
-def test_cuda_fp32_and_head_dim_32_keep_the_cuda_core_kernels(cuda):
+def test_cuda_fp32_and_head_dim_32_take_the_tensor_cores(cuda):
     """The routes at head dim 32 and in fp32: bf16 at D 32 pads to 64 and
     takes the tensor-core forward, dQ and dK/dV; fp32 takes the 3xTF32
-    forward (with and without the lse) and dK/dV, and keeps the CUDA-core
-    dQ kernel alone."""
+    forward (with and without the lse), dQ and dK/dV."""
     q, k, v, do = _projection(cuda, 1, 70, 2, 32, seed=25)
     before = launch_counts()
     out, lse = attention_fwd_lse(q, k, v)
@@ -656,7 +781,7 @@ def test_cuda_fp32_and_head_dim_32_keep_the_cuda_core_kernels(cuda):
     attention_bwd_dkv(qf, kf, vf, dof, lse_f, delta_f)
     end = launch_counts()
     for name in ("attention_fwd_lse_tf32", "attention_fwd_tf32",
-                 "attention_bwd_dq", "attention_bwd_dkv_tf32"):
+                 "attention_bwd_dq_tf32", "attention_bwd_dkv_tf32"):
         assert end[name] == after[name] + 1, name
     for name in ("attention_fwd_tc", "attention_fwd_lse_tc",
                  "attention_bwd_dq_tc", "attention_bwd_dkv_tc"):
@@ -675,7 +800,7 @@ def test_cuda_tc_dq_matches_plain(cuda, tile, s, d, causal):
     torch.cuda.synchronize()
     after = launch_counts()
     assert after["attention_bwd_dq_tc"] == before["attention_bwd_dq_tc"] + 1
-    assert after["attention_bwd_dq"] == before["attention_bwd_dq"]
+    assert after["attention_bwd_dq_tf32"] == before["attention_bwd_dq_tf32"]
     dq_p = attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
     assert _scaled_err(dq, dq_p) <= TOL_BF16
     # no atomics: the same inputs give the same dQ bit for bit
@@ -747,7 +872,7 @@ KV8_POSITIONS = {1024: (0, 127, 128, 511, 1023), 2048: (0, 128, 1023, 1500,
 
 def _kv8_route_name(dtype, d, sq) -> str:
     return {"rows": "attention_kv8_rows", "tc": "attention_kv8_tc",
-            "simt": "attention_kv8_tiled"}[fa._kv8_route(dtype, d, sq)]
+            "tf32": "attention_kv8_tf32"}[fa._kv8_route(dtype, d, sq)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
@@ -756,7 +881,7 @@ def _kv8_route_name(dtype, d, sq) -> str:
 @pytest.mark.parametrize("skv", sorted(KV8_POSITIONS))
 def test_cuda_kv8_kernels_match_plain(cuda, dtype, tol, d, sq, skv):
     """Each KV8 route (:func:`_kv8_route`: the cluster kernel up to
-    KV8_ROWS_MAX rows, the tensor cores or the tiled kernel past it) within
+    KV8_ROWS_MAX rows, the bf16 or the fp32 tensor-core kernel past it) within
     the limits of chip_smoke.py of ``attention_kv8_plain`` (every route
     rounds P * v_s with P normalized), one slot at each of KV8_POSITIONS."""
     pos0 = KV8_POSITIONS[skv]
@@ -872,7 +997,7 @@ def test_cuda_head_dim_16_training_wrappers_match_plain(cuda, dtype, tol,
     delta = attention_delta(do, o)
     dq, names = _counted(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
                                                   causal))
-    assert names == ["attention_bwd_dq_tc" if tc else "attention_bwd_dq"]
+    assert names == ["attention_bwd_dq_tc" if tc else "attention_bwd_dq_tf32"]
     assert _scaled_err(dq, attention_bwd_dq_plain(q, k, v, do, lse, delta,
                                                   causal)) <= tol
     (dk, dv), names = _counted(lambda: attention_bwd_dkv(q, k, v, do, lse,
@@ -885,16 +1010,18 @@ def test_cuda_head_dim_16_training_wrappers_match_plain(cuda, dtype, tol,
 
 @pytest.mark.parametrize("dtype,tol", [(BF16, TOL_BF16), (F32, TOL_F32)])
 def test_cuda_head_dim_16_decode_and_kv8_match_plain(cuda, dtype, tol):
-    """D 16 on the one-row decode kernels and on both KV8 routes (the
-    cluster kernel at decode and verify widths, the tiled KV8 kernel for a
-    chunk), each padded to 32 and scaled by 1 / sqrt(16)."""
+    """D 16 on the one-row decode kernels and on the KV8 routes (the
+    cluster kernel at decode and verify widths, padded to 32; a chunk on
+    the tensor cores: bf16 padded to 64, fp32 to 32), each scaled by 1 /
+    sqrt(16)."""
     q, ck, cv, pos = _decode_inputs(dtype, 16, h=2, max_seq=300,
                                     device=cuda)
     got, names = _counted(lambda: attention_fwd(q, ck, cv, pos))
     assert names == ["attention_fwd_decode"]
     assert _scaled_err(got, attention_fwd_plain(q, ck, cv, pos)) <= tol
+    chunk = "attention_kv8_tc" if dtype == BF16 else "attention_kv8_tf32"
     for sq, route in ((1, "attention_kv8_rows"), (5, "attention_kv8_rows"),
-                      (40, "attention_kv8_tiled")):
+                      (40, chunk)):
         qk, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, 3, sq, 300, 2, 16, 62)
         p = torch.tensor([0, 130, 300 - sq], dtype=torch.int32, device=cuda)
         got, names = _counted(lambda: attention_fwd_kv8(qk, kq, ks, vq, vs,
@@ -1018,7 +1145,7 @@ def test_cuda_wide_head_dim_training_wrappers_match_plain(cuda, dtype, tol, d,
     delta = attention_delta(do, o)
     dq, names = _counted(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
                                                   causal))
-    assert names == ["attention_bwd_dq_tc" if tc else "attention_bwd_dq"]
+    assert names == ["attention_bwd_dq_tc" if tc else "attention_bwd_dq_tf32"]
     assert _scaled_err(dq, attention_bwd_dq_plain(q, k, v, do, lse, delta,
                                                   causal)) <= tol
     (dk, dv), names = _counted(lambda: attention_bwd_dkv(q, k, v, do, lse,
@@ -1059,8 +1186,8 @@ def test_cuda_wide_head_dim_decode_and_offsets_match_plain(cuda, dtype, tol,
 @pytest.mark.parametrize("sq", [1, 5, fa.KV8_ROWS_MAX, 40])
 def test_cuda_wide_head_dim_kv8_matches_plain(cuda, dtype, tol, d, sq):
     """Each KV8 route at head dims 160 and 256: the cluster kernel (1-8
-    rows), then the tensor cores (bf16) or the tiled kernel (fp32), one
-    slot at each of KV8_POSITIONS[1024]."""
+    rows), then the bf16 or the fp32 tensor-core kernel, one slot at each
+    of KV8_POSITIONS[1024]."""
     pos0 = KV8_POSITIONS[1024]
     q, kq, ks, vq, vs = _kv8_inputs(cuda, dtype, len(pos0), sq, 1024, 2, d,
                                     73)
@@ -1107,3 +1234,81 @@ def test_cuda_head_dim_256_kv8_verify_row_equals_decode_row(cuda, dtype, sq):
     alone = attention_fwd_kv8(*(t[1:2] for t in (q, kq, ks, vq, vs)),
                               pos[1:2])
     assert torch.equal(alone, rows[1:2])
+
+
+# -- the fp32 dQ and KV8 kernels on the tensor cores, on the card ---------------
+
+@pytest.mark.parametrize("s", [50, 130, 1000])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_tf32_dq_matches_plain(cuda, s, d, causal):
+    """The 3xTF32 dQ kernel against ``attention_bwd_dq_plain`` in fp32 at
+    ragged lengths and every padded head dim (q / k / v views of one
+    projection), within 1e-4; two launches equal (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(81)
+    qkv = torch.randn((2, s, 9 * d), generator=g, device=cuda)
+    q, k, v = (t.unflatten(-1, (3, d)) for t in qkv.split(3 * d, -1))
+    do = torch.randn((2, s, 3, d), generator=g, device=cuda)
+    out, lse = attention_fwd_lse(q, k, v, causal)
+    delta = attention_delta(do, out)
+    dq, names = _counted(lambda: attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  causal))
+    assert names == ["attention_bwd_dq_tf32"]
+    assert _scaled_err(dq, attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  causal)) <= TOL_F32
+    assert torch.equal(dq, attention_bwd_dq(q, k, v, do, lse, delta, causal))
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("skv", sorted(KV8_POSITIONS))
+@pytest.mark.parametrize("sq", [fa.KV8_ROWS_MAX + 1, 130])
+def test_cuda_tf32_kv8_chunk_matches_plain(cuda, d, skv, sq):
+    """The fp32 KV8 kernel against ``attention_kv8_plain`` for a chunk of
+    9 or 130 rows, one slot at each of KV8_POSITIONS (rows past the cache
+    row's end admit every key), within 1e-4; two launches equal."""
+    pos0 = KV8_POSITIONS[skv]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, F32, len(pos0), sq, skv, 2, d, 82)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    got, names = _counted(lambda: attention_fwd_kv8(q, kq, ks, vq, vs, pos))
+    assert names == ["attention_kv8_tf32"]
+    assert _scaled_err(got, attention_kv8_plain(q, kq, ks, vq, vs, pos)) \
+        <= TOL_F32
+    assert torch.equal(got, attention_fwd_kv8(q, kq, ks, vq, vs, pos))
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("sq", [fa.KV8_ROWS_MAX + 1, 40, 256])
+def test_cuda_bf16_kv8_small_head_dims_take_the_tensor_cores(cuda, d, sq):
+    """bf16 KV8 past KV8_ROWS_MAX rows at head dim 16 and 32: the bf16
+    tensor-core kernel at head dim 64 (zero-padded, scaled by the true D),
+    within 1.5e-2 of ``attention_kv8_plain``, one slot at each of
+    KV8_POSITIONS[1024]."""
+    pos0 = KV8_POSITIONS[1024]
+    q, kq, ks, vq, vs = _kv8_inputs(cuda, BF16, len(pos0), sq, 1024, 3, d, 83)
+    pos = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    got, names = _counted(lambda: attention_fwd_kv8(q, kq, ks, vq, vs, pos))
+    assert names == ["attention_kv8_tc"]
+    assert got.shape == q.shape
+    assert _scaled_err(got, attention_kv8_plain(q, kq, ks, vq, vs, pos)) \
+        <= TOL_BF16
+
+
+@pytest.mark.parametrize("d", [32, 128, 256])
+def test_cuda_tf32_kv8_chunked_prefill_equals_whole(cuda, d):
+    """The fp32 KV8 kernel's invariant: chunks of a prompt attended over a
+    slot's int8 cache row equal the whole prompt's KV8 prefill rows under
+    ``torch.equal`` (key tiles anchored at key 0, each on a fixed warp; a
+    row's arithmetic touches no other row's)."""
+    g = torch.Generator(device=cuda).manual_seed(84)
+    h, p, max_seq = 2, 512, 1024
+    q = torch.randn((1, p, h, d), generator=g, device=cuda)
+    (kq, ks), (vq, vs) = (decode._kv_quant(torch.randn(
+        (2, max_seq, h, d), generator=g, device=cuda)) for _ in range(2))
+    whole = attention_fwd_kv8(q, kq[1:2, :p], ks[1:2, :p], vq[1:2, :p],
+                              vs[1:2, :p])
+    for a, b in ((0, 256), (256, 512), (64, 130), (300, 512)):
+        pos = torch.tensor([a], dtype=torch.int32, device=cuda)
+        part, names = _counted(lambda: attention_fwd_kv8(
+            q[:, a:b], kq[1:2], ks[1:2], vq[1:2], vs[1:2], pos))
+        assert names == ["attention_kv8_tf32"]
+        assert torch.equal(part, whole[:, a:b]), (a, b)

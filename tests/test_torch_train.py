@@ -438,10 +438,10 @@ def test_cuda_training_kernels_match_plain(cuda, dtype, tol, s, d, causal):
             *attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)]
     after = launch_counts()
     # bf16 takes the tensor-core forward, dQ and dK/dV (D 32 and 16 padded
-    # to 64); fp32 the 3xTF32 forward and dK/dV and the CUDA-core dQ
+    # to 64); fp32 the 3xTF32 forward, dQ and dK/dV
     names = (("attention_fwd_lse_tc", "attention_bwd_dq_tc",
               "attention_bwd_dkv_tc") if dtype == torch.bfloat16 else
-             ("attention_fwd_lse_tf32", "attention_bwd_dq",
+             ("attention_fwd_lse_tf32", "attention_bwd_dq_tf32",
               "attention_bwd_dkv_tf32"))
     for name in names:
         assert after[name] == counts[name] + 1
