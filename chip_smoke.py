@@ -110,7 +110,21 @@ Phases, each of which passes or raises (a failure exits non-zero):
    and non-zero); a tiny fp32 config at head dim 256 on the card against
    the CPU as phase 4 holds the default config, with a KV8 chunked prefill.
    Every route of head dim 256 must launch in this phase; its counts are
-   the head-dim-256 cases' launches on the kernels' line.
+   the head-dim-256 cases' launches on the kernels' line;
+11. serve over the wire (run after phase 6, on phase 5's flagship):
+   ``DecodeService`` over ``Scheduler(clock=time.monotonic)`` and the
+   flagship's ``TorchSlotExecutor`` (8 slots, chunks of 256), its
+   ``start_http`` ingress and a ``MetricsServer`` carrying its
+   ``/debug/serve*`` handlers; phase 5's 16 requests, each POSTed by its
+   own client thread at once (one with a caller ``traceparent``): every
+   stream equal to phase 5's plain stream of its rid, one token a chunk,
+   the ledger reconciled on the host clock, the token counter's delta
+   equal to the tokens generated, the three endpoints answering with all
+   8 slots free at the end, the traced request's phase spans on its trace
+   id; then a 17th client hangs up after its first token and its request
+   must be cancelled (slot and blocks back); no fault, ``stop()`` within
+   5 s. Prints wire TTFT p50 / p99, wire tokens/s beside phase 5's plain
+   tokens/s and the ledger's mean ms per phase.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -1849,6 +1863,248 @@ def phase_chaos(params, cfg, plain: list) -> dict:
     return {"runs": runs, "launches": launches}
 
 
+# -- phase 11 -----------------------------------------------------------------
+#: phase 11's traced request, its caller trace id and span, and the client
+#: that hangs up after its first token
+WIRE_TRACED = "req-00"
+WIRE_TRACE_ID = "5e" * 16
+WIRE_PARENT = f"00-{WIRE_TRACE_ID}-{'ab' * 8}-01"
+WIRE_HANGUP = "wire-hangup"
+#: the longest a wire client or a wait of phase 11 may take (s)
+WIRE_WAIT_S = 300.0
+
+
+def _wire_post(port: int, body: dict, headers=None,
+               hang_up_after: int = 0) -> dict:
+    """POST /v1/generate over a bare socket and read the chunked NDJSON
+    response chunk by chunk (each chunk must hold exactly one JSON line):
+    the chunks, the send time, the first token chunk's and the end's
+    arrival on the host clock. With *hang_up_after* the client closes its
+    socket after that many token chunks."""
+    import socket
+    data = json.dumps(body).encode()
+    head = ["POST /v1/generate HTTP/1.1", "Host: 127.0.0.1",
+            "Content-Type: application/json", f"Content-Length: {len(data)}"]
+    head += [f"{k}: {v}" for k, v in (headers or {}).items()]
+    out = {"chunks": [], "t_first": None}
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=WIRE_WAIT_S) as sock:
+        f = sock.makefile("rb")
+        out["t_send"] = time.monotonic()
+        sock.sendall("\r\n".join(head).encode() + b"\r\n\r\n" + data)
+        status = f.readline()
+        require(b" 200 " in status, f"wire {body['rid']}: {status!r}")
+        while f.readline() not in (b"\r\n", b""):
+            pass
+        while True:
+            size = int(f.readline().strip(), 16)
+            payload = f.read(size + 2)
+            if size == 0:
+                break
+            lines = payload[:-2].split(b"\n")
+            require(payload.endswith(b"\r\n") and len(lines) == 2
+                    and lines[1] == b"",
+                    f"wire {body['rid']}: a chunk that is not one NDJSON "
+                    f"line: {payload[:120]!r}")
+            chunk = json.loads(lines[0])
+            out["chunks"].append(chunk)
+            if "token" in chunk and out["t_first"] is None:
+                out["t_first"] = time.monotonic()
+            if hang_up_after and len(out["chunks"]) >= hang_up_after:
+                f.close()
+                break
+    out["t_end"] = time.monotonic()
+    return out
+
+
+def phase_wire(params, cfg, serve: dict, smi: str) -> dict:
+    """Phase 11: phase 5's 16 requests, each POSTed by its own client
+    thread at once, through ``DecodeService.start_http`` over the
+    flagship's ``TorchSlotExecutor`` (8 slots, chunks of 256) on the host
+    clock, ``WIRE_TRACED`` with a caller traceparent; then a 17th client
+    that hangs up after its first token. Gates: every stream equals phase
+    5's plain stream of its rid, one token a chunk, the ledger reconciles,
+    the token counter's delta equals the tokens generated, the three
+    ``/debug/serve*`` endpoints answer over a MetricsServer, every phase
+    span of the traced request carries its trace id, the hung-up request
+    is cancelled (slot and blocks back), no fault, ``stop()`` within 5 s.
+    Prints wire TTFT p50 / p99, wire tokens/s beside phase 5's plain
+    tokens/s, and the ledger's mean ms per phase. Returns the launches of
+    the traffic."""
+    import threading
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.utils import flight, metrics
+    from dpu_operator_tpu_torch.utils.metrics import MetricsServer
+    from dpu_operator_tpu_torch.workloads.serve import (
+        LEDGER_PHASES, DecodeService, Request, Scheduler, ServeConfig,
+        TorchSlotExecutor)
+    from dpu_operator_tpu_torch.utils.stats import nearest_rank
+    plain = serve["plain"]
+    ex = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
+                           device="cuda")
+    sched = Scheduler(ServeConfig(slots=8, kv_blocks=8 * cfg.max_seq // 16,
+                                  kv_block_size=16, prefill_chunk_tokens=256),
+                      ex, clock=time.monotonic)
+    # every route warm before the service thread steps: one chunked
+    # prefill (two chunks) and its decodes
+    warm = Request(rid="wire-warm", prompt_len=300, output_len=4,
+                   prompt=tuple(i % cfg.vocab for i in range(300)),
+                   arrival_s=sched.now)
+    sched.submit(warm)
+    sched.run()
+    require(warm.state == "done", "phase 11: the warm-up request failed")
+    torch.cuda.synchronize()
+    warm_iterations = sched.iterations
+    cancelled = threading.Event()
+    cancel_at: list = []
+    cancel = sched.cancel
+
+    def watched_cancel(rid):
+        hit = cancel(rid)
+        cancel_at.append(time.monotonic())
+        cancelled.set()
+        return hit
+
+    sched.cancel = watched_cancel
+    service = DecodeService(sched, idle_interval_s=0.005)
+    tokens_before = metrics.SERVE_TOKENS.total()
+    flight.RECORDER.clear()
+    reset_launch_counts()
+    service.start()
+    port = service.start_http("127.0.0.1", 0)
+    server = MetricsServer(host="127.0.0.1", port=0,
+                           debug_handlers=service.debug_handlers())
+    server.start()
+    results: dict = {}
+    errors: list = []
+    barrier = threading.Barrier(len(plain))
+
+    def client(r):
+        try:
+            barrier.wait(timeout=WIRE_WAIT_S)
+            results[r.rid] = _wire_post(
+                port, {"rid": r.rid, "prompt": list(r.prompt),
+                       "output_len": r.output_len, "slo_class": "batch"},
+                headers={"traceparent": WIRE_PARENT}
+                if r.rid == WIRE_TRACED else None)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{r.rid}: {type(e).__name__}: {e}")
+
+    try:
+        threads = [threading.Thread(target=client, args=(r,), daemon=True)
+                   for r in plain]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=WIRE_WAIT_S)
+        require(not errors and not any(t.is_alive() for t in threads),
+                f"phase 11: clients failed: {errors[:3]}")
+        t_last = max(res["t_end"] for res in results.values())
+        t_start = min(res["t_send"] for res in results.values())
+        # the 17th client: its first token, then it hangs up
+        src = plain[0]
+        hung = _wire_post(port, {"rid": WIRE_HANGUP,
+                                 "prompt": list(src.prompt),
+                                 "output_len": cfg.max_seq - src.prompt_len},
+                          hang_up_after=1)
+        require(cancelled.wait(WIRE_WAIT_S),
+                "phase 11: the hung-up client's request was never cancelled")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        addr = f"127.0.0.1:{server.port}"
+        snap = flight.fetch(addr, path="/debug/serve")
+        ledger = flight.fetch(addr, path="/debug/serve/ledger")
+        headroom = flight.fetch(addr, path="/debug/serve/headroom")
+    finally:
+        t0 = time.monotonic()
+        service.stop()
+        stop_s = time.monotonic() - t0
+        server.stop()
+    require(stop_s < 5.0, f"phase 11: stop() took {stop_s:.2f} s")
+    log(f"[wire] launches during the phase: {counts}")
+    for name in SERVE_KERNELS:
+        require(counts[name] > 0,
+                f"phase 11: kernel {name} never launched over the wire")
+    _require_fault_free("wire", sched)
+    streamed = 0
+    for r in plain:
+        chunks = results[r.rid]["chunks"]
+        got = [c["token"] for c in chunks if "token" in c]
+        require(chunks[-1] == {"done": True, "tokens": r.output_len},
+                f"wire {r.rid}: terminal record {chunks[-1]}")
+        first = next((i for i, (a, b) in enumerate(zip(got, r.tokens))
+                      if a != b), min(len(got), len(r.tokens)))
+        require(got == r.tokens, f"wire {r.rid}: the stream leaves phase "
+                f"5's plain stream at token {first}")
+        streamed += len(got)
+    hung_req = next((q for q in sched.rejected if q.rid == WIRE_HANGUP), None)
+    require(hung_req is not None and hung_req.reject_reason == "cancelled",
+            "phase 11: the hung-up request is not among the cancelled")
+    require(hung["chunks"] and "token" in hung["chunks"][0],
+            "phase 11: the hung-up client saw no token")
+    require(sched.pool.outstanding() == 0,
+            f"phase 11: {sched.pool.outstanding()} KV blocks outstanding")
+    require(snap["capacity"]["freeSlots"] == 8
+            and headroom["freeSlots"] == 8,
+            f"phase 11: free slots {snap['capacity']['freeSlots']} / "
+            f"{headroom['freeSlots']} at the end, not 8")
+    require(ledger["reconciliation"]["ok"] and sched.ledger.reconcile()["ok"],
+            f"phase 11: the ledger does not reconcile: "
+            f"{ledger['reconciliation']}")
+    generated = streamed + len(hung_req.tokens)
+    delta = metrics.SERVE_TOKENS.total() - tokens_before
+    require(delta == generated,
+            f"phase 11: tpu_serve_tokens_total moved {delta}, the streams "
+            f"carried {streamed} and the cancelled request generated "
+            f"{len(hung_req.tokens)}")
+    spans = [e for e in flight.RECORDER.events(kind="serve")
+             if (e.get("attributes") or {}).get("rid") == WIRE_TRACED]
+    require(spans and {e.get("trace_id") for e in spans} == {WIRE_TRACE_ID},
+            f"phase 11: {WIRE_TRACED}'s phase spans carry "
+            f"{sorted({str(e.get('trace_id')) for e in spans})}")
+    ttfts = [res["t_first"] - res["t_send"] for res in results.values()]
+    wall = t_last - t_start
+    entries = [e for e in sched.ledger.entries()
+               if e["iteration"] > warm_iterations]
+    mean_ms = {k: 1e3 * sum(e["phases"][k] for e in entries) / len(entries)
+               for k in LEDGER_PHASES}
+    total_ms = 1e3 * sum(e["total_s"] for e in entries) / len(entries)
+    # the step loop's share of the 16 streams' wall time: the ledger's
+    # iterations that ended inside it (now_s is on the clients' clock)
+    in_step = sum(e["total_s"] for e in entries
+                  if t_start <= e["now_s"] <= t_last)
+    out = {
+        "requests": len(plain), "generated_tokens": streamed,
+        "wall_s": wall, "tokens_per_s": streamed / wall,
+        "plain_tokens_per_s": serve["runs"]["plain"]["tokens_per_s"],
+        "wire_ttft_p50_s": nearest_rank(ttfts, 0.50),
+        "wire_ttft_p99_s": nearest_rank(ttfts, 0.99),
+        "iterations": len(entries), "ledger_mean_ms": mean_ms,
+        "ledger_total_ms": total_ms, "in_step_share": in_step / wall,
+        "stop_s": stop_s, "hung_up_tokens": len(hung_req.tokens),
+        "cancel_after_hangup_s": cancel_at[0] - hung["t_end"],
+        "launches": counts,
+    }
+    log(f"[wire] {len(plain)} streams over HTTP: wire TTFT p50 "
+        f"{out['wire_ttft_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{out['wire_ttft_p99_s'] * 1e3:.1f} ms; {streamed} tokens in "
+        f"{wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s over the wire "
+        f"(phase 5 plain, in process: {out['plain_tokens_per_s']:.1f}); "
+        f"on {smi}")
+    log(f"[wire] ledger over {len(entries)} iterations, mean ms a phase: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mean_ms.items())
+        + f"; total {total_ms:.3f} (host clock; device time lands where "
+        f"the tokens' copy synchronizes); the step loop ran "
+        f"{in_step / wall:.3f} of the streams' wall time; on {smi}")
+    log(f"[wire] the hung-up client's request cancelled "
+        f"{out['cancel_after_hangup_s'] * 1e3:.1f} ms after the hang-up, "
+        f"after {len(hung_req.tokens)} tokens; stop() {stop_s:.3f} s")
+    log("[wire] " + json.dumps({k: v for k, v in out.items()
+                                if k != "launches"}))
+    return out
+
+
 def profile_window(params, cfg) -> None:
     """Where a serving iteration's time goes at the flagship shape: the
     device's busy time (torch.profiler's kernel times) per decode
@@ -2618,9 +2874,10 @@ def main(argv: list) -> int:
         f"{time.monotonic() - t0:.1f} s")
     serve = phase_serve(cfg, params)
     chaos = phase_chaos(params, cfg, serve["plain"])
-    # the serve and chaos runs' launches
+    wire = phase_wire(params, cfg, serve, dev["smi"])
+    # the serve, chaos and wire runs' launches
     counts = {k: serve["launches"][k] + chaos["launches"][k]
-              for k in serve["launches"]}
+              + wire["launches"][k] for k in serve["launches"]}
     profile_window(params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -2632,8 +2889,8 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     wide_counts = phase_wide(wide_config(cfg))
     # each kernel's launches on the main paths (phase 4's fp32 models, the
-    # four serve runs, the two chaos runs, the train run, the quantized
-    # phase and the measurement phase), each read from zero; a
+    # four serve runs, the two chaos runs, the wire run, the train run, the
+    # quantized phase and the measurement phase), each read from zero; a
     # head-dim-256 case's from phase 10, the path of that head dim
     counts = {k: counts[k] + parity_counts[k] + train_counts[k]
               + quant_counts[k] + measure_counts[k] for k in counts}

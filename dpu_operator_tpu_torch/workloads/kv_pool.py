@@ -22,14 +22,20 @@ blocks, refcounted:
   speculation, accounting only: blocks and fired copies stay;
 - :meth:`free` returns a block to the free list only at refcount zero.
 
-Pure accounting: the executor's cache holds the data. The metrics gauges
-of the reference are not ported.
+Pure accounting: the executor's cache holds the data. The pool keeps the
+reference's gauges (``tpu_serve_kv_blocks{state}``,
+``tpu_kv_shared_blocks``, ``tpu_serve_kv_internal_fragmentation``) and
+counters (``tpu_kv_cow_copies_total``, ``tpu_kv_prefix_block_hits_total``)
+current on every mutation, and :meth:`KvBlockPool.snapshot` is the
+``kv`` block of ``/debug/serve``.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Optional, Sequence
+
+from ..utils import metrics
 
 #: 61-bit Mersenne prime, the rolling-hash modulus (no PYTHONHASHSEED
 #: dependence)
@@ -92,6 +98,7 @@ class KvBlockPool:
         self.cow_copies = 0
         self.prefix_block_hits = 0
         self.spec_rollback_tokens = 0
+        self._update_gauges_locked()
 
     def blocks_for_tokens(self, tokens: int) -> int:
         """Blocks needed to hold *tokens* token slots (ceil)."""
@@ -122,6 +129,48 @@ class KvBlockPool:
         with self._lock:
             return sum(1 for r in self._refs.values() if r >= 2)
 
+    def _written_slots_locked(self) -> int:
+        """Token slots holding real KV rows, a block counted once: per
+        block the largest coverage of its owners (mappers' content is the
+        same in the shared region)."""
+        written: dict[int, int] = {}
+        bs = self.block_size
+        for owner, blocks in self._owned.items():
+            used = self._used_tokens.get(owner, 0)
+            if used <= 0:
+                continue
+            full, rem = divmod(used, bs)
+            for b in blocks[:full]:
+                written[b] = bs
+            if rem and full < len(blocks):
+                b = blocks[full]
+                written[b] = max(written.get(b, 0), rem)
+        return sum(written.values())
+
+    def _fragmentation_locked(self) -> float:
+        allocated = (self.num_blocks - len(self._free)) * self.block_size
+        if allocated == 0:
+            return 0.0
+        return max(0.0, (allocated - self._written_slots_locked())
+                   / allocated)
+
+    def internal_fragmentation(self) -> float:
+        """Fraction of allocated token slots not yet written (0.0 when
+        nothing is allocated)."""
+        with self._lock:
+            return self._fragmentation_locked()
+
+    def prefix_index_keys(self) -> int:
+        """Chain keys published in the prefix index: how much reusable
+        prefix KV this replica holds (the headroom digest's affinity
+        signal)."""
+        with self._lock:
+            return len(self._index)
+
+    def owners(self) -> list[str]:
+        with self._lock:
+            return sorted(self._owned)
+
     def can_alloc(self, n_blocks: int) -> bool:
         with self._lock:
             return len(self._free) >= n_blocks
@@ -144,6 +193,7 @@ class KvBlockPool:
                 self._refs[b] = 1
             self._owned.setdefault(owner, []).extend(taken)
             self._used_tokens.setdefault(owner, 0)
+            self._update_gauges_locked()
             return taken
 
     # -- prefix sharing -------------------------------------------------------
@@ -181,6 +231,8 @@ class KvBlockPool:
             self._owned.setdefault(owner, []).extend(blocks)
             self._used_tokens.setdefault(owner, 0)
             self.prefix_block_hits += n
+            metrics.KV_PREFIX_BLOCK_HITS.inc(n)
+            self._update_gauges_locked()
             return n
 
     def register_prefix(self, owner: str, keys: Sequence[int],
@@ -208,6 +260,7 @@ class KvBlockPool:
                 self._index[key] = block
                 self._block_key[block] = (key, covered)
                 published += 1
+            self._update_gauges_locked()
             return published
 
     def write_token(self, owner: str, pos: int) -> Optional[bool]:
@@ -235,6 +288,8 @@ class KvBlockPool:
                 self._refs[block] -= 1
                 owned[b_idx] = fresh
                 self.cow_copies += 1
+                metrics.KV_COW_COPIES.inc()
+                self._update_gauges_locked()
                 return True
             entry = self._block_key.get(block)
             if entry is not None and int(pos) % self.block_size \
@@ -251,6 +306,7 @@ class KvBlockPool:
                 raise KeyError(f"unknown owner {owner!r}")
             cap = len(self._owned[owner]) * self.block_size
             self._used_tokens[owner] = min(int(tokens), cap)
+            self._update_gauges_locked()
 
     def rollback_tokens(self, owner: str, tokens: int) -> int:
         """Move *owner*'s written frontier back to *tokens* after rejected
@@ -269,6 +325,7 @@ class KvBlockPool:
             if rolled:
                 self._used_tokens[owner] = new
                 self.spec_rollback_tokens += rolled
+                self._update_gauges_locked()
             return rolled
 
     def free(self, owner: str) -> int:
@@ -279,6 +336,7 @@ class KvBlockPool:
             blocks = self._owned.pop(owner, None)
             self._used_tokens.pop(owner, None)
             if not blocks:
+                self._update_gauges_locked()
                 return 0
             released = []
             for b in blocks:
@@ -297,6 +355,7 @@ class KvBlockPool:
             if released:
                 self._free.extend(released)
                 self._free.sort()
+            self._update_gauges_locked()
             return len(released)
 
     def outstanding(self) -> int:
@@ -304,3 +363,35 @@ class KvBlockPool:
         once): 0 once every request is done."""
         with self._lock:
             return self.num_blocks - len(self._free)
+
+    def _update_gauges_locked(self) -> None:
+        used = self.num_blocks - len(self._free)
+        metrics.SERVE_KV_BLOCKS.set(float(len(self._free)), state="free")
+        metrics.SERVE_KV_BLOCKS.set(float(used), state="used")
+        metrics.KV_SHARED_BLOCKS.set(float(
+            sum(1 for r in self._refs.values() if r >= 2)))
+        metrics.SERVE_KV_FRAGMENTATION.set(self._fragmentation_locked())
+
+    def snapshot(self) -> dict:
+        """The ``kv`` block of ``/debug/serve``."""
+        with self._lock:
+            used = self.num_blocks - len(self._free)
+            return {
+                "numBlocks": self.num_blocks,
+                "blockSize": self.block_size,
+                "freeBlocks": len(self._free),
+                "usedBlocks": used,
+                "occupancy": round(used / self.num_blocks, 4),
+                "internalFragmentation": round(
+                    self._fragmentation_locked(), 4),
+                "owners": len(self._owned),
+                "sharing": self.sharing,
+                "sharedBlocks": sum(1 for r in self._refs.values()
+                                    if r >= 2),
+                "logicalBlocks": sum(len(b)
+                                     for b in self._owned.values()),
+                "cowCopies": self.cow_copies,
+                "prefixBlockHits": self.prefix_block_hits,
+                "prefixIndexKeys": len(self._index),
+                "specRollbackTokens": self.spec_rollback_tokens,
+            }

@@ -41,25 +41,46 @@ records built from such runs (:func:`bench_serving`,
 :func:`bench_spec_decoding`); :func:`wall_open_loop` serves the same
 arrivals through :class:`TorchSlotExecutor` on the wall clock.
 
-Not ported yet: tracing spans, metrics, flight records, watchdog Events
-and the cost ledger, ``headroom()``, ``DecodeService`` and the HTTP
-ingress.
+The serving shell follows the reference's: each :meth:`Scheduler.step`
+runs under the scheduler's state lock and a task-scoped watchdog
+heartbeat, writes a :class:`StepLedger` entry whose phases reconcile with
+the iteration's time, and records the request lifecycle as phase spans in
+the flight ring (kind ``serve``, deterministic ids, the ingress's trace
+id); the serve metrics, flight records and Events follow the reference's
+call sites, and :meth:`Scheduler.snapshot`, :meth:`Scheduler.headroom` and
+:meth:`Scheduler.serving_summary` are its JSON views. :class:`DecodeService`
+steps the scheduler from a thread of its own, serves those views as
+``/debug/serve``, ``/debug/serve/ledger`` and ``/debug/serve/headroom``,
+and streams ``POST /v1/generate`` over chunked HTTP, one token a flush
+(:meth:`DecodeService.start_http`).
+
+Not ported yet: the reference's profiler, metrics history and trend
+planes, which ``DecodeService.start`` arms there, with ``/debug/profile``
+and ``/debug/history``; the headroom digest's ``trendAnomalies`` is empty
+until then.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import heapq
+import itertools
+import json
 import logging
+import queue
 import random
 import re
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import flight, metrics, slo, tracing, validate, watchdog
 from ..utils.resilience import RetryPolicy
 from ..utils.stats import nearest_rank
 from . import degrade
@@ -74,10 +95,20 @@ log = logging.getLogger(__name__)
 INTERACTIVE = "interactive"
 BATCH = "batch"
 
+#: ingress bounds: every request field is clamped against these before it
+#: can size a read, a KV reservation or a decode budget
+MAX_BODY_BYTES = 1 << 20      # 1 MiB of request JSON is ~1.5e5 tokens
+MAX_PROMPT_LEN = 65536
+MAX_OUTPUT_LEN = 65536
+MAX_TOKEN_ID = 1 << 30        # any real vocabulary fits well inside this
+
 #: per-request deadline header: a relative millisecond budget from arrival
 DEADLINE_HEADER = "x-tpu-deadline-ms"
 MAX_DEADLINE_MS = 86_400_000  # 24 h: anything longer is no deadline
 _DEADLINE_RE = re.compile(r"^[0-9]{1,8}$")
+#: a stream waits this long past its deadline budget, so the scheduler's
+#: own deadline_exceeded record reaches the wire first
+STREAM_DEADLINE_GRACE_S = 0.5
 
 
 def parse_deadline_ms(value: object) -> Optional[int]:
@@ -124,7 +155,8 @@ class Request:
     prompt: Optional[tuple] = None
     #: ``stream(event, value)``: ("token", tok) per generated token, then
     #: one terminal ("done", n_tokens), ("rejected", reason), ("failed",
-    #: reason) or ("deadline_exceeded", n_tokens); it must not block
+    #: reason) or ("deadline_exceeded", n_tokens); called under the
+    #: scheduler's state lock, so it must only enqueue, never block
     stream: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
     # runtime state, owned by the scheduler
@@ -147,9 +179,16 @@ class Request:
     prefix_keys: Optional[list] = dataclasses.field(default=None,
                                                     repr=False)
     shared_tokens: int = 0
-    #: when the current wait began (arrival, or the preemption), and the
-    #: decode iterations of the current residency
+    #: lifecycle tracing: the trace every phase span carries (the
+    #: caller's through the ingress, else one minted from the rid), the
+    #: span the phases hang under, and the next span's sequence number
+    trace_id: Optional[str] = None
+    parent_span_id: Optional[str] = None
+    span_seq: int = 0
+    #: when the current wait began (arrival, or the preemption), when the
+    #: current decode residency began, and its decode iterations
     queued_since_s: Optional[float] = None
+    decode_since_s: Optional[float] = None
     decode_iters: int = 0
     #: optional deadline: a relative budget (``parse_deadline_ms``), made
     #: an absolute instant on the scheduler's clock at ingest
@@ -478,6 +517,68 @@ class TorchSlotExecutor:
         return out
 
 
+#: the ledger's phase keys, in render order: ``verify`` is the speculative
+#: iteration that replaces decode; ``compile`` is the compile time an
+#: iteration's executor calls spent, re-billed out of the phase that
+#: absorbed it. Eager PyTorch compiles nothing, so it reads 0 until the
+#: executor captures CUDA graphs
+LEDGER_PHASES = ("prefill", "decode", "verify", "cow", "sched",
+                 "compile")
+
+
+class StepLedger:
+    """Bounded ring of per-iteration cost entries: each ``step()`` splits
+    its measured (real clock) or modelled (virtual clock) time into
+    prefill-budget spend, decode or verify, copy-on-write and pool write
+    accounting, and scheduling. Served at ``/debug/serve/ledger``,
+    summarized into ``tpu_serve_step_breakdown_seconds{phase}``, and
+    reconciled: the phase sum must track the iteration's time."""
+
+    def __init__(self, capacity: int = 256) -> None:
+        self.capacity = capacity
+        self._entries: collections.deque = collections.deque(
+            maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def record(self, entry: dict) -> None:
+        with self._lock:
+            self._entries.append(entry)
+        for phase, seconds in entry["phases"].items():
+            metrics.SERVE_STEP_BREAKDOWN.observe(phase, seconds)
+
+    def entries(self, last: Optional[int] = None) -> list:
+        with self._lock:
+            out = list(self._entries)
+        return out[-last:] if last else out
+
+    def reconcile(self, tolerance_s: float = 0.005,
+                  rel: float = 0.02) -> dict:
+        """Per entry, ``|sum(phases) - total_s|`` must stay within
+        ``max(tolerance_s, rel * total_s)`` (the floor covers the clock's
+        granularity between segments, the relative term long stalls).
+        Returns the verdict."""
+        with self._lock:
+            entries = list(self._entries)
+        violations = 0
+        worst_gap = 0.0
+        worst_it = None
+        for e in entries:
+            gap = abs(sum(e["phases"].values()) - e["total_s"])
+            if gap > max(tolerance_s, rel * e["total_s"]):
+                violations += 1
+            if gap > worst_gap:
+                worst_gap, worst_it = gap, e["iteration"]
+        return {"checked": len(entries), "violations": violations,
+                "maxGapSeconds": round(worst_gap, 6),
+                "worstIteration": worst_it, "ok": violations == 0}
+
+    def snapshot(self) -> dict:
+        """``/debug/serve/ledger``: the ring and its reconciliation."""
+        return {"capacity": self.capacity, "entries": self.entries(),
+                "phases": list(LEDGER_PHASES),
+                "reconciliation": self.reconcile()}
+
+
 class Scheduler:
     """Iteration-level continuous-batching scheduler over an executor.
 
@@ -487,32 +588,45 @@ class Scheduler:
     admission, preemption, chunk, decode, speculation, fault, retry, rung
     change and outcome is appended to :attr:`trace` as the JAX scheduler
     writes it. *drafter* proposes the drafts when ``config.spec_k > 0``
-    (default :class:`NgramDrafter`).
+    (default :class:`NgramDrafter`); *executor* defaults to
+    :class:`SimExecutor`.
+
+    Each step runs under ``_state_lock`` (and the *heartbeat*'s task, when
+    one is given), so :meth:`snapshot`, :meth:`capacity` and
+    :meth:`headroom` may be read from other threads; :meth:`submit` and
+    :meth:`submit_now` take only ``_lock``, which guards the arrivals and
+    is held for no executor call. Each step records a :class:`StepLedger`
+    entry, the request lifecycle lands in the flight ring as phase spans
+    (kind ``serve``), and the serve metrics, flight records and Events
+    follow the reference's call sites.
     """
 
-    def __init__(self, config: ServeConfig, executor: Any,
+    def __init__(self, config: ServeConfig, executor: Optional[Any] = None,
                  cost_model: Optional[CostModel] = None,
                  clock: Optional[Callable[[], float]] = None,
+                 heartbeat: Optional[watchdog.Heartbeat] = None,
+                 headroom_clock: Optional[Callable[[], float]] = None,
                  drafter: Optional[Any] = None) -> None:
         self.config = config
-        self.executor = executor
+        self.executor = executor if executor is not None else SimExecutor()
         self.cost = cost_model if cost_model is not None else CostModel()
         self._clock = clock
+        self.heartbeat = heartbeat
         self.pool = KvBlockPool(config.kv_blocks, config.kv_block_size,
                                 sharing=config.prefix_sharing)
         #: sharing needs an executor whose cache can alias blocks; mapping
         #: without one would share rows a real cache never holds
         self._share = (config.prefix_sharing
-                       and getattr(executor, "prefix_aware", False))
+                       and getattr(self.executor, "prefix_aware", False))
         self._chunked = config.prefill_chunk_tokens > 0 and not config.static
-        if self._chunked and getattr(executor, "chunk_capacity",
+        if self._chunked and getattr(self.executor, "chunk_capacity",
                                      0) is None:
             raise ValueError(
                 "chunked prefill configured but the executor was built "
                 "without a chunk width (pass chunk_tokens)")
         self._spec_on = config.spec_k > 0
         if self._spec_on:
-            width = getattr(executor, "spec_width", None)
+            width = getattr(self.executor, "spec_width", None)
             if width is None:
                 raise ValueError(
                     "speculative decoding configured but the executor "
@@ -530,6 +644,16 @@ class Scheduler:
         #: (iteration, row) verify events that carried drafts
         self.spec_rows_total = 0
         self.now = 0.0 if clock is None else clock()
+        #: the headroom digest's freshness: a sequence per replica and a
+        #: wall-clock stamp (injectable), so a reader can order digests
+        self._headroom_seq = 0
+        self._headroom_clock: Callable[[], float] = (
+            headroom_clock if headroom_clock is not None else time.time)
+        #: guards _pending (submit may race the step loop)
+        self._lock = threading.Lock()
+        #: guards the rest of the state against readers on other threads
+        #: (snapshot, capacity, headroom); reentrant, taken before _lock
+        self._state_lock = threading.RLock()
         #: future arrivals: (arrival_s, submission seq, request) min-heap
         self._pending: list[tuple] = []
         self._seq = 0
@@ -569,27 +693,63 @@ class Scheduler:
         #: (rid, seconds) from a retried request's last fault to its
         #: completion: the serve-path MTTR samples
         self.retry_recoveries: list[tuple[str, float]] = []
+        #: when set, trace / completed / rejected / failed keep their last
+        #: N entries after each step (a long-lived service); the totals
+        #: stay monotone
+        self.history_limit: Optional[int] = None
         self.trace: list[tuple] = []
+        self._recent_ttft: list[float] = []
+        #: the per-iteration cost ledger; under a virtual clock each
+        #: modelled advance lands in the phase named by _ledger_phase
+        self.ledger = StepLedger()
+        self._ledger_phases: Optional[dict] = None
+        self._ledger_phase: Optional[str] = None
+        #: where the ledger's current segment began
+        self._ledger_mark = self.now
+        self._update_gauges()
 
     # -- intake ---------------------------------------------------------------
     def submit(self, req: Request) -> None:
         """Enqueue an arrival at ``req.arrival_s`` on the scheduler's
         clock; ties are taken in submission order."""
-        self._seq += 1
-        heapq.heappush(self._pending, (req.arrival_s, self._seq, req))
+        with self._lock:
+            self._seq += 1
+            heapq.heappush(self._pending, (req.arrival_s, self._seq, req))
+
+    def submit_all(self, reqs: list) -> None:
+        for r in reqs:
+            self.submit(r)
+
+    def submit_now(self, req: Request) -> None:
+        """Enqueue an arrival at the scheduler's current time: the live
+        ingress's entry. Under a real clock the clock itself is read (the
+        cached ``now`` moves once an iteration, and a stale stamp would
+        bill a request for queueing it never did)."""
+        with self._lock:
+            req.arrival_s = (self._clock() if self._clock is not None
+                             else self.now)
+            self._seq += 1
+            heapq.heappush(self._pending, (req.arrival_s, self._seq, req))
 
     # -- one iteration --------------------------------------------------------
     def step(self) -> bool:
         """One iteration. Returns False when nothing is left to do now."""
+        with watchdog.task(self.heartbeat), self._state_lock:
+            return self._step_locked()
+
+    def _step_locked(self) -> bool:
         if self._clock is not None:
             self.now = self._clock()
         self._ingest()
         if not self._active and not self._queued_count():
-            if not self._pending:
+            nxt = self._next_arrival()
+            if nxt is None:
+                self._update_gauges()
                 return False
             if self._clock is not None:
+                self._update_gauges()
                 return False  # real clock: nothing due yet
-            self.now = max(self.now, self._pending[0][0])
+            self.now = max(self.now, nxt)
             self._ingest()
         elif (self._clock is None and not self._active
                 and not self._prefilling and self._head() is None):
@@ -599,14 +759,27 @@ class Scheduler:
             # hold-downs expire, or by one decode quantum without one
             targets = [r.retry_at for q in self._queues.values()
                        for r in q if r.retry_at > self.now]
-            if self._pending and self._pending[0][0] > self.now:
-                targets.append(self._pending[0][0])
+            nxt = self._next_arrival()
+            if nxt is not None and nxt > self.now:
+                targets.append(nxt)
             self.now = min(targets) if targets \
                 else self.now + self.cost.decode_base_s
             self._ingest()
         self.iterations += 1
         it = self.iterations
+        # the ledger: under a real clock _bill charges each segment its
+        # measured time (a stalled executor's seconds land in the phase
+        # that stalled); under the virtual clock _advance attributes the
+        # modelled costs
+        phases = dict.fromkeys(LEDGER_PHASES, 0.0)
+        self._ledger_phases = phases
+        step_start = self._ledger_mark = self._mark()
+        self._ledger_phase = "sched"
         admitted = self._admit(it)
+        self._bill("sched")
+        # an interleaved iteration's ITL includes the chunks it carried
+        iter_start = self.now
+        self._ledger_phase = "prefill"
         if self._chunked:
             for req in admitted:
                 req.state = PREFILLING
@@ -614,6 +787,7 @@ class Scheduler:
             self._prefill_pass(it)
         else:
             for req in admitted:
+                prefill_start = self._mark()
                 self._advance(self.cost.prefill_s(
                     req.prefill_target - req.prefill_start))
                 try:
@@ -623,34 +797,25 @@ class Scheduler:
                     self._executor_fault(it, req, e, "prefill")
                     continue
                 req.prefilled = req.prefill_target
+                self._phase_span(
+                    req, "serve.prefill", prefill_start, self._mark(),
+                    tokens=req.prefill_target - req.prefill_start,
+                    offset=req.prefill_start)
                 self._finish_prefill(it, req, tok)
+            iter_start = self.now
+        self._bill("prefill")
+        self._ledger_phase = "sched"
         active = sorted((slot, req) for slot, req in self._active.items()
                         if req.state == RUNNING
                         and len(req.tokens) < req.output_len)
         drafts = self._propose(active) if active and self._spec_on \
             else None
+        self._bill("sched")
         if active and drafts:
-            self._spec_pass(it, active, drafts)
+            self._spec_pass(it, active, drafts, iter_start)
         elif active:
-            self._advance(self.cost.decode_s(len(active)))
-            try:
-                toks = self.executor.step(active)
-            except Exception as e:  # noqa: BLE001 — the batch loses one
-                # iteration and one victim retries
-                toks = None
-                self._step_fault(it, "decode", active, e)
-            self._tick()
-            if toks is not None:
-                for slot, req in active:
-                    if self._share:
-                        self._write(it, req,
-                                    req.prompt_len + len(req.tokens))
-                    req.tokens.append(toks[slot])
-                    req.decode_iters += 1
-                    self.pool.set_used_tokens(
-                        req.rid, req.prompt_len + len(req.tokens))
-                    self._notify(req, "token", toks[slot])
-                self.trace.append(("decode", it, len(active)))
+            self._decode_pass(it, active, iter_start)
+        self._ledger_phase = "sched"
         for slot in sorted(self._active):
             req = self._active[slot]
             if len(req.tokens) >= req.output_len:
@@ -660,7 +825,60 @@ class Scheduler:
                 # its tokens completes rather than expires
                 self._deadline_exceed(it, req)
         self._degrade_pass(it)
+        if self.history_limit is not None:
+            del self.trace[:-self.history_limit]
+            del self.completed[:-self.history_limit]
+            del self.rejected[:-self.history_limit]
+            del self.failed[:-self.history_limit]
+        self._update_gauges()
+        self._bill("sched")
+        self._ledger_phase = None
+        self._ledger_phases = None
+        self.ledger.record({
+            "iteration": it,
+            "now_s": round(self.now, 6),
+            "activeSlots": len(self._active),
+            "queuedRequests": self._queued_count(),
+            "chunkBacklogTokens": self._prefill_backlog(),
+            "admitted": len(admitted),
+            "phases": {k: round(v, 6) for k, v in phases.items()},
+            "total_s": round(self._ledger_mark - step_start, 6),
+            "preemptionsTotal": self.preemptions,
+            "cowCopiesTotal": self.pool.cow_copies,
+        })
         return True
+
+    def _decode_pass(self, it: int, active: list,
+                     iter_start: float) -> None:
+        """One batched decode iteration; a pass that raises retries one
+        victim and commits nothing."""
+        self._ledger_phase = "decode"
+        self._advance(self.cost.decode_s(len(active)))
+        try:
+            toks = self.executor.step(active)
+        except Exception as e:  # noqa: BLE001 — the batch loses one
+            # iteration and one victim retries
+            toks = None
+            self._step_fault(it, "decode", active, e)
+        self._tick()
+        self._bill("decode")
+        # the measured iteration under a real clock (a stall is a stall),
+        # the modelled one, chunks included, under the virtual clock
+        metrics.SERVE_ITL_SECONDS.observe(
+            self.now - iter_start, exemplar=self._exemplar(active))
+        self._ledger_phase = "cow"
+        for slot, req in (active if toks is not None else ()):
+            if self._share:
+                self._write(it, req, req.prompt_len + len(req.tokens))
+            req.tokens.append(toks[slot])
+            req.decode_iters += 1
+            self.pool.set_used_tokens(
+                req.rid, req.prompt_len + len(req.tokens))
+            metrics.SERVE_TOKENS.inc(phase="decode")
+            self._notify(req, "token", toks[slot])
+        self._bill("cow")
+        if toks is not None:
+            self.trace.append(("decode", it, len(active)))
 
     def run(self, max_steps: int = 1_000_000) -> int:
         """Step until drained (or *max_steps*); returns steps taken."""
@@ -673,20 +891,55 @@ class Scheduler:
     def _advance(self, cost_s: float) -> None:
         if self._clock is None:
             self.now += cost_s
+            # the virtual ledger: the modelled cost lands in the phase
+            # the step is in
+            if self._ledger_phases is not None and self._ledger_phase:
+                self._ledger_phases[self._ledger_phase] += cost_s
 
     def _tick(self) -> None:
         if self._clock is not None:
             self.now = self._clock()
 
+    def _mark(self) -> float:
+        """The ledger's and the phase spans' clock: the real clock when
+        there is one, else the virtual time (already advanced)."""
+        return self._clock() if self._clock is not None else self.now
+
+    def _bill(self, phase: str) -> float:
+        """Close a ledger segment at the clock: under a real clock the
+        time since the last mark is charged to *phase*. The segments tile
+        the iteration, so its phases sum to its total whatever else the
+        host ran between them (under the virtual clock _advance has
+        charged the modelled costs already). Returns the segment's
+        length."""
+        now = self._mark()
+        spent = now - self._ledger_mark
+        if self._clock is not None and self._ledger_phases is not None:
+            self._ledger_phases[phase] += spent
+        self._ledger_mark = now
+        return spent
+
+    def _next_arrival(self) -> Optional[float]:
+        with self._lock:
+            return self._pending[0][0] if self._pending else None
+
     def _queued_count(self) -> int:
         return sum(len(q) for q in self._queues.values())
+
+    @staticmethod
+    def _exemplar(active: list) -> Optional[dict]:
+        trace_id = active[0][1].trace_id
+        return {"trace_id": trace_id} if trace_id else None
 
     def _write(self, it: int, req: Request, pos: int) -> None:
         """Account a decode or verify write under sharing. A copy the full
         pool cannot make proceeds uncopied rather than stall (a stalled
         request frees nothing), and the trace says so."""
-        if self.pool.write_token(req.rid, pos) is None:
+        wrote = self.pool.write_token(req.rid, pos)
+        if wrote is None:
             self.trace.append(("cow_uncopied", it, req.rid))
+        elif wrote:
+            self._phase_span(req, "serve.cow", self.now, self.now, pos=pos)
 
     def _notify(self, req: Request, event: str, value: object) -> None:
         """Call the request's stream; a failing sink is dropped, never
@@ -699,6 +952,47 @@ class Scheduler:
             log.warning("stream callback for %s failed on %r", req.rid,
                         event, exc_info=True)
             req.stream = None
+
+    # -- request-lifecycle tracing --------------------------------------------
+    def _ensure_trace(self, req: Request) -> None:
+        """A request without the ingress's trace gets a deterministic one
+        from its rid, so seeded runs replay the same span tree."""
+        if req.trace_id is None:
+            req.trace_id = tracing.det_trace_id(req.rid)
+
+    def _phase_span(self, req: Request, name: str, start_s: float,
+                    end_s: float, **attrs: object) -> None:
+        """One lifecycle phase span in the flight ring (kind ``serve``,
+        the request's trace id, a deterministic span id), timed on the
+        scheduler's clock."""
+        self._ensure_trace(req)
+        assert req.trace_id is not None
+        span_id = tracing.det_span_id(req.trace_id, req.rid, req.span_seq)
+        req.span_seq += 1
+        attributes = {"rid": req.rid, "start_s": f"{start_s:.6f}"}
+        if req.parent_span_id:
+            attributes["parent_span_id"] = req.parent_span_id
+        attributes.update({k: str(v) for k, v in attrs.items()})
+        flight.record("serve", name, trace_id=req.trace_id,
+                      span_id=span_id,
+                      duration_s=round(max(0.0, end_s - start_s), 6),
+                      attributes=attributes)
+
+    def _close_open_phase(self, req: Request, outcome: str) -> None:
+        """End the phase *req* is in (its decode residency or its wait),
+        so an abandoned or failed request still shows a whole timeline."""
+        if req.decode_since_s is not None:
+            self._phase_span(
+                req, "serve.decode", req.decode_since_s, self.now,
+                iterations=req.decode_iters, tokens=len(req.tokens),
+                outcome=outcome)
+            req.decode_since_s = None
+        elif req.queued_since_s is not None and req.slot is None:
+            self._phase_span(
+                req, "serve.preempted" if req.preemptions
+                else "serve.queued",
+                req.queued_since_s, self.now, outcome=outcome)
+            req.queued_since_s = None
 
     # -- speculative decoding -------------------------------------------------
     def _propose(self, active: list) -> Optional[dict]:
@@ -724,7 +1018,8 @@ class Scheduler:
                 drafts[slot] = [int(t) for t in d]
         return drafts or None
 
-    def _spec_pass(self, it: int, active: list, drafts: dict) -> None:
+    def _spec_pass(self, it: int, active: list, drafts: dict,
+                   iter_start: float) -> None:
         """One verify iteration: the executor scores every row's drafts in
         one pass, and each row's accepted + 1 tokens commit. Under sharing
         every speculated position is written at verify time (so
@@ -732,14 +1027,20 @@ class Scheduler:
         written frontier rolls back past the accepted tokens. A pass that
         raises commits nothing and retries one victim."""
         k_iter = max(len(d) for d in drafts.values())
+        self._ledger_phase = "verify"
         self._advance(self.cost.verify_s(len(active), k_iter))
         try:
             emitted = self.executor.spec_step(active, drafts)
         except Exception as e:  # noqa: BLE001 — as the decode pass
             self._step_fault(it, "verify", active, e)
             self._tick()
+            self._bill("verify")
             return
         self._tick()
+        metrics.SERVE_SPEC_VERIFY_SECONDS.observe(self._bill("verify"))
+        metrics.SERVE_ITL_SECONDS.observe(
+            self.now - iter_start, exemplar=self._exemplar(active))
+        self._ledger_phase = "cow"
         for slot, req in active:
             toks = emitted[slot]
             proposed = len(drafts.get(slot, ()))
@@ -756,22 +1057,43 @@ class Scheduler:
                 self.pool.rollback_tokens(req.rid, used)
             self.pool.set_used_tokens(req.rid, used)
             for tok in toks:
+                metrics.SERVE_TOKENS.inc(phase="decode")
                 self._notify(req, "token", tok)
             if proposed:
                 self._spec.observe(proposed, accepted)
                 self.spec_rows_total += 1
+                metrics.SERVE_SPEC_TOKENS.inc(proposed, outcome="proposed")
+                metrics.SERVE_SPEC_TOKENS.inc(accepted, outcome="accepted")
+                metrics.SERVE_SPEC_TOKENS.inc(proposed - accepted,
+                                              outcome="rejected")
                 self.trace.append(("spec", it, req.rid, proposed,
                                    accepted))
+        metrics.SERVE_SPEC_ACCEPTANCE.set(self._spec.acceptance_rate())
+        self._bill("cow")
         self.trace.append(("decode", it, len(active)))
 
     # -- admission ------------------------------------------------------------
-    def _reject(self, req: Request, reason: str) -> None:
+    def _reject(self, req: Request, reason: str, message: str) -> None:
+        """Refuse an arrival: counted, flight-recorded, and a
+        ``ServeAdmissionRejected`` Event whose message leads with the
+        machine-readable reason."""
+        self._ensure_trace(req)
         req.state = REJECTED
         req.reject_reason = reason
         self.rejected.append(req)
         self.rejected_total += 1
         self.trace.append(("reject", self.iterations + 1, req.rid,
                            req.slo_class, reason))
+        metrics.SERVE_ADMISSION_REJECTED.inc(slo_class=req.slo_class,
+                                             reason=reason)
+        metrics.SERVE_REQUESTS.inc(slo_class=req.slo_class,
+                                   outcome="rejected")
+        flight.record("serve", "AdmissionRejected", trace_id=req.trace_id,
+                      attributes={"rid": req.rid, "class": req.slo_class,
+                                  "reason": reason})
+        watchdog.emit_health_event(
+            "ServeAdmissionRejected", f"[{reason}] {message}", "Warning",
+            series=f"serve-admission/{req.slo_class}")
         self._notify(req, "rejected", reason)
 
     def _ingest(self) -> None:
@@ -779,24 +1101,43 @@ class Scheduler:
         ids, reservations larger than the whole pool, batch arrivals while
         the ladder sheds them, and arrivals past the queue bound. A
         deadline budget becomes an absolute instant here."""
-        while self._pending and self._pending[0][0] <= self.now:
-            _, _, req = heapq.heappop(self._pending)
+        while True:
+            with self._lock:
+                if not self._pending or self._pending[0][0] > self.now:
+                    return
+                _, _, req = heapq.heappop(self._pending)
             if req.rid in self._live_rids:
-                self._reject(req, "duplicate_rid")
+                self._reject(req, "duplicate_rid",
+                             f"request id {req.rid!r} is already live; "
+                             "a second request under the same id would "
+                             "merge both requests' KV accounting")
                 continue
             if self.pool.blocks_for_tokens(req.total_tokens()) \
                     > self.pool.num_blocks:
-                self._reject(req, "kv_too_large")
+                self._reject(req, "kv_too_large",
+                             f"request {req.rid} needs "
+                             f"{req.total_tokens()} KV token slots; the "
+                             f"whole pool holds "
+                             f"{self.pool.num_blocks * self.pool.block_size}")
                 continue
             if req.deadline_budget_s is not None and req.deadline_s is None:
                 req.deadline_s = req.arrival_s + req.deadline_budget_s
             if req.slo_class == BATCH \
                     and self.ladder.rung >= degrade.RUNG_SHED_BATCH:
-                self._reject(req, "degraded_shed")
+                self._reject(req, "degraded_shed",
+                             f"serving degraded to rung "
+                             f"{self.ladder.rung} "
+                             f"({self.ladder.rung_name}); batch-class "
+                             "admissions shed until recovery")
                 continue
             if len(self._queues[req.slo_class]) >= self.config.queue_limit:
-                self._reject(req, "queue_full")
+                self._reject(req, "queue_full",
+                             f"serve admission queue for class "
+                             f"{req.slo_class} is full "
+                             f"({self.config.queue_limit}); rejecting "
+                             "new requests (service saturated)")
             else:
+                self._ensure_trace(req)
                 req.queued_since_s = req.arrival_s
                 self._queues[req.slo_class].append(req)
                 self._live_rids.add(req.rid)
@@ -875,6 +1216,17 @@ class Scheduler:
             req.slot = slot
             req.state = RUNNING
             req.admitted_s = self.now
+            # the wait ends: serve.queued after arrival, serve.preempted
+            # after an eviction
+            wait_start = (req.queued_since_s
+                          if req.queued_since_s is not None
+                          else req.arrival_s)
+            self._phase_span(
+                req, "serve.preempted" if req.preemptions
+                else "serve.queued",
+                wait_start, self.now, slo_class=req.slo_class, slot=slot,
+                **({"preemptions": req.preemptions}
+                   if req.preemptions else {}))
             req.queued_since_s = None
             req.prefill_target = req.prompt_len + len(req.tokens)
             # shared coverage is KV already computed: prefill resumes past
@@ -921,7 +1273,16 @@ class Scheduler:
                 self._prefilling.remove(victim)
                 phase = "prefill"
                 discarded = max(0, victim.prefilled - victim.prefill_start)
-                self.prefill_tokens_discarded += discarded
+                if discarded:
+                    self.prefill_tokens_discarded += discarded
+                    metrics.SERVE_PREFILL_CHUNK_TOKENS.inc(
+                        discarded, outcome="discarded")
+            if phase == "decode" and victim.decode_since_s is not None:
+                self._phase_span(
+                    victim, "serve.decode", victim.decode_since_s,
+                    self.now, iterations=victim.decode_iters,
+                    tokens=len(victim.tokens), outcome="preempted")
+            victim.decode_since_s = None
             victim.decode_iters = 0
             victim.queued_since_s = self.now
             victim.prefilled = 0
@@ -932,6 +1293,19 @@ class Scheduler:
             progressed = True
             self.trace.append(("preempt", it, victim.rid, req.rid, phase,
                                discarded))
+            metrics.SERVE_PREEMPTIONS.inc(reason="kv_pressure")
+            flight.record("serve", "Preempted", trace_id=victim.trace_id,
+                          attributes={
+                              "rid": victim.rid, "for": req.rid,
+                              "phase": phase,
+                              "tokens_done": str(len(victim.tokens)),
+                              "prefill_discarded": str(discarded)})
+            watchdog.emit_health_event(
+                "ServePreempted",
+                f"batch-class request {victim.rid} evicted "
+                f"(recomputable, {phase} phase) to admit interactive "
+                f"{req.rid} under KV/slot pressure", "Normal",
+                series="serve-preempt")
         return progressed and bool(self._free_slots) \
             and self.pool.can_alloc(blocks)
 
@@ -955,6 +1329,7 @@ class Scheduler:
                 if remaining <= 0:
                     break
                 n = min(budget, remaining, cap)
+                chunk_start = self._mark()
                 self._advance(self.cost.prefill_s(n))
                 try:
                     tok = self.executor.prefill_chunk(req, req.slot,
@@ -964,10 +1339,16 @@ class Scheduler:
                     # iteration
                     self._executor_fault(it, req, e, "prefill")
                     break
+                self._phase_span(req, "serve.prefill_chunk", chunk_start,
+                                 self._mark(), tokens=n,
+                                 offset=req.prefilled, iteration=it)
                 req.prefilled += n
                 self.pool.set_used_tokens(req.rid, req.prefilled)
                 budget -= n
                 self.prefill_chunks_total += 1
+                metrics.SERVE_PREFILL_CHUNKS.inc()
+                metrics.SERVE_PREFILL_CHUNK_TOKENS.inc(n,
+                                                       outcome="prefilled")
                 self.trace.append(("chunk", it, req.rid,
                                    req.prefilled - n, n))
                 if req.prefilled >= req.prefill_target:
@@ -980,9 +1361,10 @@ class Scheduler:
     def _finish_prefill(self, it: int, req: Request,
                         tok: Optional[int]) -> None:
         """The prompt is in the cache: publish its blocks in the prefix
-        index, account the first token's write, append the token and stamp
-        TTFT. A missing token is the executor breaking its contract and
-        fails the request (left active it would hold its slot forever)."""
+        index, account the first token's write, append the token, open the
+        decode residency and stamp TTFT. A missing token is the executor
+        breaking its contract and fails the request (left active it would
+        hold its slot forever)."""
         if tok is None:
             self._fail(it, req, RuntimeError(
                 f"executor returned no token for {req.rid}'s final "
@@ -990,48 +1372,77 @@ class Scheduler:
             return
         self._tick()
         req.state = RUNNING
+        first = not req.tokens
         if self._share and req.prefix_keys:
             # before the first token's write, which lands past the keys'
             # coverage and so cannot unpublish them
             self.pool.register_prefix(req.rid, req.prefix_keys,
                                       req.prompt_len)
-        if self._share and self.pool.write_token(
-                req.rid, req.prompt_len + len(req.tokens)) is None:
-            log.warning("kv pool exhausted at CoW for %s; divergence "
-                        "proceeds uncopied", req.rid)
-        if not req.tokens:
-            req.first_token_s = self.now
+        if self._share:
+            pos = req.prompt_len + len(req.tokens)
+            wrote = self.pool.write_token(req.rid, pos)
+            if wrote is None:
+                log.warning("kv pool exhausted at CoW for %s; divergence "
+                            "proceeds uncopied", req.rid)
+            elif wrote:
+                self._phase_span(req, "serve.cow", self.now, self.now,
+                                 pos=pos)
+        req.decode_since_s = self.now
         req.decode_iters = 0
         req.tokens.append(tok)
         self.pool.set_used_tokens(req.rid, req.prompt_len + len(req.tokens))
+        metrics.SERVE_TOKENS.inc(phase="prefill")
+        if first:
+            req.first_token_s = self.now
+            self._record_first_token(req)
         self._notify(req, "token", tok)
+
+    def _record_first_token(self, req: Request) -> None:
+        ttft = req.ttft_s or 0.0
+        metrics.SERVE_TTFT_SECONDS.observe(
+            ttft, exemplar=({"trace_id": req.trace_id}
+                            if req.trace_id else None))
+        self._recent_ttft.append(ttft)
+        del self._recent_ttft[:-64]
+        flight.record("serve", "FirstToken", trace_id=req.trace_id,
+                      attributes={"rid": req.rid, "class": req.slo_class,
+                                  "ttft_s": f"{ttft:.6f}"})
 
     # -- cancel ---------------------------------------------------------------
     def cancel(self, rid: str) -> bool:
         """Abandon a live request wherever it is (pending, queued,
-        prefilling or decoding), freeing its slot and blocks. Returns
+        prefilling or decoding), freeing its slot and blocks: the ingress
+        calls it when a client's stream times out or drops. Returns
         whether anything was cancelled."""
-        for i, (_, _, r) in enumerate(self._pending):
-            if r.rid == rid:
-                self._pending.pop(i)
-                heapq.heapify(self._pending)
-                self._record_cancel(r)
+        with self._state_lock:
+            pending_hit = None
+            with self._lock:
+                for i, (_, _, r) in enumerate(self._pending):
+                    if r.rid == rid:
+                        self._pending.pop(i)
+                        heapq.heapify(self._pending)
+                        pending_hit = r
+                        break
+            if pending_hit is not None:
+                self._record_cancel(pending_hit)
                 return True
-        req = None
-        for q in self._queues.values():
-            for r in q:
-                if r.rid == rid:
-                    req = r
-                    q.remove(r)
-                    break
-        if req is None:
-            req = next((r for r in self._active.values() if r.rid == rid),
-                       None)
-        if req is None:
-            return False
-        self._release(req)
-        self._record_cancel(req)
-        return True
+            req = None
+            for q in self._queues.values():
+                for r in q:
+                    if r.rid == rid:
+                        req = r
+                        q.remove(r)
+                        break
+            if req is None:
+                req = next((r for r in self._active.values()
+                            if r.rid == rid), None)
+            if req is None:
+                return False
+            self._close_open_phase(req, "cancelled")
+            self._release(req)
+            self._record_cancel(req)
+            self._update_gauges()
+            return True
 
     def _record_cancel(self, req: Request) -> None:
         req.state = REJECTED
@@ -1039,6 +1450,10 @@ class Scheduler:
         self.rejected.append(req)
         self.rejected_total += 1
         self.trace.append(("cancel", self.iterations, req.rid))
+        metrics.SERVE_REQUESTS.inc(slo_class=req.slo_class,
+                                   outcome="cancelled")
+        flight.record("serve", "Cancelled", trace_id=req.trace_id,
+                      attributes={"rid": req.rid})
 
     # -- the fault engine -----------------------------------------------------
     def _eta_s(self, req: Request) -> float:
@@ -1059,6 +1474,7 @@ class Scheduler:
         retry it with rebuild. The rest of the batch loses one
         iteration."""
         self._fault_this_step = True
+        metrics.SERVE_EXECUTOR_FAULTS.inc(phase=phase)
         rid = getattr(exc, "rid", None)
         victim = next((r for _, r in active if r.rid == rid), None)
         if victim is None:
@@ -1075,6 +1491,7 @@ class Scheduler:
         never succeed and fails the request; anything else is presumed
         transient and retries with rebuild."""
         self._fault_this_step = True
+        metrics.SERVE_EXECUTOR_FAULTS.inc(phase=phase)
         if isinstance(exc, (ValueError, TypeError)):
             self._fail(it, req, exc)
         else:
@@ -1103,8 +1520,17 @@ class Scheduler:
             req.slot = None
         if req in self._prefilling:
             self._prefilling.remove(req)
-            self.prefill_tokens_discarded += max(
-                0, req.prefilled - req.prefill_start)
+            discarded = max(0, req.prefilled - req.prefill_start)
+            if discarded:
+                self.prefill_tokens_discarded += discarded
+                metrics.SERVE_PREFILL_CHUNK_TOKENS.inc(
+                    discarded, outcome="discarded")
+        elif req.decode_since_s is not None:
+            self._phase_span(
+                req, "serve.decode", req.decode_since_s, self.now,
+                iterations=req.decode_iters, tokens=len(req.tokens),
+                outcome="retried")
+        req.decode_since_s = None
         req.decode_iters = 0
         req.queued_since_s = self.now
         req.prefilled = 0
@@ -1114,6 +1540,13 @@ class Scheduler:
         self._queues[req.slo_class].insert(0, req)
         self.retries_total += 1
         self.trace.append(("retry", it, req.rid, req.retries))
+        metrics.SERVE_RETRIES.inc(phase=phase)
+        flight.record("serve", "RetryScheduled", trace_id=req.trace_id,
+                      attributes={
+                          "rid": req.rid, "attempt": str(req.retries),
+                          "phase": phase,
+                          "tokens_kept": str(len(req.tokens)),
+                          "error": f"{type(exc).__name__}: {exc}"})
 
     def _poison_request(self, it: int, req: Request,
                         exc: Exception) -> None:
@@ -1122,6 +1555,7 @@ class Scheduler:
         executor): slot and blocks freed, outcome ``poisoned``."""
         log.warning("request %s poisoned after %d retries (excising): %s",
                     req.rid, req.retries - 1, exc)
+        self._close_open_phase(req, "poisoned")
         self._release(req)
         req.state = FAILED
         req.reject_reason = "poisoned"
@@ -1129,6 +1563,19 @@ class Scheduler:
         self.failed_total += 1
         self.poisoned_total += 1
         self.trace.append(("poison", it, req.rid, req.retries - 1))
+        metrics.SERVE_REQUESTS.inc(slo_class=req.slo_class,
+                                   outcome="poisoned")
+        metrics.SERVE_POISONED.inc()
+        flight.record("serve", "Poisoned", trace_id=req.trace_id,
+                      attributes={
+                          "rid": req.rid,
+                          "retries": str(req.retries - 1),
+                          "error": f"{type(exc).__name__}: {exc}"})
+        watchdog.emit_health_event(
+            "ServeRequestPoisoned",
+            f"request {req.rid} failed the executor on every attempt "
+            f"({req.retries - 1} rebuilds); excised so it cannot "
+            "crash-loop the step", "Warning", series="serve-poison")
         self._notify(req, "failed", "poisoned")
 
     def _deadline_exceed(self, it: int, req: Request) -> None:
@@ -1137,6 +1584,7 @@ class Scheduler:
         q = self._queues[req.slo_class]
         if req in q:
             q.remove(req)
+        self._close_open_phase(req, "deadline_exceeded")
         self._release(req)
         req.state = FAILED
         req.reject_reason = "deadline_exceeded"
@@ -1144,11 +1592,17 @@ class Scheduler:
         self.failed_total += 1
         self.deadline_exceeded_total += 1
         self.trace.append(("deadline", it, req.rid, len(req.tokens)))
+        metrics.SERVE_REQUESTS.inc(slo_class=req.slo_class,
+                                   outcome="deadline_exceeded")
+        flight.record("serve", "DeadlineExceeded", trace_id=req.trace_id,
+                      attributes={"rid": req.rid,
+                                  "tokens_done": str(len(req.tokens))})
         self._notify(req, "deadline_exceeded", len(req.tokens))
 
     def _degrade_pass(self, it: int) -> None:
         """Feed the ladder this iteration's signal (an executor fault, or
-        a firing serve-SLO alert) and trace a committed rung change."""
+        a firing serve-SLO alert) and publish a committed rung change:
+        gauge, trace tuple, flight record and Event."""
         bad = self._fault_this_step
         self._fault_this_step = False
         if not bad and self.slo_alert_fn is not None:
@@ -1157,9 +1611,30 @@ class Scheduler:
             except Exception:  # noqa: BLE001 — a broken probe must not
                 # stop the step loop
                 log.warning("serve slo_alert_fn failed", exc_info=True)
+                metrics.SWALLOWED_ERRORS.inc(site="serve.slo_alert")
         change = self.ladder.observe(self.now, bad)
-        if change is not None:
-            self.trace.append(("rung", it, change.old, change.new))
+        metrics.SERVE_DEGRADED_RUNG.set(float(self.ladder.rung))
+        if change is None:
+            return
+        self.trace.append(("rung", it, change.old, change.new))
+        names = degrade.RUNGS
+        if change.new > change.old:
+            flight.record("serve", "Degraded", attributes={
+                "from": names[change.old], "to": names[change.new]})
+            watchdog.emit_health_event(
+                "ServeDegraded",
+                f"serving degraded {names[change.old]} -> "
+                f"{names[change.new]} (rung {change.new}) under "
+                "sustained executor faults or serve-SLO burn",
+                "Warning", series="serve-degrade")
+        else:
+            flight.record("serve", "Recovered", attributes={
+                "from": names[change.old], "to": names[change.new]})
+            watchdog.emit_health_event(
+                "ServeRecovered",
+                f"serving recovered {names[change.old]} -> "
+                f"{names[change.new]} (rung {change.new})",
+                "Normal", series="serve-degrade")
 
     # -- teardown -------------------------------------------------------------
     def _release(self, req: Request) -> None:
@@ -1180,15 +1655,28 @@ class Scheduler:
         ``executor_error``."""
         log.warning("executor failed for %s (failing the request): %s",
                     req.rid, exc)
+        metrics.SWALLOWED_ERRORS.inc(site="serve.executor")
+        self._close_open_phase(req, "failed")
         self._release(req)
         req.state = FAILED
         req.reject_reason = "executor_error"
         self.failed.append(req)
         self.failed_total += 1
         self.trace.append(("fail", it, req.rid))
+        metrics.SERVE_REQUESTS.inc(slo_class=req.slo_class,
+                                   outcome="failed")
+        flight.record("serve", "ExecutorFailed", trace_id=req.trace_id,
+                      attributes={"rid": req.rid,
+                                  "error": f"{type(exc).__name__}: {exc}"})
         self._notify(req, "failed", "executor_error")
 
     def _complete(self, it: int, req: Request) -> None:
+        if req.decode_since_s is not None:
+            self._phase_span(
+                req, "serve.decode", req.decode_since_s, self.now,
+                iterations=req.decode_iters, tokens=len(req.tokens),
+                outcome="complete")
+            req.decode_since_s = None
         self._release(req)
         req.state = DONE
         req.finish_s = self.now
@@ -1198,9 +1686,49 @@ class Scheduler:
         self.completed.append(req)
         self.completed_total += 1
         self.trace.append(("complete", it, req.rid, len(req.tokens)))
+        metrics.SERVE_REQUESTS.inc(slo_class=req.slo_class,
+                                   outcome="completed")
+        flight.record("serve", "Completed", trace_id=req.trace_id,
+                      attributes={"rid": req.rid, "class": req.slo_class,
+                                  "tokens": str(len(req.tokens)),
+                                  "preemptions": str(req.preemptions)})
         self._notify(req, "done", len(req.tokens))
 
-    # -- capacity -------------------------------------------------------------
+    # -- gauges and capacity --------------------------------------------------
+    def _prefill_backlog(self) -> int:
+        return sum(max(0, r.prefill_target - r.prefilled)
+                   for r in self._prefilling)
+
+    def _update_gauges(self) -> None:
+        """The queue, slot and backlog gauges and the scheduler's headroom
+        dimensions, from values in hand, every step."""
+        for cls in (INTERACTIVE, BATCH):
+            metrics.SERVE_QUEUE_DEPTH.set(float(len(self._queues[cls])),
+                                          slo_class=cls)
+            metrics.SERVE_ACTIVE.set(
+                float(sum(1 for r in self._active.values()
+                          if r.slo_class == cls)), slo_class=cls)
+        free_slots = len(self._free_slots)
+        backlog = self._prefill_backlog()
+        metrics.SERVE_SLOTS.set(float(free_slots), state="free")
+        metrics.SERVE_SLOTS.set(float(len(self._active)), state="active")
+        metrics.SERVE_PREFILL_BACKLOG.set(float(backlog))
+        free_blocks = self.pool.free_blocks()
+        metrics.SERVE_HEADROOM.set(float(free_slots),
+                                   dimension="free_slots")
+        metrics.SERVE_HEADROOM.set(
+            float(self._advertisable(free_slots, free_blocks)),
+            dimension="advertisable_slots")
+        metrics.SERVE_HEADROOM.set(float(free_blocks),
+                                   dimension="free_kv_blocks")
+        metrics.SERVE_HEADROOM.set(float(backlog),
+                                   dimension="chunk_backlog_tokens")
+        metrics.SERVE_HEADROOM.set(
+            float(self.pool.prefix_index_keys() if self._share else 0),
+            dimension="prefix_index_keys")
+        metrics.SERVE_HEADROOM.set(float(self.ladder.rung),
+                                   dimension="degraded_rung")
+
     def _advertisable(self, free_slots: int, free_blocks: int) -> int:
         """Free slots derated so each is backed by the KV blocks of a
         typical request, then by the ladder: a quarter of the slots from
@@ -1216,7 +1744,8 @@ class Scheduler:
     def capacity(self) -> dict:
         """What the device plugin advertises: slots that could take a
         request now, derated by :meth:`_advertisable`."""
-        free_slots = len(self._free_slots)
+        with self._state_lock:
+            free_slots = len(self._free_slots)
         free_blocks = self.pool.free_blocks()
         return {
             "slots": self.config.slots,
@@ -1225,6 +1754,367 @@ class Scheduler:
             "advertisableSlots": self._advertisable(free_slots,
                                                     free_blocks),
         }
+
+    def headroom(self) -> dict:
+        """The headroom digest's scheduler-owned dimensions: free
+        capacity, the prefill backlog, the queues and the reusable prefix
+        KV, with a sequence and a stamp. :meth:`DecodeService.headroom`
+        folds in the SLO alerts and the fault-gate capacity."""
+        with self._state_lock:
+            cap = self.capacity()
+            backlog = self._prefill_backlog()
+            queued = {cls: len(q) for cls, q in self._queues.items()}
+            # under the state lock: concurrent readers get distinct,
+            # ordered sequences
+            self._headroom_seq += 1
+            seq = self._headroom_seq
+        return {
+            "sequence": seq,
+            "asOf": round(self._headroom_clock(), 6),
+            "slots": self.config.slots,
+            "freeSlots": cap["freeSlots"],
+            "advertisableSlots": cap["advertisableSlots"],
+            "freeKvBlocks": cap["freeKvBlocks"],
+            "chunkBacklogTokens": backlog,
+            "queueDepth": queued,
+            "prefixIndexKeys": self.pool.prefix_index_keys(),
+            "degradedRung": self.ladder.rung,
+        }
+
+    def serving_summary(self) -> dict:
+        """The digest's serving dimensions: the ladder's rung and the
+        speculative acceptance rate."""
+        with self._state_lock:
+            return {
+                "degradedRung": self.ladder.rung,
+                "degradedRungName": degrade.RUNGS[self.ladder.rung],
+                "specKMax": self.config.spec_k,
+                "specAcceptanceRate": round(
+                    self._spec.acceptance_rate(), 4),
+            }
+
+    def snapshot(self) -> dict:
+        """``/debug/serve``: taken under the state lock, so a reader on
+        another thread never iterates state the step loop is changing."""
+        with self._state_lock:
+            return self._snapshot_locked()
+
+    def _snapshot_locked(self) -> dict:
+        queued = {cls: [r.rid for r in q]
+                  for cls, q in self._queues.items()}
+        active = {cls: sorted(r.rid for r in self._active.values()
+                              if r.slo_class == cls)
+                  for cls in (INTERACTIVE, BATCH)}
+        return {
+            "now_s": round(self.now, 6),
+            "iterations": self.iterations,
+            "active": active,
+            "queued": queued,
+            "queueDepth": {cls: len(q)
+                           for cls, q in self._queues.items()},
+            "kv": self.pool.snapshot(),
+            "capacity": self.capacity(),
+            "completed": self.completed_total,
+            "rejected": self.rejected_total,
+            "failed": self.failed_total,
+            "poisoned": self.poisoned_total,
+            "deadlineExceeded": self.deadline_exceeded_total,
+            "retries": self.retries_total,
+            "preemptions": self.preemptions,
+            "degraded": self.ladder.snapshot(self.now),
+            "prefill": {
+                "chunkTokensPerIteration":
+                    self.config.prefill_chunk_tokens,
+                "prefilling": [r.rid for r in self._prefilling],
+                "backlogTokens": self._prefill_backlog(),
+                "chunksTotal": self.prefill_chunks_total,
+                "tokensDiscarded": self.prefill_tokens_discarded,
+            },
+            "recentTtftS": [round(t, 6)
+                            for t in self._recent_ttft[-16:]],
+            "spec": {
+                "kMax": self.config.spec_k,
+                "proposed": self._spec.proposed_total,
+                "accepted": self._spec.accepted_total,
+                "rejected": (self._spec.proposed_total
+                             - self._spec.accepted_total),
+                "acceptanceRate": round(self._spec.acceptance_rate(), 4),
+                "ewmaRate": round(self._spec.rate, 4),
+                "meanAcceptedK": round(
+                    self._spec.accepted_total
+                    / max(self.spec_rows_total, 1), 4),
+                "verifyRows": self.spec_rows_total,
+            },
+        }
+
+
+class DecodeService:
+    """The serving shell of a pod: a background thread stepping the
+    scheduler under a task-scoped watchdog heartbeat, the scheduler's
+    snapshot, ledger and headroom digest as ``/debug/serve*`` handlers of a
+    :class:`~..utils.metrics.MetricsServer`, and a streaming HTTP ingress
+    (:meth:`start_http`): chunked responses, one token a flush, W3C trace
+    context adopted from the caller, so TTFT is measured at the wire. The
+    reference's profiler, metrics history and trend planes are not ported
+    yet: the digest carries ``trendAnomalies: []``."""
+
+    def __init__(self, scheduler: Scheduler,
+                 idle_interval_s: float = 0.05,
+                 stream_timeout_s: float = 30.0,
+                 evaluator: Optional[Any] = None,
+                 fault_capacity_fn: Optional[Callable[[], Optional[int]]]
+                 = None) -> None:
+        self.scheduler = scheduler
+        self.idle_interval_s = idle_interval_s
+        #: how long a stream waits for its next token before it gives up
+        #: on the scheduler (a wedged loop must not hold clients forever)
+        self.stream_timeout_s = stream_timeout_s
+        #: the SLO evaluator whose serve-* alerts join the digest and feed
+        #: the ladder (None: the port's global ``slo.EVALUATOR``)
+        self.evaluator = evaluator
+        #: the fault gate's capacity (the device plugin's operational chip
+        #: count); None reports the dimension as null, gauged as 0
+        self.fault_capacity_fn = fault_capacity_fn
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._http: Optional[ThreadingHTTPServer] = None
+        self._http_thread: Optional[threading.Thread] = None
+        self._rid_seq = itertools.count()
+        if scheduler.slo_alert_fn is None:
+            # the ladder's second signal: a firing serve-SLO alert
+            scheduler.slo_alert_fn = self._serve_alert_firing
+
+    def _evaluator(self) -> Any:
+        return self.evaluator if self.evaluator is not None \
+            else slo.EVALUATOR
+
+    def _serve_alert_firing(self) -> bool:
+        return any(name.startswith("serve-")
+                   for name, _ in self._evaluator().active_alerts())
+
+    def debug_handlers(self) -> dict:
+        return {"/debug/serve": self.scheduler.snapshot,
+                "/debug/serve/ledger": self.scheduler.ledger.snapshot,
+                "/debug/serve/headroom": self.headroom}
+
+    def headroom(self) -> dict:
+        """The replica's headroom digest: the scheduler's dimensions, the
+        firing serve SLO alerts and the fault-gate capacity (the record a
+        router scores replicas by); refreshes the folded dimensions'
+        ``tpu_serve_headroom`` gauges."""
+        digest = self.scheduler.headroom()
+        alerts = [{"slo": name, "severity": severity}
+                  for name, severity in self._evaluator().active_alerts()
+                  if name.startswith("serve-")]
+        digest["sloAlerts"] = alerts
+        fault_capacity = (self.fault_capacity_fn()
+                          if self.fault_capacity_fn is not None else None)
+        digest["faultGateCapacity"] = fault_capacity
+        digest["trendAnomalies"] = []
+        metrics.SERVE_HEADROOM.set(float(len(alerts)),
+                                   dimension="slo_alerts_firing")
+        metrics.SERVE_HEADROOM.set(float(fault_capacity or 0),
+                                   dimension="fault_gate_capacity")
+        metrics.SERVE_HEADROOM.set(0.0, dimension="trend_anomalies")
+        return digest
+
+    # -- streaming ingress ----------------------------------------------------
+    def start_http(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Bind ``POST /v1/generate`` (body ``{"prompt_len", "output_len",
+        "slo_class"?, "prompt"?, "rid"?}``). Every field passes a
+        :mod:`~..utils.validate` sanitizer, and hostile input is a 400
+        before any scheduler state changes. The response is chunked NDJSON,
+        one ``{"token": t}`` object a chunk flush, then one terminal record
+        (``{"done": true, "tokens": n}`` or ``{"error": ...}``). An inbound
+        ``traceparent`` is adopted, ``x-tpu-deadline-ms`` sets a deadline,
+        and a client that disconnects or a stream that times out cancels
+        its request. Returns the bound port."""
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt: str, *args: object) -> None:
+                pass
+
+            def _write_chunk(self, obj: dict) -> None:
+                data = (json.dumps(obj) + "\n").encode()
+                self.wfile.write(b"%x\r\n" % len(data) + data + b"\r\n")
+                self.wfile.flush()  # one token a flush
+
+            def _parse(self) -> Request:
+                length = validate.clamped_int(
+                    self.headers.get("Content-Length") or 0,
+                    0, MAX_BODY_BYTES, "Content-Length")
+                spec = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(spec, dict):
+                    raise ValueError("body must be a JSON object")
+                prompt = spec.get("prompt")
+                if prompt is not None \
+                        and not isinstance(prompt, (list, tuple)):
+                    raise ValueError("prompt must be a list of token ids")
+                return Request(
+                    rid=validate.bounded_str(
+                        spec.get("rid") or f"http-{next(outer._rid_seq)}",
+                        max_len=128, what="rid"),
+                    prompt_len=validate.clamped_int(
+                        spec.get("prompt_len") or len(prompt or ()),
+                        1, MAX_PROMPT_LEN, "prompt_len"),
+                    output_len=validate.clamped_int(
+                        spec["output_len"], 1, MAX_OUTPUT_LEN,
+                        "output_len"),
+                    slo_class=validate.parse_choice(
+                        spec.get("slo_class", INTERACTIVE),
+                        (INTERACTIVE, BATCH), "slo_class"),
+                    # bounded ints now: a bad element 400s here, not
+                    # inside the scheduler's loop
+                    prompt=tuple(
+                        validate.clamped_int(t, 0, MAX_TOKEN_ID,
+                                             "prompt id")
+                        for t in prompt) if prompt else None)
+
+            def do_POST(self) -> None:  # noqa: N802 — stdlib contract
+                if self.path != "/v1/generate":
+                    self.send_error(404, "unknown path")
+                    return
+                try:
+                    req = self._parse()
+                except (KeyError, ValueError, TypeError,
+                        AttributeError) as e:
+                    self.send_error(400, f"bad request: {e}")
+                    return
+                if req.prompt is not None \
+                        and len(req.prompt) != req.prompt_len:
+                    self.send_error(400, "prompt_len disagrees with the "
+                                         "prompt ids' length")
+                    return
+                # a hostile or malformed deadline header is no deadline
+                deadline_ms = parse_deadline_ms(
+                    self.headers.get(DEADLINE_HEADER))
+                if deadline_ms is not None:
+                    req.deadline_budget_s = deadline_ms / 1000.0
+                ctx = tracing.extract_traceparent(
+                    self.headers.get(tracing.TRACEPARENT_HEADER))
+                events: queue.Queue = queue.Queue()
+                req.stream = lambda ev, val: events.put((ev, val))
+                with tracing.context_scope(ctx), tracing.span(
+                        "serve.request", rid=req.rid,
+                        slo_class=req.slo_class) as span_ctx:
+                    # the phase spans join this trace, parented on the
+                    # caller's span when one was adopted
+                    req.trace_id = span_ctx.trace_id
+                    req.parent_span_id = (ctx.span_id if ctx
+                                          else span_ctx.span_id)
+                    t0 = time.monotonic()
+                    outer.scheduler.submit_now(req)
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/x-ndjson")
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
+                    self._stream(req, events, t0)
+
+            def _stream(self, req: Request, events: queue.Queue,
+                        t0: float) -> None:
+                """Relay the request's events until its terminal one; a
+                timeout or a dropped client cancels the request."""
+                first = True
+                finished = False
+                timeout_s = outer.stream_timeout_s
+                if req.deadline_budget_s is not None:
+                    # give up once the deadline cannot be met, after a
+                    # grace for the scheduler's own terminal record
+                    timeout_s = min(timeout_s, req.deadline_budget_s
+                                    + STREAM_DEADLINE_GRACE_S)
+                try:
+                    while True:
+                        try:
+                            ev, val = events.get(timeout=timeout_s)
+                        except queue.Empty:
+                            self._write_chunk({"error": "stream timeout"})
+                            break
+                        if ev == "token":
+                            if first:
+                                metrics.SERVE_WIRE_TTFT_SECONDS.observe(
+                                    time.monotonic() - t0,
+                                    exemplar=tracing.exemplar())
+                                first = False
+                            self._write_chunk({"token": val})
+                            continue
+                        finished = True
+                        if ev == "done":
+                            self._write_chunk({"done": True,
+                                               "tokens": val})
+                        elif ev == "failed":
+                            # admitted, then lost: not a rejection
+                            self._write_chunk({"error": f"failed: {val}"})
+                        elif ev == "deadline_exceeded":
+                            self._write_chunk({"error": "deadline exceeded",
+                                               "tokens": val})
+                        else:
+                            self._write_chunk(
+                                {"error": f"rejected: {val}"})
+                        break
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                except OSError:
+                    pass  # the client hung up: cancelled below
+                finally:
+                    if not finished:
+                        outer.scheduler.cancel(req.rid)
+
+        srv = ThreadingHTTPServer((host, port), Handler)
+        srv.daemon_threads = True
+        self._http = srv
+        self._http_thread = threading.Thread(
+            target=srv.serve_forever, daemon=True, name="serve-ingress")
+        self._http_thread.start()
+        return srv.server_address[1]
+
+    def start(self) -> None:
+        """Start the step loop: registers the ``serve.scheduler``
+        heartbeat (60 s a step) and bounds the scheduler's history."""
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        if self.scheduler.heartbeat is None:
+            self.scheduler.heartbeat = watchdog.register(
+                "serve.scheduler", deadline=60.0)
+        if self.scheduler.history_limit is None:
+            self.scheduler.history_limit = 4096
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-scheduler")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                busy = self.scheduler.step()
+            except Exception:  # noqa: BLE001 — a raising step costs one
+                # step, never the serving thread
+                log.exception("scheduler step failed; serving continues")
+                metrics.SWALLOWED_ERRORS.inc(site="serve.step")
+                self._stop.wait(self.idle_interval_s)
+                continue
+            if not busy:
+                self._stop.wait(self.idle_interval_s)
+
+    def stop(self) -> None:
+        """Close the ingress, stop the step loop and join both threads
+        (each join bounded at 5 s), then close the heartbeat."""
+        http, self._http = self._http, None
+        if http is not None:
+            http.shutdown()
+            http.server_close()
+        if self._http_thread is not None:
+            self._http_thread.join(timeout=5)
+            self._http_thread = None
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=5)
+        if self.scheduler.heartbeat is not None:
+            self.scheduler.heartbeat.close()
+            self.scheduler.heartbeat = None
 
 
 # -- open-loop traffic and the serving bench ---------------------------------

@@ -5,8 +5,9 @@ Each contract of the JAX file runs the JAX and the port scheduler side by
 side, each over its own package's ``SimExecutor`` wrapped in its own
 ``ChaosExecutor``, under fault plans built from the same seed and script.
 Their traces, counters, outcomes and fault logs must be equal, and the
-JAX test's own assertions (less its metrics and Events, which the port
-does not have) must hold on the port. Then the regressions of the port's
+JAX test's own assertions (less its metrics and Events, which
+tests/test_torch_ledger.py holds against the JAX scheduler's) must hold on
+the port. Then the regressions of the port's
 old fault handling, and the real model through ``TorchSlotExecutor``:
 scripted faults retry their victims and every stream still equals the
 port's ``generate`` bit for bit.

@@ -549,9 +549,8 @@ def test_spec_degrades_to_plain_decode_under_hostile_acceptance():
 
 def test_spec_rollback_with_cow_shared_blocks_leaks_nothing():
     """500 speculate / reject lifecycles over shared prompt prefixes drain
-    the pool to zero with rollback moving. The reference's
-    ``ledger.reconcile()`` check is left out: the cost ledger is not
-    ported yet."""
+    the pool to zero with rollback moving, and the cost ledger
+    reconciles."""
     sched = tserve.Scheduler(
         _spec_config(slots=8, kv_blocks=128, prefix_sharing=True),
         tserve.PeriodicSimExecutor(4),
@@ -568,6 +567,32 @@ def test_spec_rollback_with_cow_shared_blocks_leaks_nothing():
     assert sched._spec.proposed_total > sched._spec.accepted_total > 0
     assert sched.pool.spec_rollback_tokens > 0
     assert sched.pool.cow_copies > 0 and sched.pool.prefix_block_hits > 0
+    assert sched.ledger.reconcile()["ok"]
+
+
+def test_spec_verify_phase_lands_in_ledger():
+    """The twin of tests/test_spec.py's: verify iterations bill the
+    ledger's ``verify`` phase, the ledger reconciles, and its entries equal
+    the JAX scheduler's on the same arrivals."""
+    entries = {}
+    for name, serve in (("jax", jserve), ("port", tserve)):
+        sched = serve.Scheduler(
+            serve.ServeConfig(slots=4, kv_blocks=64, kv_block_size=16,
+                              queue_limit=256, spec_k=4),
+            executor=serve.PeriodicSimExecutor(4))
+        for r in jserve.open_loop_arrivals(SEED, 6.0, 6.0):
+            sched.submit(serve.Request(
+                rid=r.rid, prompt_len=r.prompt_len,
+                output_len=r.output_len, slo_class=r.slo_class,
+                arrival_s=r.arrival_s))
+        sched.run()
+        assert set(serve.LEDGER_PHASES) == {"prefill", "decode", "verify",
+                                            "cow", "sched", "compile"}
+        assert sum(e["phases"]["verify"]
+                   for e in sched.ledger.entries()) > 0.0
+        assert sched.ledger.reconcile()["ok"]
+        entries[name] = sched.ledger.entries()
+    assert entries["port"] == entries["jax"]
 
 
 @pytest.mark.parametrize("chunk", [0, 32])
