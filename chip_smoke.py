@@ -123,8 +123,29 @@ Phases, each of which passes or raises (a failure exits non-zero):
    8 slots free at the end, the traced request's phase spans on its trace
    id; then a 17th client hangs up after its first token and its request
    must be cancelled (slot and blocks back); no fault, ``stop()`` within
-   5 s. Prints wire TTFT p50 / p99, wire tokens/s beside phase 5's plain
-   tokens/s and the ledger's mean ms per phase.
+   5 s. ``DecodeService.start`` arms the sampling profiler and the
+   metrics history: ``/debug/profile`` must have sampled the step loop's
+   thread, ``/debug/history`` must hold the serving families' series (TTFT
+   and ITL quantiles among them) with a sample each, the digest's
+   ``trendAnomalies`` must be a list. Prints wire TTFT p50 / p99, wire
+   tokens/s beside phase 5's plain tokens/s and TTFT, the ledger's mean ms
+   per phase, the profiler's overhead ratio and the step loop's top three
+   sites;
+12. MoE (run last): the flagship with 8 experts (every second layer's FFN
+   a top-1 mixture, about 1.18B parameters, bf16, random weights from a
+   seed): (a) the tiny fp32 MoE of tests/test_decode.py on the card
+   against the CPU (streams equal, logits close, a served run equal to
+   ``generate``); (b) phase 5's 16 requests at capacity factor 8, each
+   stream equal to ``generate`` or off at a bf16 near-tie within the
+   teacher-forced margin; (c) the same twice at the default 1.25, every
+   request complete, no block leaked, the two runs' streams equal, and a
+   profiled decode iteration beside the dense flagship's; (d) a W8A8 +
+   KV8 decode loop over the MoE tree (experts unquantized) equal to
+   ``generate(kv_int8=True)``, W8A8 prefill logits correlated above 0.99
+   with bf16; (e) ``measure_train`` at batch 8 x 1024 (a warm-up and two
+   timed steps, loss falling, MFU from active parameters) and one step
+   whose every gradient leaf is finite and non-zero, the routers
+   included. Its launches join the kernels' line.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -1393,19 +1414,21 @@ def _margin(params, cfg, r) -> float:
 
 def _serve_run(params, cfg, label: str, reqs: list, wbytes: int,
                spec_k: int = 0, drafter=None) -> dict:
-    """One timed serve run of *reqs* (16 on 8 slots, chunk 256) with the
-    launch counters set to 0 just before and read just after: checks the
-    run's gates and returns its numbers."""
+    """One timed serve run of *reqs* (16 on 8 slots, chunk 256): checks the
+    run's gates and returns its numbers, its launches the counters' change
+    from just before the run to just after. The counters are not set to 0
+    here, so a phase that set them to 0 before calling this goes on
+    counting through it."""
     import torch
-    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
-    reset_launch_counts()
+    from dpu_operator_tpu_torch.ops import launch_counts
+    before = launch_counts()
     t0 = time.monotonic()
     sched, ex = _serve(params, cfg, reqs, slots=8, chunk=256, device="cuda",
                        executor_cls=_timed_executor(cfg),
                        clock=time.monotonic, spec_k=spec_k, drafter=drafter)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    counts = launch_counts()
+    counts = {k: n - before[k] for k, n in launch_counts().items()}
     log(f"[serve] {label}: launches during the run: {counts}")
     _require_fault_free(label, sched)
     require(len(sched.completed) == len(reqs) and not sched.rejected,
@@ -1872,6 +1895,19 @@ WIRE_PARENT = f"00-{WIRE_TRACE_ID}-{'ab' * 8}-01"
 WIRE_HANGUP = "wire-hangup"
 #: the longest a wire client or a wait of phase 11 may take (s)
 WIRE_WAIT_S = 300.0
+#: the serving families' series ``/debug/history`` must hold after phase
+#: 11's streams, each with at least one sample (``tpu_slo_burn_rate.*``
+#: appears only once an SLO has been evaluated, so it is not required)
+WIRE_HISTORY_SERIES = (
+    "tpu_serve_prefill_chunk_backlog_tokens", "tpu_serve_kv_blocks.used",
+    "tpu_serve_kv_blocks.free", "tpu_serve_spec_acceptance_rate",
+    "tpu_serve_degraded_rung",
+    *(f"tpu_serve_{h}_seconds.{q}" for h in ("ttft", "itl")
+      for q in ("p50", "p95", "p99", "rate")))
+#: phase 11's wire tokens/s in an earlier run of this script, named beside
+#: this run's: the first version of the phase, before it armed the profiler
+#: and history planes (PERF.md §6, on "NVIDIA H100 80GB HBM3, 700.00 W")
+WIRE_PRIOR_TOKENS_PER_S = 208.4
 
 
 def _wire_post(port: int, body: dict, headers=None,
@@ -1928,13 +1964,21 @@ def phase_wire(params, cfg, serve: dict, smi: str) -> dict:
     ``/debug/serve*`` endpoints answer over a MetricsServer, every phase
     span of the traced request carries its trace id, the hung-up request
     is cancelled (slot and blocks back), no fault, ``stop()`` within 5 s.
-    Prints wire TTFT p50 / p99, wire tokens/s beside phase 5's plain
-    tokens/s, and the ledger's mean ms per phase. Returns the launches of
-    the traffic."""
+    ``DecodeService.start`` arms the sampling profiler and the metrics
+    history over the serving families: ``/debug/profile`` must have
+    sampled the step loop's thread (``serve-scheduler``), ``/debug/history``
+    must hold :data:`WIRE_HISTORY_SERIES` with a sample each, and the
+    headroom digest's ``trendAnomalies`` must be a list. Prints wire TTFT
+    p50 / p99 and wire tokens/s beside phase 5's plain run in process,
+    the ledger's mean ms per phase, the profiler's overhead ratio and the
+    step loop's top three sites. The profiler is stopped at the end, so
+    the later phases' timings run without it. Returns the launches of the
+    traffic."""
     import threading
     import torch
     from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
-    from dpu_operator_tpu_torch.utils import flight, metrics
+    from dpu_operator_tpu_torch.utils import flight, history, metrics, \
+        profiler
     from dpu_operator_tpu_torch.utils.metrics import MetricsServer
     from dpu_operator_tpu_torch.workloads.serve import (
         LEDGER_PHASES, DecodeService, Request, Scheduler, ServeConfig,
@@ -1971,6 +2015,9 @@ def phase_wire(params, cfg, serve: dict, smi: str) -> dict:
     tokens_before = metrics.SERVE_TOKENS.total()
     flight.RECORDER.clear()
     reset_launch_counts()
+    # the profiler's overhead is metered over this phase alone
+    profiler.PROFILER.reset()
+    samples_before = history.HISTORY.samples
     service.start()
     port = service.start_http("127.0.0.1", 0)
     server = MetricsServer(host="127.0.0.1", port=0,
@@ -2012,16 +2059,35 @@ def phase_wire(params, cfg, serve: dict, smi: str) -> dict:
                 "phase 11: the hung-up client's request was never cancelled")
         torch.cuda.synchronize()
         counts = launch_counts()
+        # two history passes over the traffic (a histogram's quantiles
+        # need a window: its first pass is the reference)
+        deadline = time.monotonic() + 3 * history.HISTORY.interval_s + 5
+        while history.HISTORY.samples < samples_before + 3 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
         addr = f"127.0.0.1:{server.port}"
         snap = flight.fetch(addr, path="/debug/serve")
         ledger = flight.fetch(addr, path="/debug/serve/ledger")
         headroom = flight.fetch(addr, path="/debug/serve/headroom")
+        prof = flight.fetch(addr, path="/debug/profile")
+        hist = flight.fetch(addr, path="/debug/history")
     finally:
         t0 = time.monotonic()
         service.stop()
         stop_s = time.monotonic() - t0
         server.stop()
+        profiler.PROFILER.stop()
     require(stop_s < 5.0, f"phase 11: stop() took {stop_s:.2f} s")
+    require(prof["samples"] > 0 and "serve-scheduler" in prof["threads"],
+            f"phase 11: /debug/profile took {prof['samples']} samples of "
+            f"threads {sorted(prof['threads'])}, not the step loop's")
+    require("jax" not in prof, "phase 11: /debug/profile carries a jax block")
+    missing = [name for name in WIRE_HISTORY_SERIES
+               if not hist["series"].get(name, {}).get("raw")]
+    require(not missing, f"phase 11: /debug/history after "
+            f"{hist['samples']} samples lacks {missing}")
+    require(isinstance(headroom.get("trendAnomalies"), list),
+            f"phase 11: trendAnomalies {headroom.get('trendAnomalies')!r}")
     log(f"[wire] launches during the phase: {counts}")
     for name in SERVE_KERNELS:
         require(counts[name] > 0,
@@ -2074,24 +2140,44 @@ def phase_wire(params, cfg, serve: dict, smi: str) -> dict:
     # iterations that ended inside it (now_s is on the clients' clock)
     in_step = sum(e["total_s"] for e in entries
                   if t_start <= e["now_s"] <= t_last)
+    loop_sites = prof["threads"]["serve-scheduler"][:3]
     out = {
         "requests": len(plain), "generated_tokens": streamed,
         "wall_s": wall, "tokens_per_s": streamed / wall,
         "plain_tokens_per_s": serve["runs"]["plain"]["tokens_per_s"],
+        "plain_ttft_p50_s": serve["runs"]["plain"]["ttft_p50_s"],
         "wire_ttft_p50_s": nearest_rank(ttfts, 0.50),
         "wire_ttft_p99_s": nearest_rank(ttfts, 0.99),
+        "profile_overhead_ratio": prof["overheadRatio"],
+        "profile_samples": prof["samples"],
+        "step_loop_top_sites": loop_sites,
+        "history_samples": hist["samples"],
+        "history_series": len(hist["series"]),
+        "trend_anomalies": headroom["trendAnomalies"],
         "iterations": len(entries), "ledger_mean_ms": mean_ms,
         "ledger_total_ms": total_ms, "in_step_share": in_step / wall,
         "stop_s": stop_s, "hung_up_tokens": len(hung_req.tokens),
         "cancel_after_hangup_s": cancel_at[0] - hung["t_end"],
         "launches": counts,
     }
-    log(f"[wire] {len(plain)} streams over HTTP: wire TTFT p50 "
-        f"{out['wire_ttft_p50_s'] * 1e3:.1f} ms, p99 "
-        f"{out['wire_ttft_p99_s'] * 1e3:.1f} ms; {streamed} tokens in "
-        f"{wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s over the wire "
-        f"(phase 5 plain, in process: {out['plain_tokens_per_s']:.1f}); "
-        f"on {smi}")
+    log(f"[wire] {len(plain)} streams over HTTP, profiler and history "
+        f"armed: wire TTFT p50 {out['wire_ttft_p50_s'] * 1e3:.1f} ms, p99 "
+        f"{out['wire_ttft_p99_s'] * 1e3:.1f} ms (phase 5 plain, in process: "
+        f"TTFT p50 {out['plain_ttft_p50_s'] * 1e3:.1f} ms); {streamed} "
+        f"tokens in {wall:.3f} s = {out['tokens_per_s']:.1f} tokens/s over "
+        f"the wire (phase 5 plain, in process: "
+        f"{out['plain_tokens_per_s']:.1f}; a prior run of this phase "
+        f"without the planes: {WIRE_PRIOR_TOKENS_PER_S} tokens/s); on "
+        f"{smi}")
+    log(f"[wire] tpu_profile_overhead_ratio {prof['overheadRatio']:.6f} "
+        f"over {prof['samples']} samples ({prof['sampleCostS']:.4f} s of "
+        f"sampling in {prof['elapsedS']:.3f} s); the step loop's "
+        f"(serve-scheduler) top sites by self samples: "
+        + "; ".join(f"{r['site']} self {r['self']} total {r['total']}"
+                    for r in loop_sites)
+        + f"; /debug/history: {hist['samples']} samples, "
+        f"{len(hist['series'])} series; trendAnomalies "
+        f"{headroom['trendAnomalies']}")
     log(f"[wire] ledger over {len(entries)} iterations, mean ms a phase: "
         + ", ".join(f"{k} {v:.3f}" for k, v in mean_ms.items())
         + f"; total {total_ms:.3f} (host clock; device time lands where "
@@ -2105,19 +2191,11 @@ def phase_wire(params, cfg, serve: dict, smi: str) -> dict:
     return out
 
 
-def profile_window(params, cfg) -> None:
-    """Where a serving iteration's time goes at the flagship shape: the
-    device's busy time (torch.profiler's kernel times) per decode
-    iteration of 8 slots holding 512-token prompts, per verify iteration
-    of the same 8 slots at width 5 (4 drafts each), and per 256-token
-    prefill chunk, beside the same work's wall time without the profiler.
-    A measurement, not a check: prints "not measured" when the profiler
-    sees no device time."""
-    from dpu_operator_tpu_torch.workloads.serve import (Request,
-                                                        TorchSlotExecutor)
-    ex = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
-                           spec_k=4, device="cuda")
-    rng = np.random.default_rng(99)
+def _held_slots(ex, cfg, rng) -> list:
+    """Fill the 8 slots of *ex* with 512-token prompts drawn from *rng*
+    (two chunks of 256 each): the ``(slot, request)`` pairs of a full
+    decode batch."""
+    from dpu_operator_tpu_torch.workloads.serve import Request
     active = []
     for slot in range(8):
         ids = tuple(int(t) for t in rng.integers(0, cfg.vocab, 512))
@@ -2126,6 +2204,23 @@ def profile_window(params, cfg) -> None:
         ex.prefill_chunk(req, slot, 0, 256)
         ex.prefill_chunk(req, slot, 256, 256)
         active.append((slot, req))
+    return active
+
+
+def profile_window(params, cfg) -> dict:
+    """Where a serving iteration's time goes at the flagship shape: the
+    device's busy time (torch.profiler's kernel times) per decode
+    iteration of 8 slots holding 512-token prompts, per verify iteration
+    of the same 8 slots at width 5 (4 drafts each), and per 256-token
+    prefill chunk, beside the same work's wall time without the profiler.
+    A measurement, not a check: prints "not measured" when the profiler
+    sees no device time. Returns :func:`profile_calls`' numbers by
+    label."""
+    from dpu_operator_tpu_torch.workloads.serve import TorchSlotExecutor
+    ex = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
+                           spec_k=4, device="cuda")
+    rng = np.random.default_rng(99)
+    active = _held_slots(ex, cfg, rng)
     drafts = {slot: [int(t) for t in rng.integers(0, cfg.vocab, 4)]
               for slot in range(8)}
     work = {"decode iteration (8 slots)": lambda: ex.step(active),
@@ -2133,8 +2228,8 @@ def profile_window(params, cfg) -> None:
                 lambda: ex.spec_step(active, drafts),
             "prefill chunk (256 tokens)":
                 lambda: ex.prefill_chunk(active[0][1], 0, 0, 256)}
-    for label, fn in work.items():
-        profile_calls(label, fn, 10)
+    return {label: profile_calls(label, fn, 10)
+            for label, fn in work.items()}
 
 
 def device_times(fn, n: int) -> dict:
@@ -2160,11 +2255,12 @@ def device_times(fn, n: int) -> dict:
     return by_kernel
 
 
-def profile_calls(label: str, fn, n: int, warmup: int = 3) -> None:
+def profile_calls(label: str, fn, n: int, warmup: int = 3) -> dict:
     """Wall time per call of *fn* without the profiler, then the device's
     busy time per call (:func:`device_times`), its idle share and the
     largest device items. A measurement, not a check: prints "not
-    measured" when the profiler sees no device time."""
+    measured" when the profiler sees no device time. Returns ``{"wall_ms",
+    "busy_ms"}``, ``busy_ms`` None where not measured."""
     import torch
     for _ in range(warmup):
         fn()
@@ -2179,18 +2275,19 @@ def profile_calls(label: str, fn, n: int, warmup: int = 3) -> None:
     except RuntimeError as e:
         log(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy "
             f"not measured (profiler failed: {e})")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None}
     busy_ms = sum(by_kernel.values())
     if busy_ms <= 0:
         log(f"[profile] {label}: wall {wall_ms:.3f} ms; device busy "
             "not measured (the profiler saw no device time)")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None}
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, device idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         log(f"[profile]   {ms:8.4f} ms/call  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2845,6 +2942,297 @@ def phase_wide(cfg) -> dict:
     return counts
 
 
+# -- phase 12 -----------------------------------------------------------------
+#: phase 12's expert count: what ``__graft_entry__.py`` gives at a model
+#: axis of 4 (``2 * model_axis``)
+MOE_EXPERTS = 8
+#: phase 12 (a): the tiny fp32 MoE config of tests/test_decode.py:71-84,
+#: whose capacity factor 8 covers every chunk and prompt
+MOE_TINY = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+                max_seq=32, moe_experts=4, moe_capacity_factor=8.0)
+#: phase 12 (a): the tiny MoE's fp32 forward logits and aux, card against
+#: CPU (summation order only: the same tolerance as phase 4's logits)
+MOE_TINY_TOL = 1e-3
+#: phase 12 (b): a capacity factor that covers every chunk of 256, every
+#: prompt of generate's whole prefill and every decode step
+MOE_COVER = 8.0
+#: phase 12's main path must launch each of these: the tiny fp32 MoE's
+#: forward, the bf16 serving and training kernels and the KV8 decode kernel
+MOE_KERNELS = (("attention_fwd_tf32",) + SERVE_KERNELS + TRAIN_KERNELS
+               + ("attention_kv8_rows",))
+
+
+def _moe_tiny_parity() -> None:
+    """Phase 12 (a): the tiny fp32 MoE on the card against the CPU from
+    the same weights: 2 x 20 greedy tokens equal, forward logits and the
+    aux loss within :data:`MOE_TINY_TOL`; then 4 requests served on 2
+    slots with chunks of 8 on the card, every stream equal to
+    ``generate``."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import generate
+    from dpu_operator_tpu_torch.workloads.model import (
+        TransformerConfig, forward, init_params)
+    from dpu_operator_tpu_torch.workloads.train import map_params
+    cfg = TransformerConfig(dtype=torch.float32, **MOE_TINY)
+    p_cpu = init_params(3, cfg, device="cpu")
+    p_gpu = map_params(lambda t: t.cuda(), p_cpu)
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)))
+    s_cpu = generate(p_cpu, cfg, prompt, 20, device="cpu")
+    s_gpu = generate(p_gpu, cfg, prompt, 20, device="cuda").cpu()
+    require(torch.equal(s_cpu, s_gpu), f"tiny MoE: greedy streams differ "
+            f"card vs CPU:\n{s_cpu}\n{s_gpu}")
+    l_cpu, a_cpu = forward(p_cpu, prompt, cfg, return_aux=True)
+    l_gpu, a_gpu = forward(p_gpu, prompt, cfg, return_aux=True)
+    err = float((l_cpu - l_gpu.cpu()).abs().max())
+    aux_err = abs(float(a_cpu) - float(a_gpu))
+    log(f"[moe] tiny fp32 MoE ({cfg.moe_experts} experts, capacity factor "
+        f"{cfg.moe_capacity_factor}): 2x20 greedy tokens equal card vs CPU; "
+        f"forward logits max |diff| {err:.3g}, aux {float(a_gpu):.6f} "
+        f"(|diff| {aux_err:.3g}) (tol {MOE_TINY_TOL})")
+    require(err <= MOE_TINY_TOL and aux_err <= MOE_TINY_TOL,
+            f"tiny MoE: logits / aux card vs CPU differ by {err} / {aux_err}")
+    reqs = _requests(rng, 4, cfg.vocab, (3, 12), (4, 10))
+    sched, _ = _serve(p_gpu, cfg, reqs, slots=2, chunk=8, device="cuda")
+    _require_fault_free("tiny MoE serve", sched)
+    require(len(sched.completed) == len(reqs), "tiny MoE serve incomplete")
+    require(sched.pool.outstanding() == 0, "tiny MoE serve leaked KV blocks")
+    for r in reqs:
+        want = generate(p_gpu, cfg, torch.tensor([r.prompt]), r.output_len,
+                        device="cuda")[0].tolist()
+        require(r.tokens == want, f"tiny MoE serve {r.rid}: stream "
+                f"{r.tokens} != generate {want}")
+    log(f"[moe] tiny MoE served on the card: {len(reqs)} requests on 2 "
+        "slots, chunk 8, every stream equals generate")
+
+
+def _moe_serve(params, cfg, wbytes: int, dense: dict) -> dict:
+    """Phase 12 (b) and (c): phase 5's 16 requests (8 slots, chunks of
+    256) on the MoE flagship, at :data:`MOE_COVER` (each stream equal to
+    ``generate``'s, or off at a bf16 near-tie within the teacher-forced
+    margin, phase 5's rule: the batched GEMMs run at other row counts than
+    generate's) and twice at the config's capacity factor (every request
+    complete, no block leaked, the two runs' streams equal under ``==``);
+    then the decode iteration of 8 held slots profiled beside the dense
+    flagship's. Returns the runs' numbers."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import generate
+    from dpu_operator_tpu_torch.workloads.serve import (Request,
+                                                        TorchSlotExecutor)
+    reqs = _requests(np.random.default_rng(2026), 16, cfg.vocab, (128, 512),
+                     (32, 64))
+    generate(params, cfg, torch.tensor([reqs[0].prompt[:64]]), 4,
+             device="cuda")
+    torch.cuda.synchronize()
+
+    def fresh():
+        return [Request(rid=r.rid, prompt_len=r.prompt_len,
+                        output_len=r.output_len, prompt=r.prompt)
+                for r in reqs]
+
+    cover = dataclasses.replace(cfg, moe_capacity_factor=MOE_COVER)
+    runs, served = {}, {}
+    for label, c in (("cover", cover), ("default", cfg),
+                     ("default again", cfg)):
+        served[label] = fresh()
+        runs[label] = _serve_run(params, c, f"moe {label}", served[label],
+                                 wbytes)
+    equal, worst = 0, 0.0
+    for r in served["cover"]:
+        want = generate(params, cover, torch.tensor([r.prompt]),
+                        r.output_len, device="cuda")[0].tolist()
+        if r.tokens == want:
+            equal += 1
+            continue
+        margin = _margin(params, cover, r)
+        worst = max(worst, margin)
+        require(margin <= SERVE_LOGIT_TOL, f"moe cover {r.rid}: the stream "
+                f"leaves generate and a served token is {margin:.4f} below "
+                "the best logit")
+    log(f"[moe] capacity factor {MOE_COVER}: {equal} of {len(reqs)} streams "
+        f"equal generate token for token; the rest leave it at a bf16 "
+        f"near-tie (worst teacher-forced margin {worst:.4f}, tol "
+        f"{SERVE_LOGIT_TOL})")
+    again = {r.rid: r.tokens for r in served["default again"]}
+    diff = [r.rid for r in served["default"] if r.tokens != again[r.rid]]
+    require(not diff, f"moe at capacity factor {cfg.moe_capacity_factor}: "
+            f"streams of {diff} differ between two runs")
+    log(f"[moe] capacity factor {cfg.moe_capacity_factor}: every request "
+        "complete, no block leaked, and the two runs' streams equal under "
+        "==")
+    ex = TorchSlotExecutor(params, cfg, slots=8, chunk_tokens=256,
+                           device="cuda")
+    active = _held_slots(ex, cfg, np.random.default_rng(99))
+    prof = profile_calls("MoE decode iteration (8 slots)",
+                         lambda: ex.step(active), 10)
+    d_prof = dense["decode_iteration"]
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f} ms"
+
+    log(f"[moe] serve tokens/s at capacity factor {MOE_COVER} / "
+        f"{cfg.moe_capacity_factor} / again: "
+        + " / ".join(f"{run['tokens_per_s']:.1f}" for run in runs.values())
+        + f" (dense flagship, phase 5 plain: "
+        f"{dense['tokens_per_s']:.1f}); decode iteration of 8 slots: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {ms(prof['busy_ms'])} "
+        f"(dense: wall {d_prof['wall_ms']:.3f} ms, device busy "
+        f"{ms(d_prof['busy_ms'])})")
+    return {"runs": runs, "decode_iteration": prof,
+            "cover_streams_equal_generate": equal}
+
+
+def _moe_quant(params, cfg) -> None:
+    """Phase 12 (d): the W8A8 tree of the MoE flagship (every ``moe``
+    subtree left as it is): prefill logits correlated above 0.99 with
+    bf16 (phase 8's gate), and a W8A8 + KV8 ``decode_step`` loop whose
+    every step is finite and whose stream equals ``generate(kv_int8=
+    True)``."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.decode import (
+        decode_step, generate, prefill, quantize_decode_params)
+    qparams = quantize_decode_params(params)
+    for i, (ql, lp) in enumerate(zip(qparams["layers"], params["layers"])):
+        if "moe" in lp:
+            require(ql["moe"] is lp["moe"] and "w1" not in ql,
+                    f"moe quant: layer {i}'s experts were quantized")
+    rng = np.random.default_rng(88)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).cuda()
+    _, lb = prefill(params, cfg, prompt)
+    _, lq = prefill(qparams, cfg, prompt)
+    corr = float(np.corrcoef(lb.float().cpu().numpy().ravel(),
+                             lq.float().cpu().numpy().ravel())[0, 1])
+    require(corr > 0.99, f"moe W8A8 prefill logits correlate {corr} with "
+            "bf16")
+    steps = 32
+    want = generate(qparams, cfg, prompt, steps, device="cuda", kv_int8=True)
+    cache, logits = prefill(qparams, cfg, prompt, kv_int8=True)
+    pos = torch.full((2,), prompt.shape[1], dtype=torch.int32, device="cuda")
+    out = []
+    for i in range(steps):
+        require(bool(torch.isfinite(logits).all()),
+                f"moe W8A8 + KV8: non-finite logits at step {i}")
+        tok = logits.argmax(-1)
+        out.append(tok)
+        logits, cache = decode_step(qparams, cfg, cache, tok, pos + i)
+    require(torch.equal(torch.stack(out, 1), want), "moe: a W8A8 + KV8 "
+            "decode_step loop differs from generate(kv_int8=True)")
+    log(f"[moe] W8A8 tree (experts and routers unquantized): prefill logits "
+        f"(2 x 64 tokens) correlate {corr:.6f} with bf16 (gate > 0.99); a "
+        f"W8A8 + KV8 decode_step loop of {steps} steps over 2 rows, every "
+        "step finite, equals generate(kv_int8=True)")
+
+
+def _moe_train(cfg, dense: dict) -> dict:
+    """Phase 12 (e): ``measure_train`` of the MoE flagship at batch
+    :data:`FLAGSHIP_BATCH` x 1024 (phase 7's), a warm-up and two timed AdamW steps,
+    loss finite and falling; MFU counts active parameters
+    (``train_step_flops``). Then one step on a fresh state: every gradient
+    leaf finite and non-zero, the routers included; an expert that no
+    token reached (an all-zero slice of a stacked ``w1`` / ``w2``
+    gradient) is reported by name. Last, one profiled step."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       active_param_count,
+                                                       measure_train,
+                                                       param_count)
+    from dpu_operator_tpu_torch.workloads.train import (make_train_step,
+                                                        named_leaves)
+    batch = FLAGSHIP_BATCH
+    perf = measure_train(cfg, batch=batch, steps=2, device="cuda")
+    losses = perf.losses
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"moe train: losses {losses}")
+    log(f"[moe] train batch {batch}x{cfg.max_seq}: step {perf.step_ms:.2f} "
+        f"ms, {perf.tokens_per_s:.0f} tokens/s, MFU {perf.mfu:.4f} of "
+        f"{perf.peak_tflops:.0f} TFLOP/s counting "
+        f"{active_param_count(cfg) / 1e6:.1f}M active of "
+        f"{param_count(cfg) / 1e6:.1f}M parameters, peak memory "
+        f"{perf.peak_memory_bytes / 1e9:.2f} GB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (dense flagship, phase 7: step {dense['step_ms']:.2f} ms, MFU "
+        f"{dense['mfu']:.4f}, peak memory {dense['peak_memory_gb']:.2f} GB)")
+    step, init_state, place = make_train_step(cfg, device="cuda")
+    params, opt = init_state(1)
+    data = place(make_example_batch(cfg, batch=batch))
+    step(params, opt, data)
+    idle = []
+    for name, t in named_leaves(params):
+        require(t.grad is not None and bool(torch.isfinite(t.grad).all()),
+                f"moe train: gradient leaf {name} missing or non-finite")
+        require(float(t.grad.abs().max()) > 0,
+                f"moe train: gradient leaf {name} is all zero")
+        if ".moe.w" in name:
+            per_expert = t.grad.flatten(1).abs().amax(1)
+            idle += [f"{name}[{e}]" for e in
+                     (per_expert == 0).nonzero().flatten().tolist()]
+    leaves = named_leaves(params)
+    log(f"[moe] train: all {len(leaves)} gradient leaves finite and "
+        f"non-zero, the {sum('.moe.wg' in n for n, _ in leaves)} routers "
+        f"included; experts no token reached: {idle or 'none'}")
+    prof = profile_calls(f"MoE train step (batch {batch}x{cfg.max_seq})",
+                         lambda: step(params, opt, data), 2, warmup=1)
+    del params, opt
+    return {"batch": batch, "step_ms": perf.step_ms,
+            "tokens_per_s": perf.tokens_per_s, "mfu": perf.mfu,
+            "peak_memory_gb": perf.peak_memory_bytes / 1e9,
+            "losses": losses, "idle_experts": idle, "profiled_step": prof}
+
+
+def phase_moe(cfg, dense: dict) -> dict:
+    """Phase 12: the flagship with :data:`MOE_EXPERTS` experts (every
+    second layer's FFN a top-1 mixture: layers 1, 3, ..., 11; about 1.18B
+    parameters, 391.7M of them active a token; bf16, random weights from
+    seed 0): (a) :func:`_moe_tiny_parity`, (b, c) :func:`_moe_serve`, (d)
+    :func:`_moe_quant`, (e) :func:`_moe_train`. The launch counters are
+    set to 0 before (a) and read after (e); every kernel of
+    :data:`MOE_KERNELS` must have launched. *dense* holds the dense
+    flagship's numbers of this run, printed beside. Returns the phase's
+    numbers and launches."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.model import (init_params,
+                                                        param_bytes)
+    from dpu_operator_tpu_torch.workloads.perf import (active_param_count,
+                                                       param_count)
+    moe = dataclasses.replace(cfg, moe_experts=MOE_EXPERTS)
+    t0 = time.monotonic()
+    reset_launch_counts()
+    _moe_tiny_parity()
+    params = init_params(0, moe, device="cuda")
+    wbytes = param_bytes(params)
+    layers = [i for i in range(moe.n_layers) if moe.is_moe_layer(i)]
+    log(f"[moe] flagship with {MOE_EXPERTS} experts at layers {layers}, "
+        f"capacity factor {moe.moe_capacity_factor}: "
+        f"{param_count(moe) / 1e6:.1f}M parameters "
+        f"({active_param_count(moe) / 1e6:.1f}M active a token), "
+        f"{wbytes / 1e9:.2f} GB in bf16")
+    require(wbytes == 2 * param_count(moe), "moe: the tree's bytes are not "
+            "2 a parameter")
+    serve = _moe_serve(params, moe, wbytes, dense)
+    _moe_quant(params, moe)
+    del params
+    torch.cuda.empty_cache()
+    train = _moe_train(moe, dense)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[moe] launches of the phase ({time.monotonic() - t0:.1f} s): "
+        f"{counts}")
+    for name in MOE_KERNELS:
+        require(counts[name] > 0, f"phase 12: {name} never launched")
+    out = {"params": param_count(moe), "active": active_param_count(moe),
+           "serve": {k: {n: v for n, v in run.items() if n != "launches"}
+                     for k, run in serve["runs"].items()},
+           "decode_iteration": serve["decode_iteration"],
+           "cover_streams_equal_generate":
+               serve["cover_streams_equal_generate"],
+           "train": train, "seconds": time.monotonic() - t0}
+    log("[moe] " + json.dumps(out))
+    out["launches"] = counts
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2878,22 +3266,31 @@ def main(argv: list) -> int:
     # the serve, chaos and wire runs' launches
     counts = {k: serve["launches"][k] + chaos["launches"][k]
               + wire["launches"][k] for k in serve["launches"]}
-    profile_window(params, cfg)
+    window = profile_window(params, cfg)
     del params
     torch.cuda.empty_cache()
-    train_counts = phase_train(cfg)["launches"]
+    train = phase_train(cfg)
+    train_counts = train["launches"]
     torch.cuda.empty_cache()
     quant_counts = phase_quant(cfg)["launches"]
     torch.cuda.empty_cache()
     measure_counts = phase_measure(cfg)["launches"]
     torch.cuda.empty_cache()
     wide_counts = phase_wide(wide_config(cfg))
+    torch.cuda.empty_cache()
+    moe_counts = phase_moe(cfg, {
+        "tokens_per_s": serve["runs"]["plain"]["tokens_per_s"],
+        "decode_iteration": window["decode iteration (8 slots)"],
+        "step_ms": train["step_ms"], "mfu": train["mfu"],
+        "peak_memory_gb": train["peak_memory_gb"]})["launches"]
     # each kernel's launches on the main paths (phase 4's fp32 models, the
     # four serve runs, the two chaos runs, the wire run, the train run, the
-    # quantized phase and the measurement phase), each read from zero; a
-    # head-dim-256 case's from phase 10, the path of that head dim
+    # quantized phase, the measurement phase and the MoE phase), each read
+    # from zero; a head-dim-256 case's from phase 10, the path of that head
+    # dim
     counts = {k: counts[k] + parity_counts[k] + train_counts[k]
-              + quant_counts[k] + measure_counts[k] for k in counts}
+              + quant_counts[k] + measure_counts[k] + moe_counts[k]
+              for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"],

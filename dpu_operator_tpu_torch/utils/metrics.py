@@ -9,7 +9,9 @@ OpenMetrics exposition (counter families without ``_total``, a closing
 ``# EOF``), and :class:`MetricsServer` (``/metrics``, ``/healthz``,
 ``/debug``, ``/debug/flight`` and registered ``/debug/...`` handlers).
 Its registry holds only the families the serving path, its pool,
-watchdog, SLOs and flight ring touch; their names, types, buckets and
+watchdog, SLOs, flight ring, sampling profiler (``tpu_profile_*``),
+metrics history (``tpu_history_*``) and trend engine (``tpu_trend_*``)
+touch; their names, types, buckets and
 labels are the reference's letter for letter, since the operator's SLOs
 and telemetry read them. The bearer-token filter, the readiness and
 health-snapshot endpoints and every other family are left out.
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Optional, Sequence, TypeVar
@@ -233,6 +236,21 @@ class HistogramVec:
             out.extend(child._render(with_header=False,
                                      openmetrics=openmetrics))
         return out
+
+
+def bounded_label(value: object, allowed: Optional[set] = None,
+                  fallback: str = "other", max_len: int = 64) -> str:
+    """Clamp a label value derived from request or series data to a
+    bounded set before it becomes a metric label: with *allowed*,
+    membership (anything else collapses to *fallback*); without, a
+    charset and length clamp (characters other than ``[A-Za-z0-9._-]``
+    become ``_``). It clamps instead of refusing, because a metric bump
+    must never fail the work it accounts for."""
+    text = str(value)
+    if allowed is not None:
+        return text if text in allowed else fallback
+    text = re.sub(r"[^A-Za-z0-9._-]", "_", text[:max_len])
+    return text or fallback
 
 
 def _escape(v: object) -> str:
@@ -458,6 +476,67 @@ FLIGHT_DROPPED = REGISTRY.counter(
     "Flight-recorder events evicted by ring overflow, per kind — a "
     "storm that outruns the ring is visible here instead of silently "
     "overwriting history (tpuctl flight surfaces the same counts)")
+# -- runtime performance plane (utils/profiler.py) ---------------------------
+PROFILE_SAMPLES = REGISTRY.counter(
+    "tpu_profile_samples_total",
+    "Sampling-profiler stack walks taken (one per cadence tick, each "
+    "walking every live thread's current frame); served in aggregate "
+    "at /debug/profile and by tpuctl profile")
+PROFILE_DROPPED = REGISTRY.counter(
+    "tpu_profile_dropped_total",
+    "Profiler samples not aggregated because a bounded table (folded "
+    "stacks or per-thread site rows) was already full — the profiler "
+    "trades tail completeness for a hard memory bound")
+PROFILE_OVERHEAD = REGISTRY.gauge(
+    "tpu_profile_overhead_ratio",
+    "Self-metered profiler overhead: time spent walking/aggregating "
+    "frames divided by elapsed run time (the profile gate asserts "
+    "this stays under 0.02 on a busy scheduler loop)")
+PROFILE_TRACKED_SITES = REGISTRY.gauge(
+    "tpu_profile_tracked_sites",
+    "Distinct (thread, code site) rows currently held in the "
+    "profiler's bounded self/total tables")
+# -- metrics history plane (utils/history.py + utils/trend.py) ---------------
+HISTORY_SAMPLES = REGISTRY.counter(
+    "tpu_history_samples_total",
+    "Sampling passes taken by the in-process metrics history (one per "
+    "cadence tick, each reading every registered family into the "
+    "multi-resolution rings served at /debug/history)")
+HISTORY_SERIES = REGISTRY.gauge(
+    "tpu_history_series",
+    "Distinct time series currently tracked by the metrics history "
+    "(families expand per label set / quantile, bounded by the "
+    "series cap)")
+HISTORY_POINTS = REGISTRY.gauge(
+    "tpu_history_points",
+    "Total points currently held across every history ring at every "
+    "resolution — the memory-bound readout the history gate asserts "
+    "against under a 10k-sample storm")
+HISTORY_EVICTED = REGISTRY.counter(
+    "tpu_history_evicted_total",
+    "History points/series not kept, by reason (ring = oldest point "
+    "evicted by a full ring; series_cap = a new label set refused "
+    "because the series table was full) — bounded by construction, "
+    "never grown")
+TREND_EVALUATIONS = REGISTRY.counter(
+    "tpu_trend_evaluations_total",
+    "Trend-engine evaluation passes over the watched history series")
+TREND_SLOPE = REGISTRY.gauge(
+    "tpu_trend_slope",
+    "Per-series relative drift over the judgment window (signed: "
+    "positive = rising), by series — the raw signal the hysteresis "
+    "judges before any anomaly fires")
+TREND_ANOMALY = REGISTRY.gauge(
+    "tpu_trend_anomaly",
+    "1 while a watched series is in the anomalous state (drift past "
+    "the threshold in its bad direction for escalate_after "
+    "consecutive evaluations, not yet cleared through hold-down), "
+    "by series")
+TREND_TRANSITIONS = REGISTRY.counter(
+    "tpu_trend_transitions_total",
+    "Committed trend state transitions by series and target state "
+    "(anomaly / cleared) — each one also emits a TrendAnomaly / "
+    "TrendCleared Event and a kind=trend flight entry")
 # -- exception hygiene --------------------------------------------------------
 SWALLOWED_ERRORS = REGISTRY._add(_FlightRecordedCounter(
     "tpu_daemon_swallowed_errors_total",

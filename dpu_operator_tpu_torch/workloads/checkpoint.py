@@ -5,7 +5,9 @@ Port of ``dpu_operator_tpu/workloads/checkpoint.py::TrainCheckpointer``:
 *keep* checkpoints. Each step is one file, ``step_<N>.pt``, holding the
 parameters and the optimizer's ``state_dict`` (``torch.save``), written to
 a temporary name and renamed into place, so a crash mid-write leaves the
-previous checkpoints whole. There is no re-sharding: one card.
+previous checkpoints whole. A MoE tree's ``moe`` subtrees save and
+restore with the rest (``train.map_params`` / ``param_leaves``). There is
+no re-sharding: one card.
 """
 
 from __future__ import annotations

@@ -20,6 +20,14 @@ copy of it is made), and every norm through the fused RMSNorm kernel.
 Whole prefill with KV8 attends its fresh K / V in the model's type and
 stores them quantized, as the reference does.
 
+MoE layers route each batch row on its own (``moe.moe_ffn``): a decode
+step's slot (one token, capacity 8) never drops a token; a verify row
+routes its k + 1 tokens, a chunk its whole padded width C (the capacity
+comes from C, the padding after the real tokens, as the JAX
+``prefill_chunk`` routes), and whole prefill the prompt. So chunked
+prefill equals whole prefill only where the capacity covers the chunk,
+the caveat the JAX module states for its training forward.
+
 W8A8: each projection and the tied logits take an int8 x int8 -> int32
 product (``torch._int_mm``; the JAX package leaves its ``dot_general`` to
 XLA, outside any Pallas kernel) of per-token int8 activations against
@@ -63,14 +71,19 @@ def quantize_decode_params(params: dict) -> dict:
     ``quantize_decode_params``): the embedding (scale per vocab row,
     (V, 1)) and the four projections of every layer (scale (1, N)) become
     ``{"q": int8, "scale": fp32}`` leaves; norms and ``pos`` stay in the
-    model's type. On the tree's device."""
+    model's type, and so do a MoE layer's router and experts (``moe``, as
+    the JAX tree keeps them: the routed activations are small and
+    data-dependent). On the tree's device."""
     out = {"embed": _quantize_weight(params["embed"], axis=1),
            "pos": params["pos"], "out_norm": params["out_norm"],
            "layers": []}
     for lp in params["layers"]:
         ql = {"ln1": lp["ln1"], "ln2": lp["ln2"]}
         for name in PROJECTIONS:
-            ql[name] = int8_weight(**_quantize_weight(lp[name]))
+            if name in lp:
+                ql[name] = int8_weight(**_quantize_weight(lp[name]))
+        if "moe" in lp:
+            ql["moe"] = lp["moe"]
         out["layers"].append(ql)
     return out
 
@@ -184,7 +197,7 @@ def _hidden(params: dict, cfg: TransformerConfig, cache: list,
             return attention_fwd_kv8(q, kv["k_q"], kv["k_s"], kv["v_q"],
                                      kv["v_s"], pos, causal=True)
 
-        x = layer(x, lp, cfg, attend)
+        x, _ = layer(x, lp, cfg, attend)
     return fused_rmsnorm(x, params["out_norm"])
 
 

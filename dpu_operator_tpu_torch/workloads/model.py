@@ -10,15 +10,19 @@ Every norm is the fused RMSNorm kernel and every attention of
 ``attention="standard"`` and ``"flash"`` run the same kernels: they compute
 the same function. Both are differentiable on the CPU and on the card
 (``RmsNormFn``, ``FlashAttentionFn``); the training step is
-``workloads/train.py``. The sharded and long-context modes and MoE layers
-are not ported yet.
+``workloads/train.py``. MoE layers (``cfg.moe_experts > 0``: every
+``moe_every``-th layer's FFN a top-1 routed mixture, ``workloads/moe.py``)
+run in the one :func:`layer` that forward, decode, verify and both
+prefills share. The sharded and long-context modes are not ported yet.
 
 Parameters are a plain dict shaped like the JAX tree: ``embed (V, D)``,
 ``pos (max_seq, D)``, ``out_norm (D,)`` and ``layers``, a list of dicts
-with ``ln1, wqkv (D, 3D), wo (D, D), ln2, w1 (D, F), w2 (F, D)``. The
-serving path's int8 tree (``decode.quantize_decode_params``) has the same
-shape with ``{"q": int8, "scale": fp32}`` leaves for ``embed`` and the four
-projections; :func:`layer` multiplies through :func:`_mm`, which takes the
+with ``ln1, wqkv (D, 3D), wo (D, D), ln2, w1 (D, F), w2 (F, D)``; a MoE
+layer holds ``moe: {wg (D, E), w1 (E, D, F), w2 (E, F, D)}`` in place of
+``w1`` and ``w2``. The serving path's int8 tree
+(``decode.quantize_decode_params``) has the same shape with ``{"q": int8,
+"scale": fp32}`` leaves for ``embed`` and the projections (a MoE layer's
+subtree stays in the model's type); :func:`layer` multiplies through :func:`_mm`, which takes the
 W8A8 product for such a leaf, so decode runs the same block over either
 tree.
 """
@@ -35,10 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..ops import flash_attention_vjp, fused_rmsnorm
+from .moe import init_moe_params, moe_ffn
 
 _UNPORTED = {
-    "ring": "ROADMAP queue 1, item 8: distributed modes",
-    "ulysses": "ROADMAP queue 1, item 8: distributed modes",
+    "ring": "ROADMAP queue 1, item 7: distributed modes",
+    "ulysses": "ROADMAP queue 1, item 7: distributed modes",
 }
 
 
@@ -56,8 +61,17 @@ class TransformerConfig:
     #: recompute each layer on the backward pass (torch.utils.checkpoint,
     #: the port of jax.checkpoint): less activation memory, more FLOPs
     remat: bool = False
+    #: > 0 makes every ``moe_every``-th layer's FFN a top-1 routed mixture
+    #: of that many experts (``workloads/moe.py``)
     moe_experts: int = 0
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
     learning_rate: float = 1e-3
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe_experts > 0 and i % self.moe_every == (
+            self.moe_every - 1)
 
     @property
     def d_head(self) -> int:
@@ -79,9 +93,6 @@ def _check_supported(cfg: TransformerConfig) -> None:
                                   f"ported yet ({_UNPORTED[cfg.attention]})")
     if cfg.attention not in ("standard", "flash"):
         raise ValueError(f"unknown attention mode {cfg.attention!r}")
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE layers are not ported yet "
-                                  "(ROADMAP queue 1, item 7: MoE)")
 
 
 def _to_tensor(a: Any, dtype: torch.dtype,
@@ -103,7 +114,8 @@ def int8_weight(q: torch.Tensor, scale: torch.Tensor) -> dict:
     return {"q": q.t().contiguous().t(), "scale": scale}
 
 
-#: the projections of a layer (int8 leaves in a quantized tree)
+#: the projections of a layer (int8 leaves in a quantized tree; a MoE
+#: layer has no w1 / w2 of its own)
 PROJECTIONS = ("wqkv", "wo", "w1", "w2")
 
 
@@ -112,7 +124,8 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
     """The port's parameters from a JAX ``init_params`` tree whose leaves
     were converted with ``np.asarray``: same values, ``cfg.dtype``, on
     *device*. A quantized tree (``quantize_decode_params``) comes across as
-    it is: each ``{"q", "scale"}`` leaf keeps int8 and fp32."""
+    it is: each ``{"q", "scale"}`` leaf keeps int8 and fp32. A MoE layer's
+    ``moe`` subtree comes across in ``cfg.dtype``."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
@@ -127,13 +140,18 @@ def params_from_numpy(tree: dict, cfg: TransformerConfig,
         return int8_weight(q, scale) if projection \
             else {"q": q, "scale": scale}
 
+    def layer_of(lp: dict) -> dict:
+        out = {name: weight(a, name in PROJECTIONS)
+               for name, a in lp.items() if name != "moe"}
+        if "moe" in lp:
+            out["moe"] = {name: conv(a) for name, a in lp["moe"].items()}
+        return out
+
     return {
         "embed": weight(tree["embed"], projection=False),
         "pos": conv(tree["pos"]),
         "out_norm": conv(tree["out_norm"]),
-        "layers": [{name: weight(lp[name], name in PROJECTIONS) for name in
-                    ("ln1", "wqkv", "wo", "ln2", "w1", "w2")}
-                   for lp in tree["layers"]],
+        "layers": [layer_of(lp) for lp in tree["layers"]],
     }
 
 
@@ -142,7 +160,8 @@ def init_params(seed: int, cfg: TransformerConfig,
     """Random parameters from *seed*, drawn on *device* with a
     ``torch.Generator``: dense weights N(0, 1) / sqrt(fan_in) as in the JAX
     ``init_params`` (other numbers: torch's generator is not JAX's), norm
-    scales 1."""
+    scales 1. A MoE layer (``cfg.is_moe_layer``) draws its ``moe`` subtree
+    (:func:`~.moe.init_moe_params`) in place of ``w1`` and ``w2``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -160,10 +179,16 @@ def init_params(seed: int, cfg: TransformerConfig,
     params = {"embed": dense((cfg.vocab, d)),
               "pos": dense((cfg.max_seq, d)),
               "out_norm": ones(), "layers": []}
-    for _ in range(cfg.n_layers):
-        params["layers"].append({"ln1": ones(), "wqkv": dense((d, 3 * d)),
-                                 "wo": dense((d, d)), "ln2": ones(),
-                                 "w1": dense((d, f)), "w2": dense((f, d))})
+    for i in range(cfg.n_layers):
+        lp = {"ln1": ones(), "wqkv": dense((d, 3 * d)), "wo": dense((d, d)),
+              "ln2": ones()}
+        if cfg.is_moe_layer(i):
+            lp["moe"] = init_moe_params(gen, d, f, cfg.moe_experts,
+                                        cfg.dtype, dev)
+        else:
+            lp["w1"] = dense((d, f))
+            lp["w2"] = dense((f, d))
+        params["layers"].append(lp)
     return params
 
 
@@ -238,21 +263,30 @@ def logits_of(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 
 
 def layer(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
-          attend: Callable[..., torch.Tensor]) -> torch.Tensor:
-    """One pre-norm block on x (B, S, D). *attend(q, k, v)* maps the
-    layer's (B, S, H, Dh) projections to the attention output: over the
-    same tokens in :func:`forward`, over the KV cache in decode. Each
-    product with a projection is :func:`_mm`'s: ``@``, or W8A8 for an
-    int8 leaf."""
+          attend: Callable[..., torch.Tensor]) -> tuple:
+    """One pre-norm block on x (B, S, D): ``(x, aux)``, aux the MoE
+    layer's load-balancing loss (None for a dense layer). *attend(q, k,
+    v)* maps the layer's (B, S, H, Dh) projections to the attention
+    output: over the same tokens in :func:`forward`, over the KV cache in
+    decode. Each product with a projection is :func:`_mm`'s: ``@``, or
+    W8A8 for an int8 leaf. A MoE layer routes each of the B rows on its
+    own (``moe_ffn``), so a decode step's slots and a chunk's padded width
+    route as the JAX serving functions do."""
     h = fused_rmsnorm(x, lp["ln1"])
     o = attend(*split_heads(_mm(h, lp["wqkv"]), cfg))
     x = x + _mm(o.flatten(2), lp["wo"])
-    return x + mlp(fused_rmsnorm(x, lp["ln2"]), lp)
+    h = fused_rmsnorm(x, lp["ln2"])
+    if "moe" in lp:
+        out, aux = moe_ffn(lp["moe"], h, cfg.moe_capacity_factor)
+        return x + out, aux
+    return x + mlp(h, lp), None
 
 
-def forward(params: dict, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            return_aux: bool = False) -> "torch.Tensor | tuple":
     """Logits (B, S, V) fp32 for next-token prediction; tokens (B, S).
+    With *return_aux* also the sum of the MoE layers' load-balancing
+    losses (an fp32 scalar, 0 for a dense model), as the JAX ``forward``.
     Differentiable in every parameter; with ``cfg.remat`` each layer is
     recomputed on the backward pass."""
     _check_supported(cfg)
@@ -260,24 +294,29 @@ def forward(params: dict, tokens: torch.Tensor,
     tokens = tokens.to(params["embed"].device)
     # the position embedding is added before the cast, as in the JAX model
     x = (params["embed"][tokens] + params["pos"][:s]).to(cfg.dtype)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, lp, cfg, flash_attention_vjp,
-                           use_reentrant=False)
+            x, aux = checkpoint(layer, x, lp, cfg, flash_attention_vjp,
+                                use_reentrant=False)
         else:
-            x = layer(x, lp, cfg, flash_attention_vjp)  # causal
+            x, aux = layer(x, lp, cfg, flash_attention_vjp)  # causal
+        if aux is not None:
+            aux_total = aux_total + aux
     x = fused_rmsnorm(x, params["out_norm"])
-    return logits_of(x, params["embed"])
+    logits = logits_of(x, params["embed"])
+    return (logits, aux_total) if return_aux else logits
 
 
 def loss_fn(params: dict, batch: dict, cfg: TransformerConfig
             ) -> torch.Tensor:
-    """Mean next-token negative log-likelihood of the fp32 logits (JAX
-    ``loss_fn`` without the MoE term): batch holds ``tokens`` and
-    ``targets`` (B, S)."""
-    logits = forward(params, batch["tokens"], cfg)
+    """Mean next-token negative log-likelihood of the fp32 logits plus
+    ``cfg.moe_aux_weight`` times the MoE load-balancing loss (JAX
+    ``loss_fn``): batch holds ``tokens`` and ``targets`` (B, S)."""
+    logits, aux = forward(params, batch["tokens"], cfg, return_aux=True)
     targets = batch["targets"].to(logits.device).long()
-    return F.cross_entropy(logits.flatten(0, 1), targets.flatten())
+    nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten())
+    return nll + cfg.moe_aux_weight * aux
 
 
 def make_example_batch(cfg: TransformerConfig, batch: int = 8,

@@ -2,7 +2,8 @@
 throughput on the card.
 
 The port's trimmed copy of ``dpu_operator_tpu/workloads/perf.py``:
-``param_count``, ``train_step_flops``, ``attention_flops`` and
+``param_count``, ``active_param_count``, ``train_step_flops``,
+``attention_flops`` and
 ``FLAGSHIP_BATCH`` as there; :func:`measure_train`, timed with CUDA events
 after a warm-up step (a CUDA event pair around eagerly enqueued steps
 excludes nothing but the host's lead over the card); and
@@ -61,20 +62,38 @@ DECODE_PROMPT_LEN = 16
 
 
 def param_count(cfg: TransformerConfig) -> int:
-    """Parameters of the dense model (the port has no MoE layers yet)."""
-    per_layer = (2 * cfg.d_model                       # ln1, ln2
-                 + cfg.d_model * 3 * cfg.d_model       # wqkv
-                 + cfg.d_model * cfg.d_model           # wo
-                 + 2 * cfg.d_model * cfg.d_ff)         # w1, w2
-    return (cfg.vocab * cfg.d_model + cfg.max_seq * cfg.d_model
-            + cfg.d_model + cfg.n_layers * per_layer)
+    """Parameters of the model (JAX ``perf.param_count``): a MoE layer
+    counts its router and every expert."""
+    attn = (2 * cfg.d_model                            # ln1, ln2
+            + cfg.d_model * 3 * cfg.d_model            # wqkv
+            + cfg.d_model * cfg.d_model)               # wo
+    dense_ffn = 2 * cfg.d_model * cfg.d_ff             # w1, w2
+    total = cfg.vocab * cfg.d_model + cfg.max_seq * cfg.d_model + cfg.d_model
+    for i in range(cfg.n_layers):
+        total += attn
+        if cfg.is_moe_layer(i):
+            total += (cfg.d_model * cfg.moe_experts        # router
+                      + cfg.moe_experts * dense_ffn)       # expert w1 / w2
+        else:
+            total += dense_ffn
+    return total
+
+
+def active_param_count(cfg: TransformerConfig) -> int:
+    """Parameters each token multiplies against (JAX
+    ``perf.active_param_count``): :func:`param_count` for a dense model;
+    a top-1 MoE layer counts its router and one expert."""
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    return param_count(cfg) - n_moe * max(cfg.moe_experts - 1, 0) \
+        * 2 * cfg.d_model * cfg.d_ff
 
 
 def train_step_flops(cfg: TransformerConfig, batch: int, seq: int) -> float:
-    """Model FLOPs of one forward + backward step: 6 per parameter per
-    token, plus causal attention (6 * layers * B * S^2 * D)."""
+    """Model FLOPs of one forward + backward step: 6 per active parameter
+    (:func:`active_param_count`) per token, plus causal attention (6 *
+    layers * B * S^2 * D)."""
     tokens = batch * seq
-    return (6.0 * param_count(cfg) * tokens
+    return (6.0 * active_param_count(cfg) * tokens
             + 6.0 * cfg.n_layers * batch * seq * seq * cfg.d_model)
 
 
@@ -176,6 +195,18 @@ def measure_train(cfg: TransformerConfig, batch: int = FLAGSHIP_BATCH,
         else None)
 
 
+#: :func:`_marginal_step_s`: how many times a round's repeats are run
+#: before the round gives no slope (under six concurrent CPU runs a round
+#: of chains 4 and 8 long still crossed after 4)
+SLOPE_TRIES = 8
+#: :func:`_marginal_step_s`: a slope at or below this share of the short
+#: chain's time an iteration (fixed costs included) is a stalled short
+#: chain. Low, because a loaded host inflates the short chain's time far
+#: more than the slope: under six concurrent CPU runs a sound slope read
+#: 1/37 of it
+SLOPE_FLOOR_FRAC = 1.0 / 256
+
+
 def _marginal_step_s(make_chained: Callable[[int], Callable[[], None]],
                      n_short: int, n_long: int, repeats: int,
                      best_of: int) -> float:
@@ -185,13 +216,25 @@ def _marginal_step_s(make_chained: Callable[[int], Callable[[], None]],
     they are done. Both lengths run once to warm up, then *repeats* times
     interleaved (short, long, ...); the slope of the two minima, ``(min
     long - min short) / (n_long - n_short)``, cancels every fixed cost of
-    a call. The least of *best_of* such slopes."""
+    a call. The least of *best_of* such slopes.
+
+    Where this differs from the JAX helper: a slope at or below
+    :data:`SLOPE_FLOOR_FRAC` of the short chain's minimum over *n_short*
+    (crossed minima, where the slope is not positive, included) is a host
+    that stalled the short runs, not a measurement. The JAX helper clamps
+    a non-positive slope to 1e-9 s and keeps a barely positive one, and
+    either then reads as a step thousands of times faster than the card's
+    bound. Here such a round runs its *repeats* again, its minima taken
+    over every run so far, up to :data:`SLOPE_TRIES` times; a round whose
+    slope is still refused gives none, and ``ValueError`` is raised only
+    if no round of *best_of* gives one. On a quiet host each round's first
+    *repeats* stand, so the chain lengths and the minimum of slopes mean
+    what they mean in the JAX helper."""
     fn_short, fn_long = make_chained(n_short), make_chained(n_long)
     fn_short()
     fn_long()
-    best = float("inf")
-    for _ in range(max(1, best_of)):
-        shorts, longs = [], []
+
+    def run(shorts: list, longs: list) -> None:
         for _ in range(repeats):
             t0 = time.perf_counter()
             fn_short()
@@ -199,8 +242,23 @@ def _marginal_step_s(make_chained: Callable[[int], Callable[[], None]],
             t0 = time.perf_counter()
             fn_long()
             longs.append(time.perf_counter() - t0)
-        best = min(best, max((min(longs) - min(shorts))
-                             / (n_long - n_short), 1e-9))
+
+    best, refused = float("inf"), []
+    for _ in range(max(1, best_of)):
+        shorts, longs = [], []
+        for _ in range(SLOPE_TRIES):
+            run(shorts, longs)
+            s = (min(longs) - min(shorts)) / (n_long - n_short)
+            if s > SLOPE_FLOOR_FRAC * min(shorts) / n_short:
+                best = min(best, s)
+                break
+            refused.append(s)
+    if best == float("inf"):
+        raise ValueError(
+            f"collapsed slope: every one of {len(refused)} tries of chains "
+            f"of {n_short} and {n_long} iterations read at or below "
+            f"{SLOPE_FLOOR_FRAC} of the short chain's time an iteration "
+            f"(slopes {refused} s)")
     return best
 
 
@@ -273,8 +331,8 @@ def measure_decode(cfg: TransformerConfig, batch: int = 8, steps: int = 64,
     The roofline: a step streams every parameter byte (the real leaf
     widths of the tree) and the K / V of the keys its rows admit (2 bytes
     an element in the model's type, ``1 + 4 / d_head`` with KV8), over
-    the card's HBM rate, and takes ``2 * params * batch + 4 * layers *
-    batch * keys * d_model`` FLOPs at its rate for ``cfg.dtype``
+    the card's HBM rate, and takes ``2 * active params * batch + 4 *
+    layers * batch * keys * d_model`` FLOPs at its rate for ``cfg.dtype``
     (``CARD_PEAKS``, by the exact device name; an unknown card raises).
     ``keys`` is the mean over the slope's steps (the ones the long chain
     runs beyond the short one) of the keys a row at that position admits:
@@ -320,7 +378,7 @@ def measure_decode(cfg: TransformerConfig, batch: int = 8, steps: int = 64,
     kv_width = (1.0 + 4.0 / cfg.d_head) if kv_int8 else 2.0
     kv_bytes = 2.0 * cfg.n_layers * keys * cfg.d_model * kv_width * batch
     hbm_s = (param_bytes(params) + kv_bytes) / hbm
-    flops = (2.0 * param_count(cfg) * batch
+    flops = (2.0 * active_param_count(cfg) * batch
              + 4.0 * cfg.n_layers * batch * keys * cfg.d_model)
     compute_s = flops / rate
     min_s = max(hbm_s, compute_s)

@@ -52,12 +52,12 @@ call sites, and :meth:`Scheduler.snapshot`, :meth:`Scheduler.headroom` and
 steps the scheduler from a thread of its own, serves those views as
 ``/debug/serve``, ``/debug/serve/ledger`` and ``/debug/serve/headroom``,
 and streams ``POST /v1/generate`` over chunked HTTP, one token a flush
-(:meth:`DecodeService.start_http`).
-
-Not ported yet: the reference's profiler, metrics history and trend
-planes, which ``DecodeService.start`` arms there, with ``/debug/profile``
-and ``/debug/history``; the headroom digest's ``trendAnomalies`` is empty
-until then.
+(:meth:`DecodeService.start_http`). As the reference's, its ``start``
+also arms the performance and history planes: the sampling profiler
+(``utils/profiler.py``, ``/debug/profile``), the metrics-history rings
+over the serving families (``utils/history.py``, ``/debug/history``) and
+the trend engine judging them (``utils/trend.py``), whose anomalies the
+headroom digest carries as ``trendAnomalies``.
 """
 
 from __future__ import annotations
@@ -80,7 +80,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..utils import flight, metrics, slo, tracing, validate, watchdog
+from ..utils import (flight, history, metrics, profiler, slo, tracing,
+                     trend, validate, watchdog)
 from ..utils.resilience import RetryPolicy
 from ..utils.stats import nearest_rank
 from . import degrade
@@ -1759,7 +1760,8 @@ class Scheduler:
         """The headroom digest's scheduler-owned dimensions: free
         capacity, the prefill backlog, the queues and the reusable prefix
         KV, with a sequence and a stamp. :meth:`DecodeService.headroom`
-        folds in the SLO alerts and the fault-gate capacity."""
+        folds in the SLO alerts, the fault-gate capacity and the trend
+        engine's anomalies."""
         with self._state_lock:
             cap = self.capacity()
             backlog = self._prefill_backlog()
@@ -1854,9 +1856,10 @@ class DecodeService:
     snapshot, ledger and headroom digest as ``/debug/serve*`` handlers of a
     :class:`~..utils.metrics.MetricsServer`, and a streaming HTTP ingress
     (:meth:`start_http`): chunked responses, one token a flush, W3C trace
-    context adopted from the caller, so TTFT is measured at the wire. The
-    reference's profiler, metrics history and trend planes are not ported
-    yet: the digest carries ``trendAnomalies: []``."""
+    context adopted from the caller, so TTFT is measured at the wire; and,
+    while started, the process-global sampling profiler, metrics history
+    and trend engine (``/debug/profile``, ``/debug/history``, the digest's
+    ``trendAnomalies``)."""
 
     def __init__(self, scheduler: Scheduler,
                  idle_interval_s: float = 0.05,
@@ -1895,13 +1898,16 @@ class DecodeService:
     def debug_handlers(self) -> dict:
         return {"/debug/serve": self.scheduler.snapshot,
                 "/debug/serve/ledger": self.scheduler.ledger.snapshot,
-                "/debug/serve/headroom": self.headroom}
+                "/debug/serve/headroom": self.headroom,
+                "/debug/profile": profiler.debug_handler,
+                "/debug/history": history.debug_handler}
 
     def headroom(self) -> dict:
         """The replica's headroom digest: the scheduler's dimensions, the
-        firing serve SLO alerts and the fault-gate capacity (the record a
-        router scores replicas by); refreshes the folded dimensions'
-        ``tpu_serve_headroom`` gauges."""
+        firing serve SLO alerts, the fault-gate capacity and the trend
+        engine's anomalous series (the record a router scores replicas
+        by); refreshes the folded dimensions' ``tpu_serve_headroom``
+        gauges."""
         digest = self.scheduler.headroom()
         alerts = [{"slo": name, "severity": severity}
                   for name, severity in self._evaluator().active_alerts()
@@ -1910,12 +1916,14 @@ class DecodeService:
         fault_capacity = (self.fault_capacity_fn()
                           if self.fault_capacity_fn is not None else None)
         digest["faultGateCapacity"] = fault_capacity
-        digest["trendAnomalies"] = []
+        anomalies = trend.TREND.anomalies()
+        digest["trendAnomalies"] = anomalies
         metrics.SERVE_HEADROOM.set(float(len(alerts)),
                                    dimension="slo_alerts_firing")
         metrics.SERVE_HEADROOM.set(float(fault_capacity or 0),
                                    dimension="fault_gate_capacity")
-        metrics.SERVE_HEADROOM.set(0.0, dimension="trend_anomalies")
+        metrics.SERVE_HEADROOM.set(float(len(anomalies)),
+                                   dimension="trend_anomalies")
         return digest
 
     # -- streaming ingress ----------------------------------------------------
@@ -2072,7 +2080,9 @@ class DecodeService:
 
     def start(self) -> None:
         """Start the step loop: registers the ``serve.scheduler``
-        heartbeat (60 s a step) and bounds the scheduler's history."""
+        heartbeat (60 s a step), bounds the scheduler's history, starts
+        the global sampling profiler, wires the serving families and their
+        trend watches onto the global history and starts its sampler."""
         if self._thread is not None:
             return
         self._stop.clear()
@@ -2081,6 +2091,10 @@ class DecodeService:
                 "serve.scheduler", deadline=60.0)
         if self.scheduler.history_limit is None:
             self.scheduler.history_limit = 4096
+        profiler.PROFILER.start()
+        history.register_serving_families()
+        trend.register_serving_watches()
+        history.HISTORY.start()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-scheduler")
         self._thread.start()
@@ -2099,8 +2113,10 @@ class DecodeService:
                 self._stop.wait(self.idle_interval_s)
 
     def stop(self) -> None:
-        """Close the ingress, stop the step loop and join both threads
-        (each join bounded at 5 s), then close the heartbeat."""
+        """Close the ingress, stop the history sampler and the step loop
+        and join the threads (each join bounded at 5 s, the sampler's at
+        2 s), then close the heartbeat. The profiler keeps sampling, as
+        the reference's does: it is the process's, not the service's."""
         http, self._http = self._http, None
         if http is not None:
             http.shutdown()
@@ -2109,6 +2125,7 @@ class DecodeService:
             self._http_thread.join(timeout=5)
             self._http_thread = None
         self._stop.set()
+        history.HISTORY.stop()
         thread, self._thread = self._thread, None
         if thread is not None:
             thread.join(timeout=5)

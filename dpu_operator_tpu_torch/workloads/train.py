@@ -24,21 +24,42 @@ from .. import resolve_device
 from .model import TransformerConfig, init_params, loss_fn
 
 
+def _map_layer(fn, lp: dict) -> dict:
+    out = {n: fn(t) for n, t in lp.items() if n != "moe"}
+    if "moe" in lp:
+        out["moe"] = {n: fn(t) for n, t in lp["moe"].items()}
+    return out
+
+
 def map_params(fn, params: dict) -> dict:
-    """The parameter tree with *fn* applied to every leaf."""
+    """The parameter tree with *fn* applied to every leaf (a MoE layer's
+    ``moe`` subtree included)."""
     return {"embed": fn(params["embed"]), "pos": fn(params["pos"]),
             "out_norm": fn(params["out_norm"]),
-            "layers": [{n: fn(t) for n, t in lp.items()}
-                       for lp in params["layers"]]}
+            "layers": [_map_layer(fn, lp) for lp in params["layers"]]}
 
 
 def param_leaves(params: dict) -> list:
     """Every parameter tensor in a fixed order: embed, pos, out_norm, then
-    each layer's ln1, wqkv, wo, ln2, w1, w2."""
-    out = [params["embed"], params["pos"], params["out_norm"]]
-    for lp in params["layers"]:
-        out.extend(lp[name] for name in ("ln1", "wqkv", "wo", "ln2", "w1",
-                                         "w2"))
+    each layer's ln1, wqkv, wo, ln2 and w1, w2, or a MoE layer's router
+    and experts ``moe.wg``, ``moe.w1``, ``moe.w2``."""
+    return [t for _, t in named_leaves(params)]
+
+
+def named_leaves(params: dict) -> list:
+    """``(name, tensor)`` of :func:`param_leaves`, in its order: names such
+    as ``layers.3.moe.wg`` (how a guard reports a leaf)."""
+    out = [("embed", params["embed"]), ("pos", params["pos"]),
+           ("out_norm", params["out_norm"])]
+    for i, lp in enumerate(params["layers"]):
+        for name in ("ln1", "wqkv", "wo", "ln2"):
+            out.append((f"layers.{i}.{name}", lp[name]))
+        if "moe" in lp:
+            out.extend((f"layers.{i}.moe.{name}", lp["moe"][name])
+                       for name in ("wg", "w1", "w2"))
+        else:
+            out.extend((f"layers.{i}.{name}", lp[name])
+                       for name in ("w1", "w2"))
     return out
 
 

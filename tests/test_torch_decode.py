@@ -267,9 +267,8 @@ def test_default_device_is_cuda_and_raises_without_it(f32, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(attention="ring"), "not ported"),
-    (dict(attention="ulysses"), "not ported"),
-    (dict(moe_experts=4), "MoE"),
+    (dict(attention="ring"), r"not ported yet \(ROADMAP queue 1, item 7"),
+    (dict(attention="ulysses"), r"not ported yet \(ROADMAP queue 1, item 7"),
 ])
 def test_unported_modes_raise(change, match):
     import dataclasses

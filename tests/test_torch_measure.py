@@ -545,3 +545,110 @@ def test_bench_torch_on_a_card_without_an_nvidia_smi_line_exits_1(
     rec = json.loads(capsys.readouterr().out)
     assert rec["device"] == "a card" and rec["nvidia_smi"] is None
     assert set(rec["errors"]) == {"nvidia_smi"}
+
+
+# -- the two-length slope on a loaded host ------------------------------------
+
+class _ScriptedChains:
+    """``make_chained`` over a fake clock: each call of a chain of n
+    iterations advances the clock by the next duration scripted for n (the
+    last one repeating), so a test sets the minima of the short and the
+    long chains try by try, with no wall time."""
+
+    def __init__(self, script: dict) -> None:
+        self.now = 0.0
+        self.script = {n: list(d) for n, d in script.items()}
+        self.calls = {n: 0 for n in script}
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def __call__(self, n: int):
+        def go() -> None:
+            durations = self.script[n]
+            self.now += durations[min(self.calls[n], len(durations) - 1)]
+            self.calls[n] += 1
+        return go
+
+
+def _slope_with(monkeypatch, script, **kw):
+    chains = _ScriptedChains(script)
+    monkeypatch.setattr(tperf, "time", chains)
+    args = dict(n_short=16, n_long=64, repeats=2, best_of=1)
+    args.update(kw)
+    return chains, tperf._marginal_step_s(chains, **args)
+
+
+def test_crossed_minima_are_taken_again_and_give_a_positive_slope(
+        monkeypatch):
+    """A loaded host stalls the short chains of the first try (minimum
+    10 s against the long chains' 9 s: a slope of -1/48 s, which the JAX
+    helper clamps to 1e-9 s). The repeats run again, and the minima of
+    both tries (1 s, 5 s) give the slope (5 - 1) / 48."""
+    chains, slope = _slope_with(monkeypatch, {
+        16: [1.0, 10.0, 10.0, 1.0, 1.0],     # warm-up, try 1, try 2
+        64: [5.0, 9.0, 9.0, 5.0, 5.0]})
+    assert slope == pytest.approx(4.0 / 48)
+    assert chains.calls == {16: 5, 64: 5}
+
+
+def test_a_slope_crossed_in_every_try_raises(monkeypatch):
+    with pytest.raises(ValueError, match="collapsed slope"):
+        _slope_with(monkeypatch, {16: [1.0, 10.0], 64: [5.0, 9.0]})
+    chains = _ScriptedChains({16: [1.0, 10.0], 64: [5.0, 9.0]})
+    monkeypatch.setattr(tperf, "time", chains)
+    with pytest.raises(ValueError,
+                       match=f"every one of {3 * tperf.SLOPE_TRIES} tries"):
+        tperf._marginal_step_s(chains, 16, 64, repeats=2, best_of=3)
+    assert chains.calls[16] == 1 + 2 * 3 * tperf.SLOPE_TRIES
+
+
+def test_a_barely_positive_slope_of_a_stalled_short_chain_is_taken_again(
+        monkeypatch):
+    """The stalled short chains (minimum 10 s) leave the long ones' (10.05
+    s) just above them: a slope of 0.05 / 48 s, below 1/256 of the short
+    chain's 10 / 16 s an iteration, which the JAX helper keeps. The
+    repeats run again, and the minima of both tries (1 s, 5 s) give the
+    slope."""
+    chains, slope = _slope_with(monkeypatch, {
+        16: [1.0, 10.0, 10.0, 1.0, 1.0],
+        64: [5.0, 10.05, 10.05, 5.0, 5.0]})
+    assert slope == pytest.approx(4.0 / 48)
+    assert chains.calls == {16: 5, 64: 5}
+
+
+def test_a_refused_round_takes_its_minima_over_every_run(monkeypatch):
+    """The first try's short chain stalls (10 s against the long one's 5
+    s: crossed); the second try's long chain stalls (12 s). Each try alone
+    reads nothing sound, or a slope of (12 - 1) / 48; the round's minima
+    over both tries (1 s, 5 s) give (5 - 1) / 48."""
+    chains, slope = _slope_with(monkeypatch, {
+        16: [1.0, 10.0, 1.0], 64: [5.0, 5.0, 12.0]}, repeats=1)
+    assert slope == pytest.approx(4.0 / 48)
+    assert chains.calls == {16: 3, 64: 3}
+
+
+def test_a_round_with_no_sound_slope_leaves_the_others_to_give_one(
+        monkeypatch):
+    """best_of 2: every try of the first round crosses, the second
+    round's first try is sound, and its slope is returned."""
+    tries = tperf.SLOPE_TRIES
+    chains, slope = _slope_with(monkeypatch, {
+        16: [1.0] + [10.0] * 2 * tries + [1.0, 1.0],
+        64: [5.0] + [9.0] * 2 * tries + [4.0, 4.0]}, best_of=2)
+    assert slope == pytest.approx(3.0 / 48)
+    assert chains.calls == {16: 3 + 2 * tries, 64: 3 + 2 * tries}
+
+
+def test_a_quiet_host_keeps_the_first_try_and_the_least_of_slopes(
+        monkeypatch):
+    """No minimum pair crosses: each slope is taken once, from the minima
+    of its repeats, and the least of best_of slopes is returned, as the
+    JAX ``best_marginal_time`` does."""
+    chains, slope = _slope_with(monkeypatch, {
+        16: [1.0, 1.2, 1.1, 1.0, 1.3, 1.0, 1.0],
+        64: [5.0, 5.2, 5.0, 4.6, 4.9, 5.3, 5.1]}, best_of=3)
+    # tries: min(1.2, 1.1) / min(5.2, 5.0) -> 3.9; (1.0, 1.3) / (4.6, 4.9)
+    # -> 3.6; (1.0, 1.0) / (5.3, 5.1) -> 4.1
+    assert slope == pytest.approx(3.6 / 48)
+    assert chains.calls == {16: 7, 64: 7}

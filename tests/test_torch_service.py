@@ -30,9 +30,11 @@ import torch
 
 from dpu_operator_tpu import tpuctl
 from dpu_operator_tpu.utils import flight as jflight
+from dpu_operator_tpu.utils import profiler as jprofiler
 from dpu_operator_tpu.workloads import serve as jserve
 from dpu_operator_tpu_torch.utils import flight as tflight
 from dpu_operator_tpu_torch.utils import metrics as tmetrics
+from dpu_operator_tpu_torch.utils import profiler as tprofiler
 from dpu_operator_tpu_torch.utils import tracing as ttracing
 from dpu_operator_tpu_torch.utils import watchdog as twatchdog
 from dpu_operator_tpu_torch.utils.metrics import MetricsServer
@@ -46,6 +48,17 @@ from test_fuzz_ingress import (NAN_BODY, SEED as FUZZ_SEED, _assert_virgin,
 SIDES = {"jax": (jserve, jflight), "port": (tserve, tflight)}
 #: how long any one wait of this file may take
 WAIT_S = 15.0
+
+
+@pytest.fixture(autouse=True)
+def _no_sampler_left():
+    """``DecodeService.start`` starts its package's process-global
+    sampling profiler, which ``stop`` leaves running: stop and empty both
+    packages' after each test, so no sampler outlives the test."""
+    yield
+    for prof in (tprofiler, jprofiler):
+        prof.PROFILER.stop()
+        prof.PROFILER.reset()
 
 
 def _harness(serve, **kw):
@@ -326,16 +339,46 @@ def test_streaming_ingress_rejects_bad_and_rejected_requests():
     assert lines == [{"error": "rejected: kv_too_large"}]
 
 
-def test_decode_service_headroom_folds_slo_and_fault_dimensions():
+def _anomalous_trend(trend_mod, history_mod):
+    """A fresh trend engine over a fresh history on a virtual clock, driven
+    until a 20%/s chunk-backlog ramp fires its anomaly (the scenario of
+    tests/test_history.py): the same engine state on either side."""
+    now = [0.0]
+    hist = history_mod.MetricsHistory(clock=lambda: now[0])
+    value = [1000.0]
+    series = "tpu_serve_prefill_chunk_backlog_tokens"
+    hist.register_gauge(series, lambda: value[0])
+    engine = trend_mod.TrendEngine(hist)
+    engine.watch(series, -1)
+    for _ in range(30):
+        now[0] += 1.0
+        value[0] *= 1.2
+        hist.sample_once()
+        if engine.evaluate_once():
+            break
+    assert engine.anomalies() == [series]
+    return engine
+
+
+def test_decode_service_headroom_folds_slo_and_fault_dimensions(monkeypatch):
     """test_serve.py:1847: only serve-* alerts join the digest; the fault
     gate's capacity is folded in (null and gauged 0 without one); the
-    digest equals the JAX service's but for ``trendAnomalies``, empty in
-    the port until its trend plane is ported."""
+    trend engine's anomalies are ``trendAnomalies`` (gauged as
+    ``dimension="trend_anomalies"``); the whole digest, ``trendAnomalies``
+    included, equals the JAX service's with each side's global trend
+    engine driven through the same anomaly."""
+    from dpu_operator_tpu.utils import history as jhistory
+    from dpu_operator_tpu.utils import trend as jtrend
+    from dpu_operator_tpu_torch.utils import history as thistory
+    from dpu_operator_tpu_torch.utils import trend as ttrend
+
     class FakeEvaluator:
         def active_alerts(self):
             return [("cni-latency", "page"), ("serve-ttft", "page"),
                     ("serve-tokens", "ticket")]
 
+    monkeypatch.setattr(jtrend, "TREND", _anomalous_trend(jtrend, jhistory))
+    monkeypatch.setattr(ttrend, "TREND", _anomalous_trend(ttrend, thistory))
     digests = {}
     for name, (serve, _) in SIDES.items():
         sched = serve.Scheduler(_harness(serve),
@@ -343,10 +386,12 @@ def test_decode_service_headroom_folds_slo_and_fault_dimensions():
         service = serve.DecodeService(sched, evaluator=FakeEvaluator(),
                                       fault_capacity_fn=lambda: 7)
         digest = service.headroom()
-        digests[name] = {k: v for k, v in digest.items()
-                         if k != "trendAnomalies"}
+        digests[name] = digest
         if name == "port":
-            assert digest["trendAnomalies"] == []
+            assert digest["trendAnomalies"] == [
+                "tpu_serve_prefill_chunk_backlog_tokens"]
+            assert tmetrics.SERVE_HEADROOM.value(
+                dimension="trend_anomalies") == 1.0
             assert digest["sloAlerts"] == [
                 {"slo": "serve-ttft", "severity": "page"},
                 {"slo": "serve-tokens", "severity": "ticket"}]
@@ -393,7 +438,7 @@ def test_ledger_headroom_and_index_served_over_debug_endpoints():
     assert headroom["freeSlots"] == 4 and "sloAlerts" in headroom
     assert set(index["debugHandlers"]) == {
         "/debug/flight", "/debug/serve", "/debug/serve/ledger",
-        "/debug/serve/headroom"}
+        "/debug/serve/headroom", "/debug/profile", "/debug/history"}
     assert flight_dump["capacity"] == tflight.RECORDER.capacity
 
 
