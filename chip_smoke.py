@@ -146,6 +146,17 @@ Phases, each of which passes or raises (a failure exits non-zero):
    timed steps, loss falling, MFU from active parameters) and one step
    whose every gradient leaf is finite and non-zero, the routers
    included. Its launches join the kernels' line.
+13. sharded train on a one-rank mesh (run last), as a lone pod runs the
+   dp/tp/sp-sharded step: ``initialize_from_operator_env({})`` does
+   nothing and ``make_mesh`` forms a one-rank NCCL group; (a) the four
+   collectives on a 64 MB fp32 payload, each output equal to its input,
+   and the three ``measure_*`` results, labelled one rank (no link
+   crossed); (b) the fp32 2-layer model 3 steps sharded against the
+   one-device step (losses within 1e-4 relative, parameters within 3 x
+   lr); (c) ``measure_train(cfg, mesh)`` of the flagship with
+   ``sequence_parallel`` on: the loss falls, the first 3 losses within
+   1e-2 of phase 7's, the training kernels launched as in phase 7, the
+   step's ms beside phase 7's. Its launches join the kernels' line.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -3233,6 +3244,186 @@ def phase_moe(cfg, dense: dict) -> dict:
     return out
 
 
+# -- phase 13 -----------------------------------------------------------------
+#: phase 13's collective payload (MB of fp32), the reference's default
+COLLECTIVE_MBYTES = 64.0
+
+
+def _one_rank_collectives(mesh) -> dict:
+    """Phase 13 (a): the four collectives of ``workloads/collectives.py``
+    on a :data:`COLLECTIVE_MBYTES` fp32 payload over the one-rank mesh's
+    "model" axis, each output equal to its input under ``torch.equal``;
+    then the three ``measure_*`` functions at that payload."""
+    import torch
+    from dpu_operator_tpu_torch.workloads import collectives as col
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(int(COLLECTIVE_MBYTES * 1e6 / 4), device="cuda",
+                    generator=gen)
+    for name, make, arg in (
+            ("psum_allreduce", col.psum_allreduce, x),
+            ("ring_allreduce", col.ring_allreduce, x),
+            ("all_to_all_exchange", col.all_to_all_exchange,
+             x.view(1, -1)),
+            ("ppermute_hop", col.ppermute_hop, x)):
+        out = make(mesh, "model")(arg)
+        torch.cuda.synchronize()
+        require(torch.equal(out, arg), f"phase 13: {name} on one rank "
+                "changed its input")
+    meas = {"all_to_all": col.measure_all_to_all_gbps(
+                mesh, "model", mbytes=COLLECTIVE_MBYTES),
+            "ppermute_hop": col.measure_ppermute_gbps(
+                mesh, "model", mbytes=COLLECTIVE_MBYTES),
+            "allreduce": col.measure_allreduce_gbps(
+                mesh, "model", mbytes=COLLECTIVE_MBYTES)}
+    for m in meas.values():
+        require(m["axis_size"] == 1 and m["sec_per_iter"] > 0
+                and np.isfinite(m["algbw_gbps"]),
+                f"phase 13: measurement {m}")
+    log("[sharded] collectives on ONE rank (no link crossed; the times are "
+        "the local copies): " + "; ".join(
+            f"{k} {m['bytes'] / 1e6:.1f} MB {m['sec_per_iter'] * 1e3:.4f} ms "
+            f"algbw {m['algbw_gbps']:.1f} GB/s" for k, m in meas.items()))
+    return meas
+
+
+def _sharded_tiny_parity(mesh) -> None:
+    """Phase 13 (b): the fp32 2-layer model of tests/test_torch_spmd.py, 3
+    AdamW steps sharded on the one-rank mesh against 3 one-device steps
+    from the same weights and batch: losses within 1e-4 relative, the
+    gathered parameters within 3 x lr (the CPU tests' bounds)."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import (
+        TransformerConfig, gather_params, init_params, make_example_batch)
+    from dpu_operator_tpu_torch.workloads.train import (make_train_step,
+                                                        param_leaves)
+    cfg = TransformerConfig(n_layers=2, max_seq=32, dtype=torch.float32)
+    weights = init_params(0, cfg, device="cuda")
+    batch = make_example_batch(cfg, batch=4, seq=32)
+    runs = {}
+    for label, m in (("sharded", mesh), ("one device", None)):
+        step, init_state, place = make_train_step(cfg, m, device="cuda")
+        params, opt = init_state(params=weights)
+        data = place(batch)
+        losses = [float(step(params, opt, data)[2]) for _ in range(3)]
+        if m is not None:
+            params = gather_params(params, cfg, m)
+        runs[label] = (losses, param_leaves(params))
+    (got, got_p), (want, want_p) = runs["sharded"], runs["one device"]
+    for a, b in zip(got, want):
+        require(abs(a - b) <= 1e-4 * abs(b),
+                f"phase 13: tiny sharded losses {got} vs one device {want}")
+    err = max(float((a.detach() - b.detach()).abs().max())
+              for a, b in zip(got_p, want_p))
+    require(err <= 3 * cfg.learning_rate,
+            f"phase 13: tiny sharded parameters {err} from one device's")
+    log(f"[sharded] tiny fp32 on the one-rank mesh: losses {got} vs one "
+        f"device {want}; parameters within {err:.3g} (bound "
+        f"{3 * cfg.learning_rate})")
+
+
+def _sharded_profile(cfg, mesh) -> dict:
+    """Phase 13 (d): one profiled sharded step of the flagship on a fresh
+    state (:func:`profile_calls`), and the device time of its NCCL
+    kernels and of its copies, summed by kernel name."""
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import FLAGSHIP_BATCH
+    from dpu_operator_tpu_torch.workloads.train import make_train_step
+    step, init_state, place = make_train_step(cfg, mesh, device="cuda")
+    params, opt = init_state(1)
+    data = place(make_example_batch(cfg, batch=FLAGSHIP_BATCH))
+    prof = profile_calls(
+        f"sharded train step, one rank (batch {FLAGSHIP_BATCH}x"
+        f"{cfg.max_seq})", lambda: step(params, opt, data), 2, warmup=1)
+    by_kernel = device_times(lambda: step(params, opt, data), 2)
+    prof["nccl_ms"] = sum(ms for k, ms in by_kernel.items()
+                          if "nccl" in k.lower())
+    prof["copy_ms"] = sum(ms for k, ms in by_kernel.items()
+                          if "copy" in k.lower())
+    log(f"[sharded] a sharded step's device time by kind: NCCL kernels "
+        f"{prof['nccl_ms']:.3f} ms, copy kernels {prof['copy_ms']:.3f} ms, "
+        f"of {sum(by_kernel.values()):.3f} ms busy")
+    return prof
+
+
+def phase_sharded(cfg, dense: dict, smi: str) -> dict:
+    """Phase 13: the dp/tp/sp-sharded train step on a one-rank mesh, as a
+    lone pod runs it. No operator env, so ``initialize_from_operator_env``
+    does nothing; ``make_mesh`` forms a one-rank NCCL group; (a)
+    :func:`_one_rank_collectives`, (b) :func:`_sharded_tiny_parity`, (c)
+    ``measure_train(cfg, mesh)`` of the flagship (bf16, batch 8 x 1024,
+    ``sequence_parallel`` on, 1 warm-up and 5 timed steps from phase 7's
+    seed and batch): the loss falls, the first 3 losses lie within 1e-2
+    of phase 7's (*dense*), and the three training kernels launch 12 times
+    a step and RMSNorm 25 times; (d) :func:`_sharded_profile`. The launch
+    counters are set to 0 before (b) and read after (c). The group is destroyed at the end. Returns the
+    phase's numbers and launches."""
+    import torch
+    import torch.distributed as dist
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.bootstrap import \
+        initialize_from_operator_env
+    from dpu_operator_tpu_torch.workloads.mesh import make_mesh, mesh_shape
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       measure_train)
+    t0 = time.monotonic()
+    require(initialize_from_operator_env({}) is None,
+            "phase 13: a lone pod's empty env initialized a group")
+    require(not dist.is_initialized(), "phase 13: a process group exists")
+    mesh = make_mesh(("data", "model"), device_type="cuda")
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+                and mesh_shape(mesh) == {"data": 1, "model": 1},
+                f"phase 13: mesh {mesh_shape(mesh)} over "
+                f"{dist.get_backend()}")
+        meas = _one_rank_collectives(mesh)
+        reset_launch_counts()
+        _sharded_tiny_parity(mesh)
+        tiny_counts = launch_counts()
+        reset_launch_counts()
+        steps = 5
+        perf = measure_train(cfg, mesh, batch=FLAGSHIP_BATCH, steps=steps,
+                             device="cuda")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        prof = _sharded_profile(cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    losses = perf.losses
+    require(cfg.sequence_parallel, "phase 13: the flagship runs sp")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"phase 13: losses {losses}")
+    near = [abs(a - b) for a, b in zip(losses[:3], dense["losses"][:3])]
+    require(max(near) <= 1e-2, f"phase 13: first losses {losses[:3]} vs "
+            f"phase 7's {dense['losses'][:3]}")
+    for name in TRAIN_KERNELS:
+        require(counts[name] == cfg.n_layers * (steps + 1),
+                f"phase 13: {name} launched {counts[name]} times, wanted "
+                f"{cfg.n_layers} a step")
+    require(counts["fused_rmsnorm"] == (2 * cfg.n_layers + 1) * (steps + 1),
+            f"phase 13: fused_rmsnorm launched {counts['fused_rmsnorm']} "
+            "times")
+    ratio = perf.step_ms / dense["step_ms"]
+    log(f"[sharded] flagship bf16 {FLAGSHIP_BATCH}x{cfg.max_seq}, sp on, "
+        f"one-rank mesh: step {perf.step_ms:.2f} ms against phase 7's "
+        f"one-device {dense['step_ms']:.2f} ms (ratio {ratio:.4f}), "
+        f"{perf.tokens_per_s:.0f} tokens/s, MFU {perf.mfu:.4f}, peak memory "
+        f"{perf.peak_memory_bytes / 1e9:.2f} GB; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (phase 7: {', '.join(f'{x:.4f}' for x in dense['losses'])}); "
+        f"{smi}")
+    out = {"step_ms": perf.step_ms, "one_device_step_ms": dense["step_ms"],
+           "overhead_ratio": ratio, "tokens_per_s": perf.tokens_per_s,
+           "mfu": perf.mfu, "peak_memory_gb": perf.peak_memory_bytes / 1e9,
+           "losses": losses, "first_loss_gap": max(near),
+           "collectives": meas, "profiled_step": prof,
+           "seconds": time.monotonic() - t0}
+    log("[sharded] " + json.dumps(out))
+    log(f"[sharded] launches of the phase ({out['seconds']:.1f} s): flagship "
+        f"{counts}; tiny {tiny_counts}")
+    out["launches"] = {k: counts[k] + tiny_counts[k] for k in counts}
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3283,14 +3474,16 @@ def main(argv: list) -> int:
         "decode_iteration": window["decode iteration (8 slots)"],
         "step_ms": train["step_ms"], "mfu": train["mfu"],
         "peak_memory_gb": train["peak_memory_gb"]})["launches"]
+    torch.cuda.empty_cache()
+    sharded_counts = phase_sharded(cfg, train, dev["smi"])["launches"]
     # each kernel's launches on the main paths (phase 4's fp32 models, the
     # four serve runs, the two chaos runs, the wire run, the train run, the
-    # quantized phase, the measurement phase and the MoE phase), each read
-    # from zero; a head-dim-256 case's from phase 10, the path of that head
-    # dim
+    # quantized phase, the measurement phase, the MoE phase and the sharded
+    # phase), each read from zero; a head-dim-256 case's from phase 10, the
+    # path of that head dim
     counts = {k: counts[k] + parity_counts[k] + train_counts[k]
               + quant_counts[k] + measure_counts[k] + moe_counts[k]
-              for k in counts}
+              + sharded_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"],

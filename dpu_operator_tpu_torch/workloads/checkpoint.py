@@ -6,8 +6,14 @@ Port of ``dpu_operator_tpu/workloads/checkpoint.py::TrainCheckpointer``:
 parameters and the optimizer's ``state_dict`` (``torch.save``), written to
 a temporary name and renamed into place, so a crash mid-write leaves the
 previous checkpoints whole. A MoE tree's ``moe`` subtrees save and
-restore with the rest (``train.map_params`` / ``param_leaves``). There is
-no re-sharding: one card.
+restore with the rest (``train.map_params`` / ``param_leaves``).
+
+**Restore is all or nothing**, as the reference's: a checkpoint whose
+parameter leaves (count, name, shape, dtype) or optimizer groups do not
+match the caller's raises ``ValueError`` before anything is copied. A
+sharded train state (``make_train_step(cfg, mesh)``) saves each rank's
+shards as they are; restoring onto another mesh (the reference's
+re-sharding restore) is ROADMAP queue 1 item 7c.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from .train import map_params, param_leaves
+from .train import map_params, named_leaves, param_leaves
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -59,12 +65,15 @@ class TrainCheckpointer:
                 step: Optional[int] = None) -> tuple:
         """Load *step* (default: the newest) into *params* (copied into the
         existing tensors, so the optimizer keeps pointing at them) and
-        *opt*; returns ``(params, opt, step)``."""
+        *opt*; returns ``(params, opt, step)``. A checkpoint that does not
+        match them raises ``ValueError`` naming the first mismatch, and
+        leaves *params* and *opt* as they were."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         state = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
+        _check_restorable(step, params, opt, state)
         with torch.no_grad():
             for dst, src in zip(param_leaves(params),
                                 param_leaves(state["params"])):
@@ -76,3 +85,31 @@ class TrainCheckpointer:
         """Nothing is written in the background: every save is complete
         when it returns."""
 
+
+
+def _check_restorable(step: int, params: dict, opt: torch.optim.Optimizer,
+                      state: dict) -> None:
+    """Raise ``ValueError`` naming the first difference between the saved
+    *state* and the caller's *params* / *opt*: the leaf count, then each
+    leaf's name, shape and dtype in :func:`~.train.named_leaves` order,
+    then the optimizer's parameter-group sizes."""
+    ours, saved = named_leaves(params), named_leaves(state["params"])
+    if len(ours) != len(saved):
+        raise ValueError(f"checkpoint step {step} holds {len(saved)} "
+                         f"parameter leaves, the model {len(ours)}")
+    for (name, dst), (saved_name, src) in zip(ours, saved):
+        if name != saved_name:
+            raise ValueError(f"checkpoint step {step}: leaf {saved_name} "
+                             f"where the model has {name}")
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(
+                f"checkpoint step {step}: leaf {name} is "
+                f"{tuple(src.shape)} {src.dtype}, the model's "
+                f"{tuple(dst.shape)} {dst.dtype}")
+    groups = [len(g["params"]) for g in opt.param_groups]
+    saved_groups = [len(g["params"])
+                    for g in state["opt_state"]["param_groups"]]
+    if groups != saved_groups:
+        raise ValueError(f"checkpoint step {step}: optimizer groups of "
+                         f"{saved_groups} parameters, the optimizer's "
+                         f"{groups}")

@@ -22,11 +22,15 @@ from, so no index depends on the data's count of kept tokens and the card
 never waits on the host. The expert products are batched matmuls over
 the E experts, as the JAX einsums are; no TPU kernel computes them.
 
-The expert-parallel sharding (``moe_param_specs``) is the distributed
-modes' work (ROADMAP queue 1, item 7b).
+On a mesh whose "model" axis is 1 the sharded forward runs this function
+on the rank's batch shard, with *mean* averaging the router statistics
+over "data", so the aux loss is the global batch's. The expert-parallel
+sharding (``moe_param_specs``) is ROADMAP queue 1, item 7b.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -58,12 +62,15 @@ def moe_capacity(n_tokens: int, n_experts: int,
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_ffn(params: dict, x: torch.Tensor,
-            capacity_factor: float = 1.25) -> tuple:
+def moe_ffn(params: dict, x: torch.Tensor, capacity_factor: float = 1.25,
+            mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+            ) -> tuple:
     """Top-1 routed FFN: x (B, S, D) -> (out (B, S, D) in x's type, aux
     loss, an fp32 scalar). Each batch row routes its S tokens on its own
     with capacity :func:`moe_capacity` (S, E, *capacity_factor*); a token
-    past its expert's capacity contributes 0."""
+    past its expert's capacity contributes 0. *mean*, where given, maps
+    the router's per-expert fractions over these rows to their mean over
+    the whole batch (the sharded forward's average over "data")."""
     b, s, d = x.shape
     w1, w2 = params["w1"], params["w2"]
     e = params["wg"].shape[1]
@@ -100,5 +107,7 @@ def moe_ffn(params: dict, x: torch.Tensor,
     # Switch's load-balancing term: E * sum_e f_e * P_e
     frac_tokens = onehot.mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
+    if mean is not None:
+        frac_tokens, frac_probs = mean(frac_tokens), mean(frac_probs)
     aux = e * (frac_tokens * frac_probs).sum()
     return out.to(x.dtype), aux

@@ -22,6 +22,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
 from ..ops.flash_attention import flash_attention
@@ -145,23 +146,36 @@ class TrainPerf:
     steps_timed: int
     losses: list             # warm-up step first
     peak_memory_bytes: Optional[int]   # None on the CPU
+    world: int = 1           # ranks of the mesh (1 without one)
 
 
-def measure_train(cfg: TransformerConfig, batch: int = FLAGSHIP_BATCH,
-                  steps: int = 5, device: "str | torch.device" = "cuda",
+def measure_train(cfg: TransformerConfig,
+                  mesh: Optional[DeviceMesh] = None,
+                  batch: int = FLAGSHIP_BATCH, steps: int = 5,
+                  device: "str | torch.device" = "cuda",
                   seed: int = 0) -> TrainPerf:
     """Train-step time: random parameters from *seed*, the example batch
     of :func:`make_example_batch` at ``cfg.max_seq``, one warm-up step,
     then *steps* steps between two CUDA events on the card. On the CPU
     (small sizes, for tests) the steps are timed on the host clock and
-    MFU is taken against :data:`CPU_PEAK_FLOPS`, a smoke constant."""
+    MFU is taken against :data:`CPU_PEAK_FLOPS`, a smoke constant.
+
+    With a *mesh* the step is the sharded one (``make_train_step(cfg,
+    mesh)``), *batch* the global batch, and each rank times its own
+    steps. The accounting is the reference's: tokens/s is the global
+    batch's tokens over the step time, and the model FLOPs are
+    ``train_step_flops`` of the global batch. MFU divides the achieved
+    rate by the card's peak times the mesh's world size; the reference
+    divides by one chip's peak, which is the same number on one rank."""
     dev = resolve_device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"measure_train: unsupported device {dev}")
     cuda = dev.type == "cuda"
-    step, init_state, place = make_train_step(cfg, dev)
+    step, init_state, place = make_train_step(cfg, mesh, dev)
+    world = 1 if mesh is None else mesh.size()
     params, opt = init_state(seed)
     data = place(make_example_batch(cfg, batch=batch))
+    dev = data["tokens"].device
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     params, opt, loss = step(params, opt, data)   # warm-up
@@ -188,11 +202,11 @@ def measure_train(cfg: TransformerConfig, batch: int = FLAGSHIP_BATCH,
     return TrainPerf(
         device=name, step_ms=dt * 1e3, tokens_per_s=batch * seq / dt,
         model_tflops=achieved, peak_tflops=peak,
-        mfu=None if peak is None else achieved / peak,
+        mfu=None if peak is None else achieved / (peak * world),
         params=param_count(cfg), steps_timed=steps,
         losses=[float(x) for x in losses],
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev) if cuda
-        else None)
+        else None, world=world)
 
 
 #: :func:`_marginal_step_s`: how many times a round's repeats are run

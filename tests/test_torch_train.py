@@ -34,7 +34,8 @@ from dpu_operator_tpu_torch.workloads.perf import (CPU_PEAK_FLOPS,
                                                    param_count, peak_tflops,
                                                    train_step_flops)
 from dpu_operator_tpu_torch.workloads.train import (make_train_step,
-                                                    map_params, param_leaves)
+                                                    map_params, named_leaves,
+                                                    param_leaves)
 
 #: bf16 keeps 8 significant bits: one rounding step is 2^-8 relative
 BF16_STEP = 2.0 ** -7
@@ -353,6 +354,33 @@ def test_checkpoint_save_restore_resumes_the_same_run(tmp_path):
     _, _, loss_b = step(params, opt, batch)
     assert float(loss_a) == float(loss_b)
     ckpt.close()
+
+
+@pytest.mark.parametrize("other,match", [
+    ({"n_layers": 3}, "15 parameter leaves, the model 21"),
+    ({"d_model": 32}, "leaf embed is"),
+    ({"dtype": torch.bfloat16}, "leaf embed is"),
+])
+def test_checkpoint_restore_of_a_mismatch_changes_nothing(tmp_path, other,
+                                                          match):
+    """A 2-layer fp32 checkpoint restored into another model (3 layers,
+    another width, bf16) raises ValueError, as the reference's restore
+    does, and leaves every parameter leaf and the optimizer as they
+    were: nothing is copied before the whole checkpoint is checked."""
+    _, _, _, params, opt = _trained(steps=1)
+    ckpt = TrainCheckpointer(str(tmp_path / "ckpt"))
+    ckpt.save(5, params, opt)
+    cfg = dataclasses.replace(TINY, **other)
+    _, init_state, _ = make_train_step(cfg, device="cpu")
+    p0, o0 = init_state(seed=7)
+    before = [t.detach().clone() for t in param_leaves(p0)]
+    opt_before = o0.state_dict()
+    with pytest.raises(ValueError, match=match):
+        ckpt.restore(p0, o0)
+    for (name, _), got, want in zip(
+            named_leaves(p0), param_leaves(p0), before):
+        assert torch.equal(got, want), name
+    assert o0.state_dict() == opt_before and not o0.state
 
 
 def test_checkpoint_restore_empty_dir_raises(tmp_path):
