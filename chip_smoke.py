@@ -157,6 +157,18 @@ Phases, each of which passes or raises (a failure exits non-zero):
    ``sequence_parallel`` on: the loss falls, the first 3 losses within
    1e-2 of phase 7's, the training kernels launched as in phase 7, the
    step's ms beside phase 7's. Its launches join the kernels' line.
+14. long context on a one-rank mesh (run last, a new one-rank NCCL group):
+   (a) ``measure_train(cfg, mesh)`` of the flagship with
+   ``attention="ulysses"`` (at one rank the flash VJP on every head): the
+   loss falls, the first 3 losses within 1e-2 of phase 7's, the three
+   training kernels 12 times a step and RMSNorm 25; (b) the same with
+   ``attention="ring"``, whose one block a layer is plain products: no
+   attention kernel, RMSNorm 25 times a step, the (8, 12, 1024, 1024)
+   fp32 scores a layer showing in the peak memory; (c) a tiny fp32 model
+   in each mode forward on the card through the mesh against the CPU
+   forward, within 1e-4. Prints step ms, tokens/s, MFU, peak memory and
+   the ratio to phase 7's step beside nvidia-smi's line. Its launches join
+   the kernels' line.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -3424,6 +3436,137 @@ def phase_sharded(cfg, dense: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 14 -----------------------------------------------------------------
+#: phase 14 (c)'s tiny model (tests/test_long_context.py:245's, in fp32)
+LONG_TINY = dict(vocab=64, d_model=64, n_heads=8, n_layers=2, d_ff=128,
+                 max_seq=64)
+
+
+def _long_tiny_parity(mesh) -> None:
+    """Phase 14 (c): the tiny fp32 model in each sequence mode, its forward
+    on the card through the one-rank mesh against the port's forward of
+    the same weights on the CPU (the one-device forward), within
+    ``TOL["float32"]`` (:func:`scaled_err`)."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.model import (
+        TransformerConfig, forward, init_params, make_example_batch)
+    from dpu_operator_tpu_torch.workloads.train import map_params
+    for mode in ("ulysses", "ring"):
+        cfg = TransformerConfig(dtype=torch.float32, attention=mode,
+                                **LONG_TINY)
+        weights = init_params(19, cfg, device="cpu")
+        tokens = make_example_batch(cfg, batch=2)["tokens"]
+        card = map_params(lambda t: t.cuda(), weights)
+        with torch.no_grad():
+            want = forward(weights, tokens, cfg)
+            got = forward(card, tokens.cuda(), cfg, mesh).cpu()
+        err, scaled = scaled_err(got, want)
+        require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                and scaled <= TOL["float32"],
+                f"phase 14: tiny fp32 {mode} on the card vs the CPU: "
+                f"{err:.3g} ({scaled:.3g} scaled)")
+        log(f"[long] tiny fp32 {mode} forward on the one-rank mesh vs the "
+            f"CPU forward: max |diff| {err:.3g}, scaled {scaled:.3g} (bound "
+            f"{TOL['float32']})")
+
+
+def _long_train(cfg, mesh, mode: str, dense: dict, smi: str) -> tuple:
+    """Phase 14 (a) / (b): ``measure_train(cfg, mesh)`` of the flagship in
+    sequence mode *mode* (1 warm-up and 5 timed steps from phase 7's seed
+    and batch), the launch counters set to 0 just before and read just
+    after. The loss falls and the first 3 losses lie within 1e-2 of
+    phase 7's (*dense*). Then one profiled step on a fresh state
+    (:func:`profile_calls`). Returns ``(numbers, launches)``."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       measure_train)
+    from dpu_operator_tpu_torch.workloads.train import make_train_step
+    mcfg = dataclasses.replace(cfg, attention=mode)
+    steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    perf = measure_train(mcfg, mesh, batch=FLAGSHIP_BATCH, steps=steps,
+                         device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = perf.losses
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"phase 14: {mode} losses {losses}")
+    near = [abs(a - b) for a, b in zip(losses[:3], dense["losses"][:3])]
+    require(max(near) <= 1e-2, f"phase 14: {mode} first losses "
+            f"{losses[:3]} vs phase 7's {dense['losses'][:3]}")
+    norms = (2 * cfg.n_layers + 1) * (steps + 1)
+    require(counts["fused_rmsnorm"] == norms,
+            f"phase 14: {mode}: fused_rmsnorm launched "
+            f"{counts['fused_rmsnorm']} times, wanted {norms}")
+    if mode == "ulysses":
+        for name in TRAIN_KERNELS:
+            require(counts[name] == cfg.n_layers * (steps + 1),
+                    f"phase 14: ulysses: {name} launched {counts[name]} "
+                    f"times, wanted {cfg.n_layers} a step")
+    else:  # the ring's blocks are plain products
+        attn = {k: n for k, n in counts.items() if k.startswith("attention")}
+        require(not any(attn.values()),
+                f"phase 14: ring launched attention kernels: {attn}")
+    ratio = perf.step_ms / dense["step_ms"]
+    out = {"step_ms": perf.step_ms, "tokens_per_s": perf.tokens_per_s,
+           "mfu": perf.mfu, "peak_memory_gb": perf.peak_memory_bytes / 1e9,
+           "ratio_to_phase_7": ratio, "losses": losses,
+           "first_loss_gap": max(near)}
+    log(f"[long] flagship bf16 {FLAGSHIP_BATCH}x{cfg.max_seq}, "
+        f"attention={mode}, one-rank mesh: step {perf.step_ms:.2f} ms "
+        f"against phase 7's {dense['step_ms']:.2f} ms (ratio {ratio:.4f}), "
+        f"{perf.tokens_per_s:.0f} tokens/s, MFU {perf.mfu:.4f}, peak memory "
+        f"{perf.peak_memory_bytes / 1e9:.2f} GB; first-loss gap "
+        f"{max(near):.3g}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; launches {counts}; {smi}")
+    step, init_state, place = make_train_step(mcfg, mesh, device="cuda")
+    params, opt = init_state(1)
+    data = place(make_example_batch(mcfg, batch=FLAGSHIP_BATCH))
+    out["profiled_step"] = profile_calls(
+        f"{mode} train step, one rank (batch {FLAGSHIP_BATCH}x"
+        f"{cfg.max_seq})", lambda: step(params, opt, data), 2, warmup=1)
+    return out, counts
+
+
+def phase_long_context(cfg, dense: dict, smi: str) -> dict:
+    """Phase 14: long context on a one-rank NCCL mesh (formed as phase 13
+    forms it). (a) Ulysses: the flagship's ``measure_train(cfg, mesh)``
+    with ``attention="ulysses"``, which at one rank runs the flash VJP on
+    every head (the three training kernels 12 times a step, RMSNorm 25);
+    (b) ring: the same with ``attention="ring"``, whose one block a layer
+    is plain products (no attention kernel; RMSNorm 25 times a step);
+    (c) :func:`_long_tiny_parity`. Each run's launch counters are set to 0
+    before it and read after it. The group is destroyed at the end.
+    Returns the phase's numbers and launches."""
+    import torch
+    import torch.distributed as dist
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    from dpu_operator_tpu_torch.workloads.mesh import make_mesh, mesh_shape
+    t0 = time.monotonic()
+    require(not dist.is_initialized(), "phase 14: a process group exists")
+    mesh = make_mesh(("data", "model"), device_type="cuda")
+    runs, launches = {}, []
+    try:
+        require(mesh_shape(mesh) == {"data": 1, "model": 1},
+                f"phase 14: mesh {mesh_shape(mesh)}")
+        for mode in ("ulysses", "ring"):
+            runs[mode], counts = _long_train(cfg, mesh, mode, dense, smi)
+            launches.append(counts)
+            torch.cuda.empty_cache()
+        reset_launch_counts()
+        _long_tiny_parity(mesh)
+        launches.append(launch_counts())
+    finally:
+        dist.destroy_process_group()
+    out = {**runs, "seconds": time.monotonic() - t0}
+    log("[long] " + json.dumps(out))
+    out["launches"] = {k: sum(c[k] for c in launches) for k in launches[0]}
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3476,14 +3619,16 @@ def main(argv: list) -> int:
         "peak_memory_gb": train["peak_memory_gb"]})["launches"]
     torch.cuda.empty_cache()
     sharded_counts = phase_sharded(cfg, train, dev["smi"])["launches"]
+    torch.cuda.empty_cache()
+    long_counts = phase_long_context(cfg, train, dev["smi"])["launches"]
     # each kernel's launches on the main paths (phase 4's fp32 models, the
     # four serve runs, the two chaos runs, the wire run, the train run, the
-    # quantized phase, the measurement phase, the MoE phase and the sharded
-    # phase), each read from zero; a head-dim-256 case's from phase 10, the
-    # path of that head dim
+    # quantized phase, the measurement phase, the MoE phase, the sharded
+    # phase and the long-context phase), each read from zero; a
+    # head-dim-256 case's from phase 10, the path of that head dim
     counts = {k: counts[k] + parity_counts[k] + train_counts[k]
               + quant_counts[k] + measure_counts[k] + moe_counts[k]
-              + sharded_counts[k] for k in counts}
+              + sharded_counts[k] + long_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"],

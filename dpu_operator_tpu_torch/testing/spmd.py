@@ -8,7 +8,10 @@ port only: a target in a test file would load JAX in every rank.
 
 - The group forms over a ``FileStore`` in a directory the caller names
   (pytest's ``tmp_path``): no port is bound, so concurrent test workers
-  cannot collide.
+  cannot collide. The target's arguments go to the ranks through a file
+  in that directory, not through the spawn's pipe: a large pickle on the
+  pipe blocks the parent until each rank has read it, so the ranks would
+  start one after the other.
 - Each rank runs ``torch.set_num_threads(1)``; the group's timeout is
   :data:`GROUP_TIMEOUT_S`.
 - The parent waits at most *deadline* seconds (:data:`DEADLINE_S`). A
@@ -17,16 +20,18 @@ port only: a target in a test file would load JAX in every rank.
   ``TimeoutError``. Either way every child is killed and joined before
   :func:`spawn` returns or raises, so no process is left behind.
 
-The targets below are the rank side of ``tests/test_torch_mesh.py`` and
-``tests/test_torch_spmd.py``: each computes several results a spawn and
-returns them as numpy arrays and plain values, which the tests hold
-against the JAX package in the parent process.
+The targets below are the rank side of ``tests/test_torch_mesh.py``,
+``tests/test_torch_spmd.py`` and ``tests/test_torch_long_context.py``:
+each computes several results a spawn and returns them as numpy arrays
+and plain values, which the tests hold against the JAX package in the
+parent process.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import multiprocessing
 import os
 import pickle
@@ -54,9 +59,11 @@ class SpmdError(RuntimeError):
 
 
 def _rank_main(target: Callable, rank: int, world: int, store: str,
-               args: tuple, out: multiprocessing.Queue) -> None:
+               out: multiprocessing.Queue) -> None:
     torch.set_num_threads(1)
     try:
+        with open(store + ".args", "rb") as f:
+            args = pickle.load(f)
         dist.init_process_group(
             "gloo", store=dist.FileStore(store, world), rank=rank,
             world_size=world,
@@ -77,8 +84,10 @@ def spawn(target: Callable, world: int, store_dir: str, args: tuple = (),
     ctx = multiprocessing.get_context("spawn")
     results: queue.Queue = ctx.Queue()
     store = os.path.join(store_dir, f"spmd-store-{uuid.uuid4().hex}")
+    with open(store + ".args", "wb") as f:
+        pickle.dump(args, f)
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(target, rank, world, store, args, results))
+                         args=(target, rank, world, store, results))
              for rank in range(world)]
     for p in procs:
         p.start()
@@ -318,7 +327,7 @@ def train_behaviour() -> dict:
     out["refusals"] = {
         "moe_tp": _refusal(lambda: make_train_step(moe, mesh, "cpu")),
         "ring": _refusal(lambda: make_train_step(
-            _cfg(attention="ring"), mesh, "cpu")),
+            _cfg(attention="ring", moe_experts=4), mesh, "cpu")),
         "heads": _refusal(lambda: make_train_step(
             _cfg(n_heads=6, d_model=96), mesh, "cpu")),
         "seq": _refusal(lambda: _forward_at_seq(mesh, 30)),
@@ -360,3 +369,161 @@ def _moe_against_one_device() -> dict:
               for a, b in zip(got[False][1], got[True][1]))
     return {"loss": got[False][0], "one_device_loss": got[True][0],
             "grad_err": err}
+
+
+# -- rank side of tests/test_torch_long_context.py ----------------------------
+
+_DM = ("data", "model")
+
+
+@functools.lru_cache(maxsize=None)
+def _mesh(names: tuple, sizes: tuple) -> Any:
+    """A cpu mesh, formed once a rank: forming one sets up a gloo group
+    for every row of every axis."""
+    from ..workloads.mesh import make_mesh
+    return make_mesh(names, sizes, device_type="cpu")
+
+
+def _seq_shard(a: np.ndarray, mesh: Any, dtype: torch.dtype) -> torch.Tensor:
+    """This rank's S / n columns of a global (B, S, ...) array."""
+    from ..workloads.model import seq_columns
+    return seq_columns(torch.from_numpy(a), mesh).to(dtype).contiguous()
+
+
+def _attention_case(make: Callable, mesh: Any, qkv: tuple, do: Any,
+                    dtype: torch.dtype) -> dict:
+    """The sequence-sharded attention *make(mesh)* on this rank's columns
+    of the global *qkv*: its output and, given the global output gradient
+    *do*, the gradients of the rank's q, k, v columns."""
+    q, k, v = (_seq_shard(a, mesh, dtype).requires_grad_(do is not None)
+               for a in qkv)
+    out = make(mesh)(q, k, v)
+    got = {"out": _np(out)}
+    if do is not None:
+        out.backward(_seq_shard(do, mesh, dtype))
+        got.update(dq=_np(q.grad), dk=_np(k.grad), dv=_np(v.grad))
+    return got
+
+
+def _long_context_attention(ring_qkv: tuple, ring_do: np.ndarray,
+                           bf16_qkv: tuple, ulysses_qkv: tuple,
+                           ulysses_do: np.ndarray) -> dict:
+    """Ring attention on this rank's columns: on a (1, 8) mesh causal with
+    the gradients of *ring_do* and not causal, on (2, 4) at S 32 with the
+    gradients, and in bf16 on (1, 8) (*bf16_qkv* holds bf16 values); then
+    Ulysses attention on an 8-wide ("model",) mesh with the gradients of
+    *ulysses_do*."""
+    from functools import partial
+
+    from ..workloads import collectives as col
+    from ..workloads.ring_attention import ring_attention
+    from ..workloads.ulysses import ulysses_attention
+    f32 = torch.float32
+    line, square = _mesh(_DM, (1, 8)), _mesh(_DM, (2, 4))
+    out: dict = {"rank": dist.get_rank(), "coords_2x4": _coords(square)}
+    out["ring_causal"] = _attention_case(ring_attention, line, ring_qkv,
+                                         ring_do, f32)
+    out["ring_full"] = _attention_case(
+        partial(ring_attention, causal=False), line, ring_qkv, None, f32)
+    half = tuple(a[:, :32] for a in ring_qkv)
+    out["ring_2x4"] = _attention_case(ring_attention, square, half,
+                                      ring_do[:, :32], f32)
+    out["ring_bf16"] = _attention_case(ring_attention, line, bf16_qkv,
+                                       None, torch.bfloat16)
+    # the hop's backward: rank r's gradient is rank r+1's weight
+    x = torch.zeros(3, requires_grad=True)
+    me = line.get_local_rank("model")
+    col.ppermute_hop(line, "model")(x).mul(float(me)).sum().backward()
+    out["hop_grad"] = _np(x.grad)
+    heads = _mesh(("model",), (8,))
+    out["ulysses"] = _attention_case(ulysses_attention, heads, ulysses_qkv,
+                                     ulysses_do, f32)
+    return out
+
+
+def _steps(cfg: Any, mesh: Any, tree: Any, seed: int, tokens: np.ndarray,
+           targets: np.ndarray, steps: int, gather: bool) -> dict:
+    """*steps* AdamW steps of *cfg* on *mesh* from the bridged JAX tree
+    *tree* (or the port's ``init_params(seed)``): the losses, each leaf's
+    sum on this rank, and on rank 0 the parameters gathered into the
+    JAX layout when *gather*."""
+    from ..workloads.model import gather_params, params_from_numpy
+    from ..workloads.train import make_train_step
+    step, init_state, place = make_train_step(cfg, mesh, device="cpu")
+    params, opt = init_state(seed, None if tree is None else
+                             params_from_numpy(tree, cfg, device="cpu"))
+    batch = place(_batch(tokens, targets))
+    losses = [float(step(params, opt, batch)[2]) for _ in range(steps)]
+    leaves = _leaves_np(params)
+    return {"losses": losses,
+            "sums": [float(a.astype(np.float64).sum()) for a in leaves],
+            "params": _leaves_np(gather_params(params, cfg, mesh))
+            if gather and dist.get_rank() == 0 else None}
+
+
+def _long_context_train(fwd_tree: dict, fwd_tokens: np.ndarray,
+                       ring_tree: dict, ring_batch: tuple,
+                       ulysses_tree: dict, ulysses_batch: tuple,
+                       steps: int) -> dict:
+    """The sequence modes in the sharded forward and train step: the
+    1-layer fp32 model *fwd_tree* forward on a (1, 8) mesh in ring and
+    Ulysses mode (the rank's columns of the logits); *steps* fp32 steps of
+    the ring model on (2, 4) and of the Ulysses model on (1, 8) from the
+    bridged trees; 5 steps of the bf16 ring model from the port's
+    ``init_params(0)``; ``measure_train`` in ring mode; and the
+    refusals."""
+    from ..workloads.model import forward, params_from_numpy
+    from ..workloads.perf import measure_train
+    from ..workloads.train import make_train_step
+    f32 = torch.float32
+    line, square = _mesh(_DM, (1, 8)), _mesh(_DM, (2, 4))
+    out: dict = {"rank": dist.get_rank(), "coords_2x4": _coords(square),
+                 "forward": {}}
+    for mode in ("ring", "ulysses"):
+        cfg = _cfg(n_layers=1, max_seq=32, dtype=f32, attention=mode)
+        params = params_from_numpy(fwd_tree, cfg, device="cpu")
+        with torch.no_grad():
+            out["forward"][mode] = _np(forward(
+                params, torch.from_numpy(fwd_tokens.astype(np.int64)), cfg,
+                line))
+
+    ring = _cfg(n_layers=2, max_seq=64, dtype=f32, attention="ring")
+    out["ring_train"] = _steps(ring, square, ring_tree, 0, *ring_batch,
+                               steps, True)
+    ulysses = _cfg(vocab=64, d_model=64, n_heads=8, n_layers=2, d_ff=128,
+                   max_seq=64, dtype=f32, attention="ulysses")
+    out["ulysses_train"] = _steps(ulysses, line, ulysses_tree, 0,
+                                  *ulysses_batch, steps, True)
+    bf16 = _cfg(n_layers=2, max_seq=64, attention="ring")
+    out["ring_bf16"] = _steps(bf16, square, None, 0, *ring_batch, 5,
+                              False)["losses"]
+
+    tiny = _cfg(n_layers=1, max_seq=16, dtype=f32, attention="ring")
+    out["perf"] = dataclasses.asdict(measure_train(tiny, square, batch=4,
+                                                   steps=1, device="cpu"))
+
+    def at_seq(mode: str, seq: int) -> None:
+        from ..workloads.model import init_params
+        cfg = _cfg(n_layers=1, max_seq=32, dtype=f32, attention=mode)
+        forward(init_params(0, cfg, device="cpu"),
+                torch.zeros((1, seq), dtype=torch.int64), cfg, square)
+
+    out["refusals"] = {
+        "ring_seq": _refusal(lambda: at_seq("ring", 30)),
+        "ulysses_seq": _refusal(lambda: at_seq("ulysses", 30)),
+        "ulysses_heads": _refusal(lambda: make_train_step(
+            _cfg(n_heads=6, d_model=96, attention="ulysses"), line, "cpu")),
+        "moe_ring": _refusal(lambda: make_train_step(
+            _cfg(moe_experts=4, attention="ring"), square, "cpu")),
+        "moe_ulysses": _refusal(lambda: make_train_step(
+            _cfg(moe_experts=4, attention="ulysses"), line, "cpu")),
+    }
+    return out
+
+
+def long_context(attention_args: tuple, train_args: tuple) -> dict:
+    """The whole rank side of ``tests/test_torch_long_context.py`` in one
+    spawn: :func:`_long_context_attention` and :func:`_long_context_train`
+    on their arguments."""
+    return {"attention": _long_context_attention(*attention_args),
+            "train": _long_context_train(*train_args)}

@@ -16,6 +16,13 @@ functions do.
   reference's.
 - :func:`all_to_all_exchange` and :func:`ppermute_hop`: the MoE dispatch
   collective and the unit hop of ring attention and pipelines.
+- :func:`all_to_all`: the tiled ``lax.all_to_all`` on one dim split and
+  another concatenated, Ulysses attention's re-shard.
+
+The hop and the all-to-all are differentiable, as ``lax.ppermute`` and
+``lax.all_to_all`` are: :class:`RingHop`'s backward sends the gradient
+the reverse way round the ring, :class:`AllToAll`'s runs the all-to-all
+with the two dims swapped.
 
 The ``measure_*`` functions keep the reference's payload sizing, chained
 timing (each call's output is the next call's input) and algbw / busbw
@@ -101,35 +108,92 @@ def ring_allreduce(mesh: DeviceMesh,
     return _ar
 
 
+class AllToAll(torch.autograd.Function):
+    """The tiled all-to-all over a group of *n* ranks: *x* is cut in *n*
+    equal pieces along *split*, piece j goes to rank j, and the pieces a
+    rank receives are concatenated along *concat* in rank order. The
+    backward is the all-to-all with *split* and *concat* swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, n, split, concat):
+        ctx.route = (group, n, split, concat)
+        return _all_to_all(x, group, n, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split, concat = ctx.route
+        return _all_to_all(g, group, n, concat, split), None, None, None, \
+            None
+
+
+def _all_to_all(x: torch.Tensor, group: dist.ProcessGroup, n: int,
+                split: int, concat: int) -> torch.Tensor:
+    split, concat = split % x.dim(), concat % x.dim()
+    if x.shape[split] % n:
+        raise ValueError(f"all_to_all: dim {split} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    parts = x.unflatten(split, (n, -1)).movedim(split, 0).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return out.movedim(0, concat).flatten(concat, concat + 1).contiguous()
+
+
+def all_to_all(mesh: DeviceMesh, axis: str = "model", split: int = 0,
+               concat: int = 0) -> Callable[..., torch.Tensor]:
+    """x -> the tiled all-to-all of x over *axis* (:class:`AllToAll`;
+    ``lax.all_to_all(x, axis, split, concat, tiled=True)``)."""
+    group, n = mesh.get_group(axis), axis_size(mesh, axis)
+
+    def _a2a(x: torch.Tensor) -> torch.Tensor:
+        return AllToAll.apply(x, group, n, split, concat)
+
+    return _a2a
+
+
 def all_to_all_exchange(mesh: DeviceMesh,
                         axis: str = "model") -> Callable[..., torch.Tensor]:
     """All-to-all over *axis*: device i's j-th chunk lands on device j as
     chunk i. The local shard is (n, chunk): one outgoing chunk per peer."""
-    group = mesh.get_group(axis)
+    return all_to_all(mesh, axis, 0, 0)
 
-    def _a2a(x: torch.Tensor) -> torch.Tensor:
-        out = torch.empty_like(x, memory_format=torch.contiguous_format)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
-        return out
 
-    return _a2a
+class RingHop(torch.autograd.Function):
+    """Send *x* to global rank *to* while receiving the same shape from
+    *frm*; the backward sends the gradient to *frm* and receives from
+    *to*."""
+
+    @staticmethod
+    def forward(ctx, x, group, to, frm):
+        ctx.route = (group, to, frm)
+        return _rotate(x, group, to, frm)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, to, frm = ctx.route
+        return _rotate(g, group, frm, to), None, None, None
+
+
+def _rotate(x: torch.Tensor, group: dist.ProcessGroup, to: int,
+            frm: int) -> torch.Tensor:
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _hop(x.contiguous(), out, group, to, frm)
+    return out
 
 
 def ppermute_hop(mesh: DeviceMesh,
                  axis: str = "model") -> Callable[..., torch.Tensor]:
     """One neighbor rotation over *axis*: rank r's shard goes to rank
-    (r+1) % n. The unit hop of both the ring attention KV rotation and the
-    pipeline stage handoff; its rate is the single-link bandwidth."""
+    (r+1) % n (:class:`RingHop`). The unit hop of both the ring attention
+    KV rotation and the pipeline stage handoff; its rate is the
+    single-link bandwidth."""
     group, me, ranks = _group(mesh, axis)
     n = len(ranks)
 
     def _rot(x: torch.Tensor) -> torch.Tensor:
         if n == 1:
             return x.clone()
-        out = torch.empty_like(x, memory_format=torch.contiguous_format)
-        _hop(x.contiguous(), out, group, ranks[(me + 1) % n],
-             ranks[(me - 1) % n])
-        return out
+        return RingHop.apply(x, group, ranks[(me + 1) % n],
+                             ranks[(me - 1) % n])
 
     return _rot
 

@@ -28,9 +28,19 @@ columns of ``wqkv``, its rows of ``wo``, its columns of ``w1`` and rows
 of ``w2``, and its rows of the vocabulary of the tied ``embed``. sp
 (``cfg.sequence_parallel``): the residual stream and the norms hold S /
 tp rows a rank, gathered before ``wqkv`` and ``w1`` and reduce-scattered
-after ``wo`` and ``w2``. Still refused: ring and Ulysses attention and
-the expert sharding of MoE (ROADMAP queue 1 item 7b; MoE runs on a
-"model" axis of 1), and a "dcn" axis (item 7c).
+after ``wo`` and ``w2``.
+
+**The sequence modes** (``attention="ring"`` or ``"ulysses"``, JAX
+``forward``'s long-context modes). With a mesh every parameter is
+replicated and all of "model" is spent on the sequence: the residual
+stream holds the rank's S / n rows from the embedding on
+(:class:`_SeqSpmd`), and attention is ring attention
+(``workloads/ring_attention.py``) or Ulysses attention
+(``workloads/ulysses.py``) over "model". Without a mesh a sequence-mode
+config runs the one-device forward, as the JAX ``forward`` does. Still
+refused: the expert sharding of MoE, MoE in a sequence mode (ROADMAP queue
+1 item 7b-ii; MoE runs on a "model" axis of 1), and a "dcn" axis (item
+7c).
 
 Parameters are a plain dict shaped like the JAX tree: ``embed (V, D)``,
 ``pos (max_seq, D)``, ``out_norm (D,)`` and ``layers``, a list of dicts
@@ -61,14 +71,18 @@ from .. import resolve_device
 from ..ops import flash_attention_vjp, fused_rmsnorm
 from .mesh import axis_size
 from .moe import init_moe_params, moe_ffn
+from .ring_attention import ring_attention
+from .ulysses import ulysses_attention
 
 _UNPORTED = {
-    "ring": "ROADMAP queue 1, item 7b: long context",
-    "ulysses": "ROADMAP queue 1, item 7b: long context",
-    "experts": "ROADMAP queue 1, item 7b: expert parallelism, "
-               "moe_param_specs",
+    "experts": "ROADMAP queue 1, item 7b-ii: expert parallelism, "
+               "moe_param_specs, MoE in the sequence modes",
     "dcn": "ROADMAP queue 1, item 7c: multi-slice",
 }
+
+#: the long-context attention modes: parameters replicated, the sequence
+#: sharded over "model"
+SEQUENCE_MODES = {"ring": ring_attention, "ulysses": ulysses_attention}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +97,9 @@ class TransformerConfig:
     #: with a mesh, shard the residual stream and the norms over "model"
     #: on S (does nothing without a mesh)
     sequence_parallel: bool = True
-    #: "standard" and "flash" both run the port's attention kernels
+    #: "standard" and "flash" both run the port's attention kernels; with a
+    #: mesh "ring" and "ulysses" shard the sequence over "model" (without
+    #: one they run the one-device forward)
     attention: str = "standard"
     #: recompute each layer on the backward pass (torch.utils.checkpoint,
     #: the port of jax.checkpoint): less activation memory, more FLOPs
@@ -115,11 +131,12 @@ def flagship_config(dtype: torch.dtype = torch.bfloat16) -> TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.attention in _UNPORTED:
-        raise NotImplementedError(f"attention={cfg.attention!r} is not "
-                                  f"ported yet ({_UNPORTED[cfg.attention]})")
-    if cfg.attention not in ("standard", "flash"):
+    if cfg.attention not in ("standard", "flash", *SEQUENCE_MODES):
         raise ValueError(f"unknown attention mode {cfg.attention!r}")
+    if cfg.moe_experts > 0 and cfg.attention in SEQUENCE_MODES:
+        raise NotImplementedError(
+            f"MoE with attention={cfg.attention!r} is not ported yet "
+            f"({_UNPORTED['experts']})")
 
 
 def _to_tensor(a: Any, dtype: torch.dtype,
@@ -296,9 +313,11 @@ def _same(t: torch.Tensor) -> torch.Tensor:
 
 class _Hooks:
     """The mesh hooks of :func:`layer` and :func:`forward` on one device:
-    every hook leaves its tensor as it is."""
+    every hook leaves its tensor as it is, and ``attend`` is the causal
+    flash attention."""
 
     enter = leave = batch_mean = staticmethod(_same)
+    attend = staticmethod(flash_attention_vjp)
 
     def embed(self, embed: torch.Tensor, tokens: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
@@ -350,20 +369,22 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 
     With a *mesh*, *params* are the rank's shards (:func:`shard_params`)
     and *tokens* the rank's batch shard; the logits are that shard's,
-    over the whole vocabulary, and equal the unsharded forward's rows."""
+    over the whole vocabulary, and equal the unsharded forward's rows. In
+    a sequence mode they are the rank's S / n columns of those rows
+    (:func:`seq_columns`)."""
     _check_supported(cfg)
     tokens = tokens.to(params["embed"].device)
-    hooks = _ONE_DEVICE if mesh is None else _Spmd(cfg, mesh,
-                                                   tokens.shape[1])
+    hooks = _ONE_DEVICE if mesh is None else _region(cfg, mesh,
+                                                     tokens.shape[1])
     # the position embedding is added before the cast, as in the JAX model
     x = hooks.embed(params["embed"], tokens, params["pos"]).to(cfg.dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x, aux = checkpoint(layer, x, lp, cfg, flash_attention_vjp,
-                                hooks, use_reentrant=False)
+            x, aux = checkpoint(layer, x, lp, cfg, hooks.attend, hooks,
+                                use_reentrant=False)
         else:
-            x, aux = layer(x, lp, cfg, flash_attention_vjp, hooks)  # causal
+            x, aux = layer(x, lp, cfg, hooks.attend, hooks)  # causal
         if aux is not None:
             aux_total = aux_total + aux
     x = fused_rmsnorm(x, params["out_norm"])
@@ -381,14 +402,22 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
     global batch's loss, the mean of the "data" ranks' means (equal
     shards). Its backward leaves on each rank the gradient of its own
     shard's loss; ``make_train_step`` averages the gradients over "data"
-    to match."""
+    to match. In a sequence mode a rank's shard is its S / n columns of
+    those rows: the value is also the mean over "model", the same on every
+    rank, and the backward leaves on each rank the gradient of its own
+    columns' share of it, which ``make_train_step`` sums over "model"."""
     logits, aux = forward(params, batch["tokens"], cfg, mesh,
                           return_aux=True)
     targets = batch["targets"].to(logits.device).long()
+    if mesh is not None and cfg.attention in SEQUENCE_MODES:
+        targets = seq_columns(targets, mesh)
     nll = F.cross_entropy(logits.flatten(0, 1), targets.flatten())
     loss = nll + cfg.moe_aux_weight * aux
     if mesh is None:
         return loss
+    if cfg.attention in SEQUENCE_MODES:  # each rank's share of the sum
+        loss = _ReduceFromModel.apply(loss / axis_size(mesh, "model"),
+                                      mesh.get_group("model"))
     return _MeanOver.apply(loss, mesh.get_group("data"),
                            axis_size(mesh, "data"))
 
@@ -401,8 +430,14 @@ def param_specs(cfg: TransformerConfig) -> dict:
     None for a whole dim); ``()`` is a replicated leaf. tp shards heads
     and ff over "model" (column-parallel ``wqkv`` / ``w1``, row-parallel
     ``wo`` / ``w2``), the tied embedding its vocabulary, and a MoE layer
-    its experts; norms and ``pos`` replicate."""
+    its experts; norms and ``pos`` replicate. In a sequence mode every
+    leaf replicates: all of "model" is spent on the sequence."""
     _check_supported(cfg)
+    if cfg.attention in SEQUENCE_MODES:
+        names = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+        return {"embed": (), "pos": (), "out_norm": (),
+                "layers": [dict.fromkeys(names, ())
+                           for _ in range(cfg.n_layers)]}
     layers = []
     for i in range(cfg.n_layers):
         lp = {"ln1": (), "ln2": (), "wqkv": (None, "model"),
@@ -426,10 +461,14 @@ def _batch_axes(mesh: Optional[DeviceMesh]) -> Any:
     return "data"
 
 
-def check_mesh(cfg: TransformerConfig, mesh: DeviceMesh) -> None:
+def check_mesh(cfg: TransformerConfig, mesh: DeviceMesh,
+               seq: Optional[int] = None) -> None:
     """Refuse what the sharded forward does not run: a "dcn" axis (item
-    7c), MoE on a "model" axis larger than 1 (its expert sharding is item
-    7b), and meshes without exactly the axes "data" and "model"."""
+    7c), MoE on a "model" axis larger than 1 or in a sequence mode (item
+    7b-ii), meshes without exactly the axes "data" and "model", and shapes
+    that do not split over "model": a sequence of *seq* tokens in a
+    sequence mode or under sequence parallelism, the heads in tp and
+    Ulysses, and the vocabulary and ``d_ff`` in tp."""
     _check_supported(cfg)
     names = tuple(mesh.mesh_dim_names or ())
     if "dcn" in names:
@@ -444,8 +483,21 @@ def check_mesh(cfg: TransformerConfig, mesh: DeviceMesh) -> None:
         raise NotImplementedError(
             f"MoE on a 'model' axis of {tp} is not ported yet "
             f"({_UNPORTED['experts']})")
-    for what, n in (("n_heads", cfg.n_heads), ("vocab", cfg.vocab),
-                    ("d_ff", cfg.d_ff)):
+    seq_mode = cfg.attention in SEQUENCE_MODES
+    split_seq = seq_mode or cfg.sequence_parallel
+    if seq is not None and split_seq and seq % tp:
+        what = f"{cfg.attention} attention" if seq_mode \
+            else "sequence parallelism"
+        raise ValueError(f"{what}: S {seq} does not split over a 'model' "
+                         f"axis of {tp}")
+    if cfg.attention == "ring":
+        splits = ()
+    elif cfg.attention == "ulysses":
+        splits = (("n_heads", cfg.n_heads),)
+    else:
+        splits = (("n_heads", cfg.n_heads), ("vocab", cfg.vocab),
+                  ("d_ff", cfg.d_ff))
+    for what, n in splits:
         if n % tp:
             raise ValueError(f"{what} {n} does not split over a 'model' "
                              f"axis of {tp}")
@@ -649,15 +701,12 @@ class _Spmd(_Hooks):
 
     def __init__(self, cfg: TransformerConfig, mesh: DeviceMesh,
                  seq: int) -> None:
-        check_mesh(cfg, mesh)
+        check_mesh(cfg, mesh, seq)
         self.group = mesh.get_group("model")
         self.n, self.rank = axis_size(mesh, "model"), \
             mesh.get_local_rank("model")
         self.data, self.dp = mesh.get_group("data"), axis_size(mesh, "data")
         self.sp = cfg.sequence_parallel
-        if self.sp and seq % self.n:
-            raise ValueError(f"sequence parallelism: S {seq} does not split "
-                             f"over a 'model' axis of {self.n}")
 
     def enter(self, h: torch.Tensor) -> torch.Tensor:
         if self.sp:
@@ -694,6 +743,44 @@ class _Spmd(_Hooks):
         gathered into the whole vocabulary."""
         local = logits_of(self.enter(x), embed)
         return _GatherVocab.apply(local, self.group, self.n, self.rank)
+
+
+def seq_columns(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's S / n columns of a (B, S, ...) tensor in a sequence
+    mode: rank r of "model" holds columns [r S / n, (r+1) S / n)."""
+    n, rank = axis_size(mesh, "model"), mesh.get_local_rank("model")
+    s = t.shape[1] // n
+    return t[:, rank * s:(rank + 1) * s]
+
+
+class _SeqSpmd(_Hooks):
+    """The SPMD region of a sequence mode: every parameter replicated, the
+    residual stream the rank's S / n rows from the embedding on, so
+    ``enter`` and ``leave`` are identities and the only collectives are
+    attention's (ring hops, or Ulysses' all-to-alls, over "model") and the
+    loss's. The logits are the rank's rows over the whole vocabulary."""
+
+    def __init__(self, cfg: TransformerConfig, mesh: DeviceMesh,
+                 seq: int) -> None:
+        check_mesh(cfg, mesh, seq)
+        self.mesh = mesh
+        self.attend = SEQUENCE_MODES[cfg.attention](mesh, "model",
+                                                    causal=True)
+
+    def embed(self, embed: torch.Tensor, tokens: torch.Tensor,
+              pos: torch.Tensor) -> torch.Tensor:
+        """The replicated lookup of the rank's columns, plus their rows
+        of ``pos``."""
+        cols = seq_columns(tokens, self.mesh)
+        s, r = cols.shape[1], self.mesh.get_local_rank("model")
+        return embed[cols] + pos[r * s:(r + 1) * s]
+
+
+def _region(cfg: TransformerConfig, mesh: DeviceMesh, seq: int) -> _Hooks:
+    """The SPMD region of a forward over *mesh* at *seq* tokens."""
+    if cfg.attention in SEQUENCE_MODES:
+        return _SeqSpmd(cfg, mesh, seq)
+    return _Spmd(cfg, mesh, seq)
 
 
 def make_example_batch(cfg: TransformerConfig, batch: int = 8,

@@ -2,18 +2,19 @@
 
 Port of ``dpu_operator_tpu/workloads/model.py::make_train_step``: the
 step is ``loss_fn`` -> backward -> AdamW, on one device or, with a mesh,
-dp/tp/sp-sharded (``model.py``'s sharded forward): every rank runs the
-step on its parameter shards and its batch shard, the gradients are
-averaged over "data" (and summed over "model" for the leaves that
-sequence parallelism leaves partial), and AdamW updates the shards, which
-is AdamW on the whole tree because every one of its operations is
-elementwise. Ring and Ulysses attention and expert parallelism (ROADMAP
-queue 1 item 7b) and pipelines, multi-slice and re-sharding (7c) are not
-ported yet. The optimizer is ``optax.adamw(lr)``'s: betas (0.9, 0.999),
-eps 1e-8, weight decay 1e-4 (torch's AdamW defaults to 1e-2), decay
-applied to every parameter with the parameter from before the step,
-first and second moments kept in the parameters' type as optax keeps
-them (bf16 for the bf16 flagship).
+dp/tp/sp-sharded or sequence-sharded by ring or Ulysses attention
+(``model.py``'s sharded forward): every rank runs the step on its
+parameter shards and its batch shard (in a sequence mode, its S / n
+columns of it), the gradients are averaged over "data" (and summed over
+"model" for the leaves that sequence parallelism or a sequence mode leaves
+partial), and AdamW updates the shards, which is AdamW on the whole tree
+because every one of its operations is elementwise. Expert parallelism
+(ROADMAP queue 1 item 7b-ii) and pipelines, multi-slice and re-sharding
+(7c) are not ported yet. The optimizer is ``optax.adamw(lr)``'s: betas
+(0.9, 0.999), eps 1e-8, weight decay 1e-4 (torch's AdamW defaults to
+1e-2), decay applied to every parameter with the parameter from before
+the step, first and second moments kept in the parameters' type as optax
+keeps them (bf16 for the bf16 flagship).
 
 **In place.** The JAX step returns new parameters and optimizer state; this
 one updates the parameter tensors and the optimizer it is given and returns
@@ -30,8 +31,9 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
 from .mesh import axis_size, mesh_device
-from .model import (TransformerConfig, batch_shard, check_mesh, init_params,
-                    loss_fn, param_specs, shard_params)
+from .model import (SEQUENCE_MODES, TransformerConfig, batch_shard,
+                    check_mesh, init_params, loss_fn, param_specs,
+                    shard_params)
 
 
 def _map_layer(fn, lp: dict) -> dict:
@@ -78,12 +80,15 @@ def _reduce_grads(params: dict, cfg: TransformerConfig,
     """The sharded step's gradient collectives, each over one flat buffer:
     the mean over "data" of every leaf, then under sequence parallelism the
     sum over "model" of the replicated leaves (``pos`` and the norm
-    scales), whose gradients each rank took from its S / tp rows only."""
+    scales), whose gradients each rank took from its S / tp rows only. In
+    a sequence mode every leaf is replicated and each rank's gradient
+    comes from its S / n columns, so every leaf is summed over "model",
+    whatever ``sequence_parallel`` says."""
     leaves = param_leaves(params)
     specs = [s for _, s in named_leaves(param_specs(cfg))]
     _all_reduce_into([p.grad for p in leaves], mesh.get_group("data"),
                      axis_size(mesh, "data"))
-    if cfg.sequence_parallel:
+    if cfg.sequence_parallel or cfg.attention in SEQUENCE_MODES:
         _all_reduce_into([p.grad for p, s in zip(leaves, specs)
                           if "model" not in s], mesh.get_group("model"), 1)
 

@@ -267,8 +267,11 @@ def test_default_device_is_cuda_and_raises_without_it(f32, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(attention="ring"), r"not ported yet \(ROADMAP queue 1, item 7"),
-    (dict(attention="ulysses"), r"not ported yet \(ROADMAP queue 1, item 7"),
+    # MoE in a sequence mode (ring and Ulysses alone are ported)
+    (dict(attention="ring", moe_experts=4),
+     r"not ported yet \(ROADMAP queue 1, item 7"),
+    (dict(attention="ulysses", moe_experts=4),
+     r"not ported yet \(ROADMAP queue 1, item 7"),
 ])
 def test_unported_modes_raise(change, match):
     import dataclasses
