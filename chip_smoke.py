@@ -187,6 +187,7 @@ checkout's kernels.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -3567,6 +3568,416 @@ def phase_long_context(cfg, dense: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 15 -----------------------------------------------------------------
+#: phase 15 (b): the flagship's microbatches (4 of 2 x 1024 from phase 7's
+#: batch of 8)
+PP_MICRO = 4
+#: phase 15 (e)'s tiny models: the MoE of tests/test_moe_pipeline.py:58
+#: (routed on the expert-parallel path and in each sequence mode) and the
+#: 4-stage pipeline model of :96, in fp32
+TINY_MOE = dict(n_layers=2, d_model=32, n_heads=4, d_ff=64, max_seq=32,
+                vocab=128, moe_experts=8)
+TINY_PP = dict(n_layers=4, d_model=32, n_heads=4, d_ff=64, max_seq=16,
+               vocab=64)
+
+
+@contextlib.contextmanager
+def _one_rank_mesh(names: tuple, make=None):
+    """A new one-rank NCCL mesh of *names* (``make_mesh`` forms the group
+    as a lone pod does; *make* replaces it), the group destroyed after."""
+    import torch.distributed as dist
+    from dpu_operator_tpu_torch.workloads.mesh import make_mesh, mesh_shape
+    require(not dist.is_initialized(), "phase 15: a process group exists")
+    mesh = (make or (lambda: make_mesh(names, device_type="cuda")))()
+    try:
+        require(mesh.mesh_dim_names == names
+                and set(mesh_shape(mesh).values()) == {1},
+                f"phase 15: mesh {mesh_shape(mesh)}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def _counted(fn):
+    """``(fn(), launches)``: the launch counters set to 0 just before
+    *fn* and read just after it."""
+    import torch
+    from dpu_operator_tpu_torch.ops import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def _require_train_launches(label: str, counts: dict, steps: int,
+                            attention: int, norms: int) -> None:
+    """Each training kernel *attention* times a step, RMSNorm *norms*."""
+    for name in TRAIN_KERNELS:
+        require(counts[name] == attention * steps,
+                f"phase 15 {label}: {name} launched {counts[name]} times, "
+                f"wanted {attention} a step")
+    require(counts["fused_rmsnorm"] == norms * steps,
+            f"phase 15 {label}: fused_rmsnorm launched "
+            f"{counts['fused_rmsnorm']} times, wanted {norms} a step")
+
+
+def _train_gate(label: str, perf, want: list, want_ms: float,
+                smi: str) -> dict:
+    """Loss falling, the first 3 losses within 1e-2 of *want* (the
+    one-device run's), and the numbers printed beside *want_ms*."""
+    losses = perf.losses
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"phase 15 {label}: losses {losses}")
+    near = [abs(a - b) for a, b in zip(losses[:3], want[:3])]
+    require(max(near) <= 1e-2, f"phase 15 {label}: first losses "
+            f"{losses[:3]} vs the one-device run's {want[:3]}")
+    ratio = perf.step_ms / want_ms
+    log(f"[ep/pp/dcn] {label}: step {perf.step_ms:.2f} ms against the "
+        f"one-device step's {want_ms:.2f} ms (ratio {ratio:.4f}), "
+        f"{perf.tokens_per_s:.0f} tokens/s, MFU {perf.mfu:.4f}, peak memory "
+        f"{perf.peak_memory_bytes / 1e9:.2f} GB; first-loss gap "
+        f"{max(near):.3g}; losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; {smi}")
+    return {"step_ms": perf.step_ms, "ratio": ratio,
+            "tokens_per_s": perf.tokens_per_s, "mfu": perf.mfu,
+            "peak_memory_gb": perf.peak_memory_bytes / 1e9,
+            "losses": losses, "first_loss_gap": max(near)}
+
+
+def _profiled_step(label: str, make_step, seed: int = 1) -> dict:
+    """One profiled step on a fresh state (:func:`profile_calls`)."""
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import FLAGSHIP_BATCH
+    step, init_state, place, cfg = make_step()
+    params, opt = init_state(seed)
+    data = place(make_example_batch(cfg, batch=FLAGSHIP_BATCH))
+    return profile_calls(label, lambda: step(params, opt, data), 2,
+                         warmup=1)
+
+
+def _ep_phase(cfg, moe: dict, smi: str) -> tuple:
+    """Phase 15 (a): the MoE flagship (phase 12's model) through
+    ``measure_train(cfg, mesh)`` on a one-rank ("data", "model") mesh:
+    the expert-parallel hook (the rank holds all 8 experts), then with
+    ``attention="ulysses"`` (the column routing). Each: 1 warm-up and 5
+    timed steps from phase 12's seed and batch, the loss falling, the
+    first 3 losses within 1e-2 of phase 12's one-device run, the training
+    kernels 12 launches a step and RMSNorm 25; one profiled step."""
+    import torch
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       measure_train)
+    from dpu_operator_tpu_torch.workloads.train import make_train_step
+    out, launches = {}, []
+    for mode in (cfg.attention, "ulysses"):
+        mcfg = dataclasses.replace(cfg, moe_experts=MOE_EXPERTS,
+                                   attention=mode)
+        with _one_rank_mesh(("data", "model")) as mesh:
+            torch.cuda.reset_peak_memory_stats()
+            perf, counts = _counted(lambda: measure_train(
+                mcfg, mesh, batch=FLAGSHIP_BATCH, steps=5, device="cuda"))
+            _require_train_launches(f"(a) {mode}", counts, 6,
+                                    cfg.n_layers, 2 * cfg.n_layers + 1)
+            out[mode] = _train_gate(
+                f"(a) ep MoE flagship, attention={mode}", perf,
+                moe["losses"], moe["step_ms"], smi)
+            out[mode]["profiled_step"] = _profiled_step(
+                f"ep MoE train step, attention={mode}, one rank",
+                lambda: (*make_train_step(mcfg, mesh, device="cuda"), mcfg))
+            launches.append(counts)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _pp_phase(cfg, dense: dict, smi: str) -> tuple:
+    """Phase 15 (b): the flagship as one stage of 12 layers on a one-rank
+    ("pipe", "data") mesh, :data:`PP_MICRO` microbatches of 2 x 1024:
+    the pipelined logits against ``sequential_forward`` within
+    ``TOL["bfloat16"]`` (:func:`scaled_err`); then
+    ``make_pipeline_train_step``, 1 warm-up and 5 steps between two CUDA
+    events (each training kernel 12 x 4 launches a step, RMSNorm 4 x 24 +
+    1), the loss falling; step ms, MFU and peak memory; one profiled
+    step."""
+    import torch
+    from dpu_operator_tpu_torch.workloads import pipeline as pp
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       peak_tflops,
+                                                       train_step_flops)
+    launches = []
+    with _one_rank_mesh(("pipe", "data")) as mesh:
+        batch = make_example_batch(cfg, batch=FLAGSHIP_BATCH)
+        step, init_state, place = pp.make_pipeline_train_step(
+            cfg, mesh, PP_MICRO, device="cuda")
+        params, opt = init_state(0)
+        data = place(batch)
+        with torch.no_grad():
+            got, counts = _counted(lambda: step.forward(params,
+                                                        data["tokens"]))
+            launches.append(counts)
+            want = pp.sequential_forward(cfg, params, data["tokens"])
+        err, scaled = scaled_err(got, want)
+        require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                and scaled <= TOL["bfloat16"],
+                f"phase 15 (b): pipelined logits vs sequential_forward: "
+                f"{err:.3g} ({scaled:.3g} scaled)")
+        log(f"[ep/pp/dcn] (b) pipelined forward, {PP_MICRO} microbatches, "
+            f"one stage: logits vs sequential_forward max |diff| {err:.3g}, "
+            f"scaled {scaled:.3g} (bound {TOL['bfloat16']}); hops "
+            f"{step.forward.hops} (one stage: none)")
+        del got, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        steps = 5
+
+        def run() -> tuple:
+            losses = [step(params, opt, data)[2]]   # warm-up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses += [step(params, opt, data)[2] for _ in range(steps)]
+            end.record()
+            torch.cuda.synchronize()
+            return [float(x) for x in losses], \
+                start.elapsed_time(end) / steps
+
+        (losses, ms), counts = _counted(run)
+        launches.append(counts)
+        ticks = PP_MICRO  # + one stage - 1
+        _require_train_launches("(b)", counts, steps + 1,
+                                ticks * cfg.n_layers,
+                                ticks * 2 * cfg.n_layers + 1)
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"phase 15 (b): losses {losses}")
+        name = torch.cuda.get_device_name(0)
+        tflops = train_step_flops(cfg, FLAGSHIP_BATCH, cfg.max_seq) \
+            / (ms / 1e3) / 1e12
+        out = {"step_ms": ms, "ratio": ms / dense["step_ms"],
+               "tokens_per_s": FLAGSHIP_BATCH * cfg.max_seq / ms * 1e3,
+               "mfu": tflops / peak_tflops(name),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses, "logits_scaled_err": scaled}
+        log(f"[ep/pp/dcn] (b) pipeline train, flagship as 1 stage, "
+            f"{PP_MICRO} microbatches of 2x{cfg.max_seq}: step {ms:.2f} ms "
+            f"against phase 7's {dense['step_ms']:.2f} ms (ratio "
+            f"{out['ratio']:.4f}), {out['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{out['mfu']:.4f}, peak memory {out['peak_memory_gb']:.2f} GB; "
+            "losses " + ", ".join(f"{x:.4f}" for x in losses) + f"; {smi}")
+        del params, opt
+        torch.cuda.empty_cache()
+
+        def pipeline_step():
+            st, init, pl = pp.make_pipeline_train_step(cfg, mesh, PP_MICRO,
+                                                       device="cuda")
+            return st, init, pl, cfg
+
+        out["profiled_step"] = _profiled_step(
+            "pipeline train step, one stage", pipeline_step)
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def _dcn_phase(cfg, dense: dict, smi: str) -> tuple:
+    """Phase 15 (c): ``make_multislice_mesh(1)`` on one rank, a (1, 1, 1)
+    ("dcn", "data", "model") mesh: ``hierarchical_allreduce`` and
+    ``flat_allreduce`` on :data:`COLLECTIVE_MBYTES` each return their
+    input; ``measure_train(cfg, mesh)`` of the flagship (1 warm-up and 5
+    steps from phase 7's seed and batch, the first 3 losses within 1e-2
+    of phase 7's, the training kernels 12 a step, RMSNorm 25); one
+    profiled step."""
+    import torch
+    from dpu_operator_tpu_torch.workloads import multislice as ms
+    from dpu_operator_tpu_torch.workloads.perf import (FLAGSHIP_BATCH,
+                                                       measure_train)
+    from dpu_operator_tpu_torch.workloads.train import make_train_step
+    names = ("dcn", "data", "model")
+    with _one_rank_mesh(names, lambda: ms.make_multislice_mesh(
+            1, device_type="cuda")) as mesh:
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        x = torch.randn(int(COLLECTIVE_MBYTES * 1e6 / 4), device="cuda",
+                        generator=gen)
+        times = {}
+        for label, make in (("hierarchical", ms.hierarchical_allreduce),
+                            ("flat", ms.flat_allreduce)):
+            fn = make(mesh)
+            y = fn(x)
+            torch.cuda.synchronize()
+            require(torch.equal(y, x), f"phase 15 (c): {label}_allreduce "
+                    "on one rank changed its input")
+            times[label] = cuda_ms(lambda: fn(x), 10)
+        log(f"[ep/pp/dcn] (c) on ONE rank (no link crossed: local copies) "
+            f"{COLLECTIVE_MBYTES:.0f} MB: hierarchical_allreduce "
+            f"{times['hierarchical']:.4f} ms, flat_allreduce "
+            f"{times['flat']:.4f} ms; dcn_bytes_per_host(64 MB, n_ici 1, 1 "
+            f"slice) = {ms.dcn_bytes_per_host(int(COLLECTIVE_MBYTES * 1e6), 1, 1)}")
+        torch.cuda.reset_peak_memory_stats()
+        perf, counts = _counted(lambda: measure_train(
+            cfg, mesh, batch=FLAGSHIP_BATCH, steps=5, device="cuda"))
+        _require_train_launches("(c)", counts, 6, cfg.n_layers,
+                                2 * cfg.n_layers + 1)
+        out = _train_gate("(c) dcn flagship", perf, dense["losses"],
+                          dense["step_ms"], smi)
+        out["allreduce_ms"] = times
+        out["profiled_step"] = _profiled_step(
+            "multi-slice train step, one rank",
+            lambda: (*make_train_step(cfg, mesh, device="cuda"), cfg))
+    torch.cuda.empty_cache()
+    return out, [counts]
+
+
+def _restore_phase(cfg, smi: str) -> tuple:
+    """Phase 15 (d): the flagship's sharded step on a one-rank ("data",
+    "model") mesh: a step, ``TrainCheckpointer.save`` with the mesh, one
+    more step (the unbroken run); then a fresh one-device state restored
+    from the file with no mesh, and one step whose loss lies within 1e-2
+    of the unbroken run's. The checkpoint goes to ``build/`` under the
+    checkout and is removed."""
+    import shutil
+    import torch
+    from dpu_operator_tpu_torch.workloads.checkpoint import TrainCheckpointer
+    from dpu_operator_tpu_torch.workloads.model import make_example_batch
+    from dpu_operator_tpu_torch.workloads.perf import FLAGSHIP_BATCH
+    from dpu_operator_tpu_torch.workloads.train import make_train_step
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_ckpt")
+    shutil.rmtree(where, ignore_errors=True)
+    batch = make_example_batch(cfg, batch=FLAGSHIP_BATCH)
+
+    def run() -> dict:
+        ckpt = TrainCheckpointer(where, keep=1)
+        with _one_rank_mesh(("data", "model")) as mesh:
+            step, init_state, place = make_train_step(cfg, mesh, "cuda")
+            params, opt = init_state(0)
+            data = place(batch)
+            first = float(step(params, opt, data)[2])
+            t0 = time.monotonic()
+            ckpt.save(1, params, opt, mesh=mesh, cfg=cfg)
+            torch.cuda.synchronize()
+            save_s = time.monotonic() - t0
+            unbroken = float(step(params, opt, data)[2])
+            del params, opt
+        torch.cuda.empty_cache()
+        step, init_state, place = make_train_step(cfg, device="cuda")
+        params, opt = init_state(3)
+        t0 = time.monotonic()
+        _, _, n = ckpt.restore(params, opt)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
+        resumed = float(step(params, opt, place(batch))[2])
+        nbytes = os.path.getsize(ckpt._path(n))
+        return {"first": first, "unbroken": unbroken, "resumed": resumed,
+                "save_s": save_s, "restore_s": load_s, "bytes": nbytes}
+
+    try:
+        out, counts = _counted(run)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    gap = abs(out["resumed"] - out["unbroken"])
+    require(gap <= 1e-2, f"phase 15 (d): restored onto one device, loss "
+            f"{out['resumed']} vs the unbroken run's {out['unbroken']}")
+    log(f"[ep/pp/dcn] (d) saved on the one-rank mesh after 1 step "
+        f"({out['bytes'] / 1e9:.2f} GB global state, {out['save_s']:.2f} s), "
+        f"restored onto one device with no mesh ({out['restore_s']:.2f} s): "
+        f"next loss {out['resumed']:.6f} vs the unbroken run's "
+        f"{out['unbroken']:.6f} (gap {gap:.3g}); {smi}")
+    out["gap"] = gap
+    torch.cuda.empty_cache()
+    return out, [counts]
+
+
+def _new_modes_tiny_parity() -> list:
+    """Phase 15 (e): tiny fp32 models in each new mode on the card, each
+    through a new one-rank mesh, against the port's one-device forward of
+    the same weights on the CPU, within ``TOL["float32"]``: MoE on the
+    expert-parallel path, with ring and with Ulysses attention; the
+    4-stage pipeline model as one stage of 4 layers against
+    ``sequential_forward``; the dense model on a (1, 1, 1) multi-slice
+    mesh."""
+    import torch
+    from dpu_operator_tpu_torch.workloads import multislice as ms
+    from dpu_operator_tpu_torch.workloads import pipeline as pp
+    from dpu_operator_tpu_torch.workloads.model import (
+        TransformerConfig, forward, init_params, make_example_batch,
+        shard_tree)
+    from dpu_operator_tpu_torch.workloads.train import map_params
+
+    def hold(label: str, got, want) -> None:
+        err, scaled = scaled_err(got.cpu(), want)
+        require(got.shape == want.shape and bool(torch.isfinite(got).all())
+                and scaled <= TOL["float32"],
+                f"phase 15 (e): tiny fp32 {label} on the card vs the CPU: "
+                f"{err:.3g} ({scaled:.3g} scaled)")
+        log(f"[ep/pp/dcn] (e) tiny fp32 {label} vs the CPU: max |diff| "
+            f"{err:.3g}, scaled {scaled:.3g} (bound {TOL['float32']})")
+
+    def card(tree):
+        return map_params(lambda t: t.cuda(), tree)
+
+    launches = []
+    for mode in ("standard", "ring", "ulysses"):
+        cfg = TransformerConfig(dtype=torch.float32, attention=mode,
+                                **TINY_MOE)
+        weights = init_params(20, cfg, device="cpu")
+        tokens = make_example_batch(cfg, batch=2)["tokens"]
+        with torch.no_grad():
+            want = forward(weights, tokens, cfg)
+            with _one_rank_mesh(("data", "model")) as mesh:
+                got, counts = _counted(lambda: forward(
+                    card(weights), tokens.cuda(), cfg, mesh))
+        launches.append(counts)
+        hold(f"MoE, attention={mode}", got, want)
+    cfg = TransformerConfig(dtype=torch.float32, **TINY_PP)
+    weights = pp.init_pipeline_params(20, cfg, 1, device="cpu")
+    tokens = make_example_batch(cfg, batch=8)["tokens"]
+    with torch.no_grad():
+        want = pp.sequential_forward(cfg, weights, tokens)
+        with _one_rank_mesh(("pipe", "data")) as mesh:
+            fwd = pp.make_pipeline_forward(cfg, mesh, PP_MICRO)
+            got, counts = _counted(lambda: fwd(shard_tree(
+                card(weights), pp.pipeline_param_specs(), mesh),
+                tokens.cuda()))
+    launches.append(counts)
+    hold("pipeline, 4 microbatches", got, want)
+    cfg = TransformerConfig(dtype=torch.float32, **TINY_PP)
+    weights = init_params(20, cfg, device="cpu")
+    with torch.no_grad():
+        want = forward(weights, tokens, cfg)
+        with _one_rank_mesh(("dcn", "data", "model"),
+                          lambda: ms.make_multislice_mesh(
+                              1, device_type="cuda")) as mesh:
+            got, counts = _counted(lambda: forward(card(weights),
+                                                   tokens.cuda(), cfg, mesh))
+    launches.append(counts)
+    hold("multi-slice", got, want)
+    return launches
+
+
+def phase_ep_pp_dcn(cfg, dense: dict, moe: dict, smi: str) -> dict:
+    """Phase 15: expert parallelism, the pipeline, multi-slice and the
+    re-sharding restore, each on a new one-rank NCCL mesh (the card's
+    machine has one H100; NCCL takes one rank a card): (a)
+    :func:`_ep_phase`, (b) :func:`_pp_phase`, (c) :func:`_dcn_phase`, (d)
+    :func:`_restore_phase`, (e) :func:`_new_modes_tiny_parity`. Each
+    run's launch counters are set to 0 just before it and read just after
+    it. *dense* is phase 7's numbers, *moe* phase 12's training numbers.
+    Returns the phase's numbers and launches."""
+    t0 = time.monotonic()
+    ep, launches = _ep_phase(cfg, moe, smi)
+    pp, counts = _pp_phase(cfg, dense, smi)
+    launches += counts
+    dcn, counts = _dcn_phase(cfg, dense, smi)
+    launches += counts
+    restore, counts = _restore_phase(cfg, smi)
+    launches += counts
+    launches += _new_modes_tiny_parity()
+    out = {"ep": ep, "pp": pp, "dcn": dcn, "restore": restore,
+           "seconds": time.monotonic() - t0}
+    log("[ep/pp/dcn] " + json.dumps(out))
+    out["launches"] = {k: sum(c[k] for c in launches) for k in launches[0]}
+    log(f"[ep/pp/dcn] launches of the phase ({out['seconds']:.1f} s): "
+        f"{out['launches']}")
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3612,23 +4023,29 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     wide_counts = phase_wide(wide_config(cfg))
     torch.cuda.empty_cache()
-    moe_counts = phase_moe(cfg, {
+    moe = phase_moe(cfg, {
         "tokens_per_s": serve["runs"]["plain"]["tokens_per_s"],
         "decode_iteration": window["decode iteration (8 slots)"],
         "step_ms": train["step_ms"], "mfu": train["mfu"],
-        "peak_memory_gb": train["peak_memory_gb"]})["launches"]
+        "peak_memory_gb": train["peak_memory_gb"]})
+    moe_counts = moe["launches"]
     torch.cuda.empty_cache()
     sharded_counts = phase_sharded(cfg, train, dev["smi"])["launches"]
     torch.cuda.empty_cache()
     long_counts = phase_long_context(cfg, train, dev["smi"])["launches"]
+    torch.cuda.empty_cache()
+    new_counts = phase_ep_pp_dcn(cfg, train, moe["train"],
+                                 dev["smi"])["launches"]
     # each kernel's launches on the main paths (phase 4's fp32 models, the
     # four serve runs, the two chaos runs, the wire run, the train run, the
     # quantized phase, the measurement phase, the MoE phase, the sharded
-    # phase and the long-context phase), each read from zero; a
+    # phase, the long-context phase and phase 15's expert-parallel,
+    # pipeline, multi-slice and restore runs), each read from zero; a
     # head-dim-256 case's from phase 10, the path of that head dim
     counts = {k: counts[k] + parity_counts[k] + train_counts[k]
               + quant_counts[k] + measure_counts[k] + moe_counts[k]
-              + sharded_counts[k] + long_counts[k] for k in counts}
+              + sharded_counts[k] + long_counts[k] + new_counts[k]
+              for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"],

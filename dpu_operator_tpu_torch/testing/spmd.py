@@ -21,7 +21,8 @@ port only: a target in a test file would load JAX in every rank.
   :func:`spawn` returns or raises, so no process is left behind.
 
 The targets below are the rank side of ``tests/test_torch_mesh.py``,
-``tests/test_torch_spmd.py`` and ``tests/test_torch_long_context.py``:
+``tests/test_torch_spmd.py``, ``tests/test_torch_long_context.py``,
+``tests/test_torch_expert_parallel.py`` and ``tests/test_torch_pipeline.py``:
 each computes several results a spawn and returns them as numpy arrays
 and plain values, which the tests hold against the JAX package in the
 parent process.
@@ -130,7 +131,8 @@ def spawn(target: Callable, world: int, store_dir: str, args: tuple = (),
 # -- rank side: helpers -------------------------------------------------------
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """A copy: an fp32 CPU tensor's ``numpy()`` shares its memory."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 def _refusal(fn: Callable) -> tuple:
@@ -145,6 +147,25 @@ def _refusal(fn: Callable) -> tuple:
 
 def _coords(mesh: Any) -> tuple:
     return mesh.get_local_rank("data"), mesh.get_local_rank("model")
+
+
+def _first_loss(cfg: Any, mesh: Any, case: tuple) -> tuple:
+    """``(refusal, loss)``: one sharded step of *cfg* on *mesh* from the
+    bridged tree and global batch of *case* (``(tree, tokens,
+    targets)``); the refusal is ``(None, None)`` when the step runs, and
+    the loss is then the step's (the global batch's loss at the tree)."""
+    from ..workloads.model import params_from_numpy
+    from ..workloads.train import make_train_step
+    got: list = []
+
+    def run() -> None:
+        tree, tokens, targets = case
+        step, init_state, place = make_train_step(cfg, mesh, "cpu")
+        params, opt = init_state(params=params_from_numpy(tree, cfg, "cpu"))
+        got.append(float(step(params, opt, place(_batch(tokens,
+                                                         targets)))[2]))
+
+    return _refusal(run), (got[0] if got else None)
 
 
 # -- rank side of tests/test_torch_mesh.py ------------------------------------
@@ -276,12 +297,16 @@ def train_parity(np_tree: dict, tokens: np.ndarray, targets: np.ndarray,
     return out
 
 
-def train_behaviour() -> dict:
+def train_behaviour(runs: dict) -> dict:
     """The rest of the sharded step's checks on a (2, 4) mesh unless
     named: the bf16 default model's loss over 5 steps; remat against no
     remat (loss and reduced gradients); the parameter shards' shapes;
     MoE on an (8, 1) mesh against the one-device step; ``measure_train``
-    on the mesh; and the refusals."""
+    on the mesh; and the refusals. The modes that once were refused run
+    one step each from the bridged trees and batches of *runs* (keys
+    ``moe_tp``: MoE on (2, 4); ``ring``: MoE with ring attention on (2,
+    4); ``dcn``: a ("dcn", "data", "model") mesh of (2, 2, 2)): their
+    refusal reads ``(None, None)`` and ``runs`` holds the loss."""
     from ..workloads.mesh import make_mesh
     from ..workloads.model import make_example_batch, param_specs
     from ..workloads.perf import measure_train
@@ -324,20 +349,22 @@ def train_behaviour() -> dict:
     out["perf"] = dataclasses.asdict(perf)
 
     moe = _cfg(moe_experts=4, max_seq=16, dtype=torch.float32)
-    out["refusals"] = {
-        "moe_tp": _refusal(lambda: make_train_step(moe, mesh, "cpu")),
-        "ring": _refusal(lambda: make_train_step(
-            _cfg(attention="ring", moe_experts=4), mesh, "cpu")),
+    ring = _cfg(attention="ring", moe_experts=4, max_seq=16,
+                dtype=torch.float32)
+    dcn = make_mesh(("dcn", "data", "model"), (2, 2, 2), device_type="cpu")
+    out["refusals"], out["runs"] = {}, {}
+    for case, c, m in (("moe_tp", moe, mesh), ("ring", ring, mesh),
+                       ("dcn", tiny, dcn)):
+        out["refusals"][case], out["runs"][case] = _first_loss(
+            c, m, runs[case])
+    out["refusals"].update({
         "heads": _refusal(lambda: make_train_step(
             _cfg(n_heads=6, d_model=96), mesh, "cpu")),
         "seq": _refusal(lambda: _forward_at_seq(mesh, 30)),
         "batch": _refusal(lambda: make_train_step(
             tiny, mesh, "cpu")[2](make_example_batch(tiny, batch=3))),
         "device": _refusal(lambda: make_train_step(tiny, mesh, "meta")),
-    }
-    dcn = make_mesh(("dcn", "data", "model"), (2, 2, 2), device_type="cpu")
-    out["refusals"]["dcn"] = _refusal(
-        lambda: make_train_step(tiny, dcn, "cpu"))
+    })
     return out
 
 
@@ -455,23 +482,27 @@ def _steps(cfg: Any, mesh: Any, tree: Any, seed: int, tokens: np.ndarray,
     batch = place(_batch(tokens, targets))
     losses = [float(step(params, opt, batch)[2]) for _ in range(steps)]
     leaves = _leaves_np(params)
+    # gather_params is a collective: every rank calls it
+    whole = _leaves_np(gather_params(params, cfg, mesh)) if gather else None
     return {"losses": losses,
             "sums": [float(a.astype(np.float64).sum()) for a in leaves],
-            "params": _leaves_np(gather_params(params, cfg, mesh))
-            if gather and dist.get_rank() == 0 else None}
+            "params": whole if dist.get_rank() == 0 else None}
 
 
 def _long_context_train(fwd_tree: dict, fwd_tokens: np.ndarray,
                        ring_tree: dict, ring_batch: tuple,
                        ulysses_tree: dict, ulysses_batch: tuple,
-                       steps: int) -> dict:
+                       steps: int, moe_runs: dict) -> dict:
     """The sequence modes in the sharded forward and train step: the
     1-layer fp32 model *fwd_tree* forward on a (1, 8) mesh in ring and
     Ulysses mode (the rank's columns of the logits); *steps* fp32 steps of
     the ring model on (2, 4) and of the Ulysses model on (1, 8) from the
     bridged trees; 5 steps of the bf16 ring model from the port's
     ``init_params(0)``; ``measure_train`` in ring mode; and the
-    refusals."""
+    refusals. MoE in a sequence mode, once refused, runs one step from
+    the bridged tree and batch of *moe_runs* (``moe_ring`` on (2, 4),
+    ``moe_ulysses`` on (1, 8)): its refusal reads ``(None, None)`` and
+    ``moe_runs`` holds the loss."""
     from ..workloads.model import forward, params_from_numpy
     from ..workloads.perf import measure_train
     from ..workloads.train import make_train_step
@@ -513,11 +544,13 @@ def _long_context_train(fwd_tree: dict, fwd_tokens: np.ndarray,
         "ulysses_seq": _refusal(lambda: at_seq("ulysses", 30)),
         "ulysses_heads": _refusal(lambda: make_train_step(
             _cfg(n_heads=6, d_model=96, attention="ulysses"), line, "cpu")),
-        "moe_ring": _refusal(lambda: make_train_step(
-            _cfg(moe_experts=4, attention="ring"), square, "cpu")),
-        "moe_ulysses": _refusal(lambda: make_train_step(
-            _cfg(moe_experts=4, attention="ulysses"), line, "cpu")),
     }
+    out["moe_runs"] = {}
+    for mode, m in (("ring", square), ("ulysses", line)):
+        cfg = _cfg(moe_experts=4, attention=mode, n_layers=2, max_seq=32,
+                   dtype=f32)
+        out["refusals"][f"moe_{mode}"], out["moe_runs"][f"moe_{mode}"] = \
+            _first_loss(cfg, m, moe_runs[f"moe_{mode}"])
     return out
 
 
@@ -527,3 +560,219 @@ def long_context(attention_args: tuple, train_args: tuple) -> dict:
     on their arguments."""
     return {"attention": _long_context_attention(*attention_args),
             "train": _long_context_train(*train_args)}
+
+
+# -- rank side of tests/test_torch_expert_parallel.py -------------------------
+
+def _moe_grads(params: dict) -> list:
+    """The reduced gradients of every MoE router (``moe.wg``) after a
+    step."""
+    return [_np(lp["moe"]["wg"].grad) for lp in params["layers"]
+            if "moe" in lp]
+
+
+def _ep_steps(cfg: Any, mesh: Any, case: tuple, steps: int) -> dict:
+    """:func:`_steps` from the bridged tree and batch of *case*, with the
+    routers' reduced gradients after the first step."""
+    from ..workloads.model import gather_params, params_from_numpy
+    from ..workloads.train import make_train_step
+    tree, tokens, targets = case
+    step, init_state, place = make_train_step(cfg, mesh, device="cpu")
+    params, opt = init_state(params=params_from_numpy(tree, cfg, "cpu"))
+    batch = place(_batch(tokens, targets))
+    losses = [float(step(params, opt, batch)[2])]
+    wg = _moe_grads(params)
+    losses += [float(step(params, opt, batch)[2]) for _ in range(steps - 1)]
+    leaves = _leaves_np(params)
+    whole = _leaves_np(gather_params(params, cfg, mesh))  # a collective
+    return {"losses": losses, "wg_grad": wg,
+            "sums": [float(a.astype(np.float64).sum()) for a in leaves],
+            "params": whole if dist.get_rank() == 0 else None}
+
+
+def expert_parallel(ep: tuple, seq: tuple, steps: int) -> dict:
+    """Expert parallelism and MoE in the sequence modes, in one spawn.
+
+    *ep* is ``(config fields, case)``: *steps* fp32 steps of that MoE
+    model on a (2, 4) mesh with sp on and off from the case's bridged
+    tree and batch, then 5 bf16 steps from ``init_params(0)``, and the
+    refusal of experts that do not split over "model". *seq* is
+    ``(config fields, case)`` of a MoE model with a capacity factor under
+    1: *steps* steps with ring attention on (2, 4) and (1, 8) and with
+    Ulysses on (1, 8)."""
+    from ..workloads.model import make_example_batch
+    from ..workloads.train import make_train_step
+    f32 = torch.float32
+    square, line = _mesh(_DM, (2, 4)), _mesh(_DM, (1, 8))
+    out: dict = {"rank": dist.get_rank(), "coords_2x4": _coords(square)}
+    fields, case = ep
+    out["ep"] = {sp: _ep_steps(_cfg(**fields, dtype=f32,
+                                    sequence_parallel=sp), square, case,
+                               steps) for sp in (True, False)}
+    bf16 = _cfg(**fields)
+    step, init_state, place = make_train_step(bf16, square, device="cpu")
+    params, opt = init_state(seed=0)
+    batch = place(make_example_batch(bf16, batch=4))
+    out["ep_bf16"] = [float(step(params, opt, batch)[2]) for _ in range(5)]
+    out["refusal"] = _refusal(lambda: make_train_step(
+        _cfg(**{**fields, "moe_experts": 6}), square, "cpu"))
+    fields, case = seq
+    out["seq"] = {}
+    for mode, sizes, m in (("ring", (2, 4), square), ("ring", (1, 8), line),
+                           ("ulysses", (1, 8), line)):
+        out["seq"][(mode, sizes)] = _ep_steps(
+            _cfg(**fields, dtype=f32, attention=mode), m, case, steps)
+    return out
+
+
+# -- rank side of tests/test_torch_pipeline.py --------------------------------
+
+def _pipeline(fields: dict, tree: dict, tokens: np.ndarray,
+              targets: np.ndarray, steps: int) -> dict:
+    """The pipeline on a (4, 2) ("pipe", "data") mesh with 4 microbatches:
+    the forward of the bridged fp32 tree on *tokens* (this rank's rows and
+    its data index) with the hops it made; *steps* fp32 train steps
+    (losses, each leaf's sum on this rank, the gathered tree on rank 0);
+    6 bf16 steps from ``init_pipeline_params(0)``."""
+    from ..workloads import pipeline as pp
+    from ..workloads.model import gather_tree, make_example_batch
+    f32 = torch.float32
+    mesh = _mesh(("pipe", "data"), (4, 2))
+    cfg = _cfg(**fields, dtype=f32)
+    out: dict = {"coords": (mesh.get_local_rank("pipe"),
+                            mesh.get_local_rank("data"))}
+    step, init_state, place = pp.make_pipeline_train_step(cfg, mesh, 4,
+                                                          "cpu")
+    params, opt = init_state(params=pp.pipeline_params_from_numpy(
+        tree, cfg, "cpu"))
+    batch = place(_batch(tokens, targets))
+    fwd = step.forward
+    with torch.no_grad():
+        out["forward"] = _np(fwd(params, batch["tokens"]))
+    out["forward_hops"] = fwd.hops
+    out["losses"] = [float(step(params, opt, batch)[2])
+                     for _ in range(steps)]
+    out["sums"] = [float(a.astype(np.float64).sum())
+                   for a in _leaves_np(params)]
+    whole = gather_tree(params, pp.pipeline_param_specs(), mesh)
+    out["params"] = _leaves_np(whole) if dist.get_rank() == 0 else None
+    bf16 = _cfg(**fields)
+    step, init_state, place = pp.make_pipeline_train_step(bf16, mesh, 4,
+                                                          "cpu")
+    params, opt = init_state(seed=0)
+    batch = place(make_example_batch(bf16, batch=8, seq=16))
+    out["bf16"] = [float(step(params, opt, batch)[2]) for _ in range(6)]
+    return out
+
+
+def _multislice(blocks: np.ndarray, fields: dict, case: tuple,
+                steps: int) -> dict:
+    """``make_multislice_mesh(2)``, the two all-reduces on this rank's
+    block of *blocks* (block ``dcn * model + m``: JAX's
+    ``P(("dcn", "model"))``), and *steps* fp32 sharded steps on the
+    (2, 2, 2) mesh from *case*'s bridged tree and batch (with the placed
+    batch's rows)."""
+    from ..workloads import multislice as ms
+    from ..workloads.model import _batch_axes, param_specs
+    from ..workloads.train import named_leaves
+    mesh = ms.make_multislice_mesh(2, device_type="cpu")
+    from ..workloads.mesh import mesh_shape
+    out: dict = {"shape": mesh_shape(mesh)}
+    c, m = mesh.get_local_rank("dcn"), mesh.get_local_rank("model")
+    x = torch.from_numpy(blocks[c * 2 + m])
+    kept = x.clone()
+    out["hier"] = _np(ms.hierarchical_allreduce(mesh)(x))
+    out["flat"] = _np(ms.flat_allreduce(mesh)(x))
+    out["input_kept"] = bool(torch.equal(x, kept))
+    out["block"] = c * 2 + m
+    cfg = _cfg(**fields, dtype=torch.float32)
+    out["batch_axes"] = _batch_axes(mesh)
+    out["dcn_in_specs"] = any("dcn" in s for _, s in
+                              named_leaves(param_specs(cfg)))
+    from ..workloads.model import batch_shard
+    out["rows"] = _np(batch_shard(torch.arange(8), mesh))
+    out["train"] = _steps(cfg, mesh, case[0], 0, case[1], case[2], steps,
+                          True)
+    return out
+
+
+def _restores(store: str, fields: dict, pp_fields: dict,
+              dcn_fields: dict) -> dict:
+    """The re-sharding restores in *store*: (a) 3 fp32 steps on (2, 4),
+    saved, restored onto (4, 2), one more step against the unbroken run's
+    fourth (and, on rank 0, onto one device with no mesh); (b) a pipeline
+    train state on (4, 2) ("pipe", "data") saved and restored, its
+    ``wqkv`` shards; (c) one step on (2, 2, 2) ("dcn", "data", "model"),
+    saved, restored onto a (2, 2) mesh of ranks 0-3, the first leaf and a
+    step there."""
+    import os
+    from ..workloads import pipeline as pp
+    from ..workloads.checkpoint import TrainCheckpointer
+    from ..workloads.model import make_example_batch
+    from ..workloads.train import make_train_step, param_leaves
+    f32 = torch.float32
+    rank = dist.get_rank()
+    out: dict = {}
+    cfg = _cfg(**fields, dtype=f32)
+    batch = make_example_batch(cfg, batch=4, seq=16)
+    a, b = _mesh(_DM, (2, 4)), _mesh(_DM, (4, 2))
+    ckpt = TrainCheckpointer(os.path.join(store, "ckpt"))
+    step, init_state, place = make_train_step(cfg, a, "cpu")
+    params, opt = init_state(seed=0)
+    data = place(batch)
+    for _ in range(3):
+        step(params, opt, data)
+    ckpt.save(3, params, opt, mesh=a, cfg=cfg)
+    out["unbroken"] = float(step(params, opt, data)[2])
+    step_b, init_b, place_b = make_train_step(cfg, b, "cpu")
+    pb, ob = init_b(seed=1)
+    pb, ob, n = ckpt.restore(pb, ob, mesh=b, cfg=cfg)
+    out["restored_step"] = n
+    out["wqkv_shape"] = tuple(pb["layers"][0]["wqkv"].shape)
+    out["resumed"] = float(step_b(pb, ob, place_b(batch))[2])
+    if rank == 0:
+        step1, init1, place1 = make_train_step(cfg, None, "cpu")
+        p1, o1 = init1(seed=2)
+        ckpt.restore(p1, o1, cfg=cfg)
+        out["one_device"] = float(step1(p1, o1, place1(batch))[2])
+
+    pcfg = _cfg(**pp_fields, dtype=f32)
+    pmesh = _mesh(("pipe", "data"), (4, 2))
+    _, pinit, _ = pp.make_pipeline_train_step(pcfg, pmesh, 4, "cpu")
+    pparams, popt = pinit(seed=0)
+    pckpt = TrainCheckpointer(os.path.join(store, "pp-ckpt"))
+    pckpt.save(1, pparams, popt, mesh=pmesh)
+    p2, o2 = pinit(seed=5)
+    p2, _, _ = pckpt.restore(p2, o2, mesh=pmesh)
+    out["pipeline_wqkv_equal"] = bool(torch.equal(
+        pparams["stages"]["wqkv"], p2["stages"]["wqkv"]))
+
+    dcfg = _cfg(**dcn_fields, dtype=f32)
+    big = _mesh(("dcn", "data", "model"), (2, 2, 2))
+    step, init_state, place = make_train_step(dcfg, big, "cpu")
+    params, opt = init_state(seed=0)
+    step(params, opt, place(make_example_batch(dcfg, batch=8, seq=16)))
+    mckpt = TrainCheckpointer(os.path.join(store, "ms"))
+    mckpt.save(1, params, opt, mesh=big, cfg=dcfg)
+    out["dcn_first_leaf"] = _np(param_leaves(params)[0])
+    from ..workloads.mesh import make_mesh
+    small = make_mesh(_DM, (2, 2), device_type="cpu", ranks=range(4))
+    if rank < 4:
+        sstep, sinit, splace = make_train_step(dcfg, small, "cpu")
+        sp, so = sinit(seed=9)
+        sp, so, _ = mckpt.restore(sp, so, mesh=small, cfg=dcfg)
+        out["small_first_leaf"] = _np(param_leaves(sp)[0])
+        out["small_loss"] = float(sstep(sp, so, splace(
+            make_example_batch(dcfg, batch=4, seq=16)))[2])
+    dist.barrier()
+    return out
+
+
+def pipeline_and_slices(store: str, pipe: tuple, slices: tuple,
+                        restores: tuple) -> dict:
+    """The whole rank side of ``tests/test_torch_pipeline.py`` in one
+    spawn: :func:`_pipeline`, :func:`_multislice` and :func:`_restores` on
+    their arguments (*store* is the spawn's directory)."""
+    return {"rank": dist.get_rank(), "pipeline": _pipeline(*pipe),
+            "multislice": _multislice(*slices),
+            "restores": _restores(store, *restores)}

@@ -1,4 +1,4 @@
-"""Train-state checkpoint and resume on one device.
+"""Train-state checkpoint and resume, on one device or a mesh.
 
 Port of ``dpu_operator_tpu/workloads/checkpoint.py::TrainCheckpointer``:
 ``save``, ``latest_step``, ``restore``, ``close``, keeping the newest
@@ -10,10 +10,17 @@ restore with the rest (``train.map_params`` / ``param_leaves``).
 
 **Restore is all or nothing**, as the reference's: a checkpoint whose
 parameter leaves (count, name, shape, dtype) or optimizer groups do not
-match the caller's raises ``ValueError`` before anything is copied. A
-sharded train state (``make_train_step(cfg, mesh)``) saves each rank's
-shards as they are; restoring onto another mesh (the reference's
-re-sharding restore) is ROADMAP queue 1 item 7c.
+match the caller's raises ``ValueError`` before anything is copied.
+
+**Re-sharding** (the reference's restore onto the current mesh). A file
+always holds the global train state. With a *mesh*, ``save`` gathers the
+parameters and the AdamW moments by the tree's specs (``model.param_specs``
+of *cfg*, or ``pipeline.pipeline_param_specs`` for a stage-stacked tree)
+and global rank 0 writes them; ``restore`` cuts the global state into the
+caller's shards by the caller's specs on the caller's mesh, before the
+check. So a state saved on one mesh restores onto another factoring, a
+smaller mesh (a multi-slice state onto one slice: parameters replicate
+over "dcn"), or one device, and a one-device state onto a mesh.
 """
 
 from __future__ import annotations
@@ -23,7 +30,12 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
+from .mesh import axes_group
+from .model import TransformerConfig, gather_tree, param_specs, shard_tree
+from .pipeline import pipeline_param_specs
 from .train import map_params, named_leaves, param_leaves
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -45,34 +57,53 @@ class TrainCheckpointer:
         found = (_NAME.match(n) for n in os.listdir(self.directory))
         return sorted(int(m.group(1)) for m in found if m)
 
-    def save(self, step: int, params: dict,
-             opt: torch.optim.Optimizer) -> None:
+    def save(self, step: int, params: dict, opt: torch.optim.Optimizer,
+             mesh: Optional[DeviceMesh] = None,
+             cfg: Optional[TransformerConfig] = None) -> None:
+        """Write *step*'s train state. With a *mesh* (and the *cfg* of a
+        model tree) every rank of the mesh calls it: the global state is
+        gathered by the tree's specs, global rank 0 writes it, and every
+        rank returns after the file is in place."""
         state = {"step": step,
                  "params": map_params(torch.Tensor.detach, params),
                  "opt_state": opt.state_dict()}
-        path = self._path(step)
-        tmp = path + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-self.keep]:
-            os.remove(self._path(old))
+        if mesh is not None:  # the global state, gathered (a collective)
+            specs = _specs(params, cfg)
+            state = _map_state(lambda t: gather_tree(t, specs, mesh), state)
+        if mesh is None or dist.get_rank() == 0:
+            path = self._path(step)
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[:-self.keep]:
+                os.remove(self._path(old))
+        if mesh is not None:
+            dist.barrier(group=axes_group(mesh, mesh.mesh_dim_names)[0])
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
 
     def restore(self, params: dict, opt: torch.optim.Optimizer,
-                step: Optional[int] = None) -> tuple:
+                step: Optional[int] = None,
+                mesh: Optional[DeviceMesh] = None,
+                cfg: Optional[TransformerConfig] = None) -> tuple:
         """Load *step* (default: the newest) into *params* (copied into the
         existing tensors, so the optimizer keeps pointing at them) and
-        *opt*; returns ``(params, opt, step)``. A checkpoint that does not
-        match them raises ``ValueError`` naming the first mismatch, and
-        leaves *params* and *opt* as they were."""
+        *opt*; returns ``(params, opt, step)``. With a *mesh* (and the
+        *cfg* of a model tree) *params* and *opt* are the rank's shards,
+        and the saved global state is cut into them first, whatever mesh
+        saved it. A checkpoint that does not match them raises
+        ``ValueError`` naming the first mismatch, and leaves *params* and
+        *opt* as they were."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         state = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
+        if mesh is not None:  # this rank's shards of the global state
+            specs = _specs(params, cfg)
+            state = _map_state(lambda t: shard_tree(t, specs, mesh), state)
         _check_restorable(step, params, opt, state)
         with torch.no_grad():
             for dst, src in zip(param_leaves(params),
@@ -85,6 +116,50 @@ class TrainCheckpointer:
         """Nothing is written in the background: every save is complete
         when it returns."""
 
+
+
+def _specs(params: dict, cfg: Optional[TransformerConfig]) -> dict:
+    """The specs of a sharded tree: a pipeline tree's, or *cfg*'s."""
+    if "stages" in params:
+        return pipeline_param_specs()
+    if cfg is None:
+        raise ValueError("a sharded model tree's checkpoint needs its cfg")
+    return param_specs(cfg)
+
+
+def _tree_of(like: dict, leaves: list) -> dict:
+    """A tree shaped like the parameter tree *like* holding *leaves*, in
+    ``train.named_leaves`` order."""
+    tree = map_params(lambda t: None, like)
+    for (name, _), leaf in zip(named_leaves(like), leaves):
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node[int(key)] if isinstance(node, list) else node[key]
+        node[last] = leaf
+    return tree
+
+
+def _map_state(fn, state: dict) -> dict:
+    """*state* (``step``, ``params``, ``opt_state``) with *fn* applied to
+    the parameter tree and to each AdamW moment, the moments laid out as
+    parameter trees (the optimizer keys them by their parameter's place
+    in ``param_leaves``), so the fused ``wqkv`` moments split as their
+    parameter does. The step counts are replicated scalars."""
+    params = fn(state["params"])
+    opt = state["opt_state"]
+    moments = {i: dict(s) for i, s in opt["state"].items()}
+    if moments:
+        n = len(param_leaves(params))
+        for kind, v in moments[0].items():
+            if v.dim():
+                tree = fn(_tree_of(state["params"],
+                                   [moments[i][kind] for i in range(n)]))
+                for i, t in enumerate(param_leaves(tree)):
+                    moments[i][kind] = t
+    return {"step": state["step"], "params": params,
+            "opt_state": {"state": moments,
+                          "param_groups": opt["param_groups"]}}
 
 
 def _check_restorable(step: int, params: dict, opt: torch.optim.Optimizer,

@@ -115,8 +115,12 @@ def _mesh(device_type: str, shape: tuple, axis_names: Sequence[str]
 
 def make_mesh(axis_names: Sequence[str] = ("data", "model"),
               axis_sizes: Optional[Sequence[int]] = None,
-              device_type: str = "cuda") -> DeviceMesh:
-    """A mesh over the ranks of the default process group.
+              device_type: str = "cuda",
+              ranks: Optional[Sequence[int]] = None) -> DeviceMesh:
+    """A mesh over the ranks of the default process group, or over
+    *ranks* of it (JAX ``make_mesh(devices=...)``): every rank of the
+    group calls it, and a rank outside *ranks* gets the mesh without a
+    place on it (``mesh.get_coordinate()`` is None).
 
     Without explicit *axis_sizes* the world is factored into near-equal
     axis extents with "model" (the last axis) largest, since
@@ -131,12 +135,18 @@ def make_mesh(axis_names: Sequence[str] = ("data", "model"),
     Asking for "cuda" without a card raises.
     """
     n = _world(device_type)
+    if ranks is not None:
+        n = len(ranks)
     if axis_sizes is None:
         axis_sizes = _balanced_factor(n, len(axis_names))
     if math.prod(axis_sizes) != n:
         raise ValueError(
             f"axis sizes {tuple(axis_sizes)} do not cover {n} devices")
-    return _mesh(device_type, tuple(axis_sizes), axis_names)
+    if ranks is None:
+        return _mesh(device_type, tuple(axis_sizes), axis_names)
+    return DeviceMesh(device_type,
+                      torch.tensor(list(ranks)).reshape(tuple(axis_sizes)),
+                      mesh_dim_names=tuple(axis_names))
 
 
 def mesh_for_topology(topology: object,
@@ -172,6 +182,31 @@ def mesh_for_topology(topology: object,
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     """The extent of *axis* (JAX ``mesh.shape[axis]``)."""
     return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axes_group(mesh: DeviceMesh, axes: "str | Sequence[str]") -> tuple:
+    """``(process group, size, this rank's index)`` of the sub-mesh over
+    *axes*: one axis name, or several flattened with the first major (JAX
+    ``P(("dcn", "data"))``). A flattened group is formed on first use by
+    its own ranks only, and kept on the mesh."""
+    if isinstance(axes, str):
+        return mesh.get_group(axes), axis_size(mesh, axes), \
+            mesh.get_local_rank(axes)
+    axes = tuple(axes)
+    index = 0
+    for axis in axes:
+        index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
+    cache = mesh.__dict__.setdefault("_axes_groups", {})
+    if axes not in cache:
+        names = mesh.mesh_dim_names
+        grid = mesh.mesh.permute(
+            *[names.index(a) for a in names if a not in axes],
+            *[names.index(a) for a in axes])
+        coord = tuple(mesh.get_local_rank(a) for a in names
+                      if a not in axes)
+        ranks = grid[coord].flatten().tolist()
+        cache[axes] = dist.new_group(ranks, use_local_synchronization=True)
+    return cache[axes], math.prod(axis_size(mesh, a) for a in axes), index
 
 
 def mesh_shape(mesh: DeviceMesh) -> dict:

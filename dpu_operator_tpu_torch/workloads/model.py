@@ -37,10 +37,24 @@ stream holds the rank's S / n rows from the embedding on
 (:class:`_SeqSpmd`), and attention is ring attention
 (``workloads/ring_attention.py``) or Ulysses attention
 (``workloads/ulysses.py``) over "model". Without a mesh a sequence-mode
-config runs the one-device forward, as the JAX ``forward`` does. Still
-refused: the expert sharding of MoE, MoE in a sequence mode (ROADMAP queue
-1 item 7b-ii; MoE runs on a "model" axis of 1), and a "dcn" axis (item
-7c).
+config runs the one-device forward, as the JAX ``forward`` does.
+
+**MoE on a mesh.** The MoE layer is a hook of the region
+(:meth:`_Hooks.moe`). Under tp its experts are split over "model" (expert
+parallelism, ``moe.moe_param_specs``): the stream is made whole over
+"model" (``enter``), every rank routes every token of its batch shard as
+the unsharded router does, computes the tokens routed to its own experts,
+and ``leave`` sums the ranks' outputs. In a sequence mode every expert is
+replicated and a row's tokens are spread over "model": each rank routes
+its columns with the capacity of the whole row, and a token's place in
+its expert's queue counts the row's tokens on the lower ranks (their
+per-expert counts are all-gathered). In both the router statistics are
+the global batch's, and the aux loss enters the loss once.
+
+**Multi-slice** (a mesh of axes "dcn", "data", "model";
+``workloads/multislice.py``): the batch splits over ("dcn", "data"),
+slice-major, and the parameters replicate over "dcn"; every mean over the
+batch runs over that flattened pair (``mesh.axes_group``).
 
 Parameters are a plain dict shaped like the JAX tree: ``embed (V, D)``,
 ``pos (max_seq, D)``, ``out_norm (D,)`` and ``layers``, a list of dicts
@@ -69,16 +83,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
 from ..ops import flash_attention_vjp, fused_rmsnorm
-from .mesh import axis_size
-from .moe import init_moe_params, moe_ffn
+from .mesh import axes_group, axis_size
+from .moe import init_moe_params, moe_ffn, moe_param_specs
 from .ring_attention import ring_attention
 from .ulysses import ulysses_attention
-
-_UNPORTED = {
-    "experts": "ROADMAP queue 1, item 7b-ii: expert parallelism, "
-               "moe_param_specs, MoE in the sequence modes",
-    "dcn": "ROADMAP queue 1, item 7c: multi-slice",
-}
 
 #: the long-context attention modes: parameters replicated, the sequence
 #: sharded over "model"
@@ -133,10 +141,6 @@ def flagship_config(dtype: torch.dtype = torch.bfloat16) -> TransformerConfig:
 def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.attention not in ("standard", "flash", *SEQUENCE_MODES):
         raise ValueError(f"unknown attention mode {cfg.attention!r}")
-    if cfg.moe_experts > 0 and cfg.attention in SEQUENCE_MODES:
-        raise NotImplementedError(
-            f"MoE with attention={cfg.attention!r} is not ported yet "
-            f"({_UNPORTED['experts']})")
 
 
 def _to_tensor(a: Any, dtype: torch.dtype,
@@ -319,6 +323,12 @@ class _Hooks:
     enter = leave = batch_mean = staticmethod(_same)
     attend = staticmethod(flash_attention_vjp)
 
+    def moe(self, params: dict, h: torch.Tensor,
+            cfg: TransformerConfig) -> tuple:
+        """The MoE FFN of a layer: ``(out, aux)``."""
+        return moe_ffn(params, h, cfg.moe_capacity_factor,
+                       mean=self.batch_mean)
+
     def embed(self, embed: torch.Tensor, tokens: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
         return embed[tokens] + pos[:tokens.shape[1]]
@@ -344,15 +354,14 @@ def layer(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
 
     *hooks* are the sharded forward's (:class:`_Spmd`): ``enter`` before
     the column-parallel ``wqkv`` and ``w1``, ``leave`` after the
-    row-parallel ``wo`` and ``w2``, ``batch_mean`` over the MoE
-    statistics; on one device each is the identity."""
+    row-parallel ``wo`` and ``w2``, ``moe`` for a MoE layer's FFN; on one
+    device each is the identity, and ``moe`` is ``moe_ffn``."""
     h = fused_rmsnorm(x, lp["ln1"])
     o = attend(*split_heads(_mm(hooks.enter(h), lp["wqkv"]), cfg))
     x = x + hooks.leave(_mm(o.flatten(2), lp["wo"]))
     h = fused_rmsnorm(x, lp["ln2"])
     if "moe" in lp:
-        out, aux = moe_ffn(lp["moe"], h, cfg.moe_capacity_factor,
-                           mean=hooks.batch_mean)
+        out, aux = hooks.moe(lp["moe"], h, cfg)
         return x + out, aux
     return x + hooks.leave(mlp(hooks.enter(h), lp)), None
 
@@ -399,10 +408,11 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
     ``loss_fn``): batch holds ``tokens`` and ``targets`` (B, S).
 
     With a *mesh* the batch is the rank's shard and the value is the
-    global batch's loss, the mean of the "data" ranks' means (equal
-    shards). Its backward leaves on each rank the gradient of its own
-    shard's loss; ``make_train_step`` averages the gradients over "data"
-    to match. In a sequence mode a rank's shard is its S / n columns of
+    global batch's loss, the mean of the batch ranks' means (equal
+    shards; "data", or ("dcn", "data") on a multi-slice mesh). Its
+    backward leaves on each rank the gradient of its own shard's loss;
+    ``make_train_step`` averages the gradients over the batch ranks to
+    match. In a sequence mode a rank's shard is its S / n columns of
     those rows: the value is also the mean over "model", the same on every
     rank, and the backward leaves on each rank the gradient of its own
     columns' share of it, which ``make_train_step`` sums over "model"."""
@@ -418,8 +428,8 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig,
     if cfg.attention in SEQUENCE_MODES:  # each rank's share of the sum
         loss = _ReduceFromModel.apply(loss / axis_size(mesh, "model"),
                                       mesh.get_group("model"))
-    return _MeanOver.apply(loss, mesh.get_group("data"),
-                           axis_size(mesh, "data"))
+    group, n, _ = axes_group(mesh, _batch_axes(mesh))
+    return _MeanOver.apply(loss, group, n)
 
 
 # -- the sharded forward ------------------------------------------------------
@@ -430,21 +440,26 @@ def param_specs(cfg: TransformerConfig) -> dict:
     None for a whole dim); ``()`` is a replicated leaf. tp shards heads
     and ff over "model" (column-parallel ``wqkv`` / ``w1``, row-parallel
     ``wo`` / ``w2``), the tied embedding its vocabulary, and a MoE layer
-    its experts; norms and ``pos`` replicate. In a sequence mode every
-    leaf replicates: all of "model" is spent on the sequence."""
+    its experts (``moe_param_specs``); norms and ``pos`` replicate. In a
+    sequence mode every leaf replicates, a MoE layer's too: all of "model"
+    is spent on the sequence. No leaf splits over "dcn"."""
     _check_supported(cfg)
     if cfg.attention in SEQUENCE_MODES:
-        names = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
-        return {"embed": (), "pos": (), "out_norm": (),
-                "layers": [dict.fromkeys(names, ())
-                           for _ in range(cfg.n_layers)]}
+        layers = []
+        for i in range(cfg.n_layers):
+            lp = dict.fromkeys(("ln1", "wqkv", "wo", "ln2"), ())
+            if cfg.is_moe_layer(i):
+                lp["moe"] = dict.fromkeys(("wg", "w1", "w2"), ())
+            else:
+                lp.update(w1=(), w2=())
+            layers.append(lp)
+        return {"embed": (), "pos": (), "out_norm": (), "layers": layers}
     layers = []
     for i in range(cfg.n_layers):
         lp = {"ln1": (), "ln2": (), "wqkv": (None, "model"),
               "wo": ("model", None)}
         if cfg.is_moe_layer(i):
-            lp["moe"] = {"wg": (), "w1": ("model", None, None),
-                         "w2": ("model", None, None)}
+            lp["moe"] = moe_param_specs()
         else:
             lp.update({"w1": (None, "model"), "w2": ("model", None)})
         layers.append(lp)
@@ -454,8 +469,8 @@ def param_specs(cfg: TransformerConfig) -> dict:
 
 def _batch_axes(mesh: Optional[DeviceMesh]) -> Any:
     """Mesh axes carrying the batch dimension: "data"; a mesh with a
-    leading "dcn" axis (multi-slice) would shard it over both, and
-    :func:`check_mesh` refuses such a mesh (item 7c)."""
+    leading "dcn" axis (multi-slice) shards it over both, each slice
+    taking a batch shard."""
     if mesh is not None and "dcn" in mesh.mesh_dim_names:
         return ("dcn", "data")
     return "data"
@@ -463,26 +478,19 @@ def _batch_axes(mesh: Optional[DeviceMesh]) -> Any:
 
 def check_mesh(cfg: TransformerConfig, mesh: DeviceMesh,
                seq: Optional[int] = None) -> None:
-    """Refuse what the sharded forward does not run: a "dcn" axis (item
-    7c), MoE on a "model" axis larger than 1 or in a sequence mode (item
-    7b-ii), meshes without exactly the axes "data" and "model", and shapes
-    that do not split over "model": a sequence of *seq* tokens in a
-    sequence mode or under sequence parallelism, the heads in tp and
-    Ulysses, and the vocabulary and ``d_ff`` in tp."""
+    """Refuse what the sharded forward does not run: meshes without the
+    axes "data" and "model" (and, multi-slice, a "dcn" axis before them),
+    and shapes that do not split over "model": a sequence of *seq* tokens
+    in a sequence mode or under sequence parallelism, the heads in tp and
+    Ulysses, and the vocabulary, ``d_ff`` and the experts in tp (JAX's
+    sharding cannot split them either)."""
     _check_supported(cfg)
     names = tuple(mesh.mesh_dim_names or ())
-    if "dcn" in names:
-        raise NotImplementedError(
-            f"a mesh with a 'dcn' axis is not ported yet "
-            f"({_UNPORTED['dcn']})")
-    if sorted(names) != ["data", "model"]:
-        raise ValueError(f"the sharded forward takes a mesh of axes 'data' "
-                         f"and 'model', not {names}")
+    if names not in (("data", "model"), ("dcn", "data", "model")):
+        raise ValueError(f"the sharded forward takes a mesh of axes "
+                         f"('data', 'model') or ('dcn', 'data', 'model'), "
+                         f"not {names}")
     tp = axis_size(mesh, "model")
-    if cfg.moe_experts > 0 and tp > 1:
-        raise NotImplementedError(
-            f"MoE on a 'model' axis of {tp} is not ported yet "
-            f"({_UNPORTED['experts']})")
     seq_mode = cfg.attention in SEQUENCE_MODES
     split_seq = seq_mode or cfg.sequence_parallel
     if seq is not None and split_seq and seq % tp:
@@ -496,7 +504,7 @@ def check_mesh(cfg: TransformerConfig, mesh: DeviceMesh,
         splits = (("n_heads", cfg.n_heads),)
     else:
         splits = (("n_heads", cfg.n_heads), ("vocab", cfg.vocab),
-                  ("d_ff", cfg.d_ff))
+                  ("d_ff", cfg.d_ff), ("moe_experts", cfg.moe_experts))
     for what, n in splits:
         if n % tp:
             raise ValueError(f"{what} {n} does not split over a 'model' "
@@ -527,17 +535,49 @@ def shard_params(params: dict, cfg: TransformerConfig,
     3D / tp columns in all: the layout :func:`layer` splits into heads.
     :func:`gather_params` puts JAX's layout back."""
     check_mesh(cfg, mesh)
-    n, rank = axis_size(mesh, "model"), mesh.get_local_rank("model")
+    return shard_tree(params, param_specs(cfg), mesh)
+
+
+def _split_dims(spec: tuple) -> list:
+    """``(dim, axis)`` of each dim of *spec* split over a mesh axis."""
+    return [(dim, axis) for dim, axis in enumerate(spec) if axis]
+
+
+def shard_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """This rank's pieces of a global tree under *specs* (trees of
+    :func:`param_specs` tuples; any axis of *mesh*): each piece an owned
+    contiguous copy on the tree's device. A ``wqkv`` split over "model"
+    takes the rank's heads' columns of q, k and v (:func:`shard_params`)."""
 
     def shard(t: torch.Tensor, spec: tuple, key: str) -> torch.Tensor:
         t = t.detach()
-        if "model" in spec:
-            dim = spec.index("model")
-            parts = t.chunk(3, dim) if key == "wqkv" else (t,)
+        for dim, axis in _split_dims(spec):
+            n, rank = axis_size(mesh, axis), mesh.get_local_rank(axis)
+            parts = t.chunk(3, dim) if (key, axis) == ("wqkv", "model") \
+                else (t,)
             t = torch.cat([p.chunk(n, dim)[rank] for p in parts], dim)
         return t.clone(memory_format=torch.contiguous_format)
 
-    return _map_specs(shard, params, param_specs(cfg))
+    return _map_specs(shard, tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """The global tree from every rank's pieces under *specs* (a
+    collective over each split axis's groups), detached: the inverse of
+    :func:`shard_tree`."""
+
+    def gather(t: torch.Tensor, spec: tuple, key: str) -> torch.Tensor:
+        t = t.detach()
+        for dim, axis in _split_dims(spec):
+            n = axis_size(mesh, axis)
+            t = _gather(t, mesh.get_group(axis), n, dim)
+            if (key, axis) == ("wqkv", "model"):
+                # rank-major [q_r | k_r | v_r] -> [q | k | v]
+                t = t.unflatten(dim, (n, 3, -1)).transpose(
+                    dim, dim + 1).flatten(dim, dim + 2)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return _map_specs(gather, tree, specs)
 
 
 def gather_params(params: dict, cfg: TransformerConfig,
@@ -546,30 +586,19 @@ def gather_params(params: dict, cfg: TransformerConfig,
     collective: every rank of the "model" group calls it), detached; for
     tests and checkpoints."""
     check_mesh(cfg, mesh)
-    group, n = mesh.get_group("model"), axis_size(mesh, "model")
-
-    def gather(t: torch.Tensor, spec: tuple, key: str) -> torch.Tensor:
-        t = t.detach()
-        if "model" not in spec:
-            return t.clone()
-        dim = spec.index("model")
-        full = _gather(t, group, n, dim)
-        if key == "wqkv":  # rank-major [q_r | k_r | v_r] -> [q | k | v]
-            full = full.unflatten(dim, (n, 3, -1)).transpose(
-                dim, dim + 1).flatten(dim, dim + 2)
-        return full.contiguous()
-
-    return _map_specs(gather, params, param_specs(cfg))
+    return gather_tree(params, param_specs(cfg), mesh)
 
 
 def batch_shard(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """This rank's rows of a global batch tensor: the batch axis
-    (:func:`_batch_axes`) splits the batch into equal shards."""
-    axis = _batch_axes(mesh)
-    dp, rank = axis_size(mesh, axis), mesh.get_local_rank(axis)
+    """This rank's rows of a global batch tensor: the batch axes
+    (:func:`_batch_axes`; on a multi-slice mesh ("dcn", "data"),
+    slice-major) split the batch into equal shards."""
+    axes = _batch_axes(mesh)
+    _, dp, rank = axes_group(mesh, axes)
     if t.shape[0] % dp:
+        name = axes if isinstance(axes, str) else " x ".join(axes)
         raise ValueError(f"batch {t.shape[0]} does not split over a "
-                         f"'{axis}' axis of {dp}")
+                         f"'{name}' axis of {dp}")
     return t.chunk(dp, 0)[rank]
 
 
@@ -697,7 +726,15 @@ class _Spmd(_Hooks):
     tp rows: ``enter`` gathers S (:class:`_GatherSeq`) and ``leave``
     reduce-scatters it (:class:`_ScatterSeq`); the norm scales' and
     ``pos``'s gradients are then partial over "model", and the train step
-    all-reduces them (the reduction Megatron's sp needs)."""
+    all-reduces them (the reduction Megatron's sp needs).
+
+    A MoE layer (:meth:`moe`) is expert-parallel: the rank holds E / tp
+    experts, routes the whole stream that ``enter`` makes, and computes
+    its own experts' tokens; ``leave`` sums the ranks' outputs, as the tp
+    MLP's partial sums. The router ``wg`` is replicated but reaches the
+    output only through the rank's own experts, so its gradient is
+    partial over "model" with or without sp, and the train step sums it
+    (``train._reduce_grads``)."""
 
     def __init__(self, cfg: TransformerConfig, mesh: DeviceMesh,
                  seq: int) -> None:
@@ -705,7 +742,7 @@ class _Spmd(_Hooks):
         self.group = mesh.get_group("model")
         self.n, self.rank = axis_size(mesh, "model"), \
             mesh.get_local_rank("model")
-        self.data, self.dp = mesh.get_group("data"), axis_size(mesh, "data")
+        self.data, self.dp, _ = axes_group(mesh, _batch_axes(mesh))
         self.sp = cfg.sequence_parallel
 
     def enter(self, h: torch.Tensor) -> torch.Tensor:
@@ -720,6 +757,19 @@ class _Spmd(_Hooks):
 
     def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
         return _MeanOver.apply(t, self.data, self.dp)
+
+    def moe(self, params: dict, h: torch.Tensor,
+            cfg: TransformerConfig) -> tuple:
+        """Expert parallelism. Every rank computes the same aux loss from
+        the whole stream's router; each takes 1 / tp of it into its graph
+        and the sum over "model" (:class:`_ReduceFromModel`, identity
+        backward) gives the value, so the gradients that ``enter`` and
+        the train step sum over "model" hold the aux term once."""
+        out, aux = moe_ffn(params, self.enter(h), cfg.moe_capacity_factor,
+                           mean=self.batch_mean,
+                           first_expert=self.rank * params["w1"].shape[0])
+        return self.leave(out), _ReduceFromModel.apply(aux / self.n,
+                                                       self.group)
 
     def embed(self, embed: torch.Tensor, tokens: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
@@ -758,22 +808,50 @@ class _SeqSpmd(_Hooks):
     residual stream the rank's S / n rows from the embedding on, so
     ``enter`` and ``leave`` are identities and the only collectives are
     attention's (ring hops, or Ulysses' all-to-alls, over "model") and the
-    loss's. The logits are the rank's rows over the whole vocabulary."""
+    loss's. The logits are the rank's rows over the whole vocabulary.
+
+    A MoE layer (:meth:`moe`) routes the rank's columns with the whole
+    row's capacity and queue places (:meth:`_columns`); its router
+    statistics are averaged over "model" and the batch ranks. The loss
+    takes 1 / n of each rank's aux term, the same on every rank, and the
+    train step sums the gradients over "model": the aux term comes out
+    once."""
 
     def __init__(self, cfg: TransformerConfig, mesh: DeviceMesh,
                  seq: int) -> None:
         check_mesh(cfg, mesh, seq)
-        self.mesh = mesh
+        self.mesh, self.seq = mesh, seq
+        self.group = mesh.get_group("model")
+        self.n, self.rank = axis_size(mesh, "model"), \
+            mesh.get_local_rank("model")
+        self.data, self.dp, _ = axes_group(mesh, _batch_axes(mesh))
         self.attend = SEQUENCE_MODES[cfg.attention](mesh, "model",
                                                     causal=True)
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over every token of the global batch: over "model"
+        (the rows' columns), then over the batch ranks."""
+        t = _MeanOver.apply(t, self.group, self.n)
+        return _MeanOver.apply(t, self.data, self.dp)
+
+    def _columns(self, counts: torch.Tensor) -> tuple:
+        """This rank's per-row expert counts (B, E) -> the counts of the
+        same rows on the lower "model" ranks, and the rows' whole S."""
+        every = _gather(counts[None], self.group, self.n, 0)   # (n, B, E)
+        return every[:self.rank].sum(0), self.seq
+
+    def moe(self, params: dict, h: torch.Tensor,
+            cfg: TransformerConfig) -> tuple:
+        return moe_ffn(params, h, cfg.moe_capacity_factor,
+                       mean=self.batch_mean, columns=self._columns)
 
     def embed(self, embed: torch.Tensor, tokens: torch.Tensor,
               pos: torch.Tensor) -> torch.Tensor:
         """The replicated lookup of the rank's columns, plus their rows
         of ``pos``."""
         cols = seq_columns(tokens, self.mesh)
-        s, r = cols.shape[1], self.mesh.get_local_rank("model")
-        return embed[cols] + pos[r * s:(r + 1) * s]
+        s = cols.shape[1]
+        return embed[cols] + pos[self.rank * s:(self.rank + 1) * s]
 
 
 def _region(cfg: TransformerConfig, mesh: DeviceMesh, seq: int) -> _Hooks:

@@ -22,10 +22,16 @@ from, so no index depends on the data's count of kept tokens and the card
 never waits on the host. The expert products are batched matmuls over
 the E experts, as the JAX einsums are; no TPU kernel computes them.
 
-On a mesh whose "model" axis is 1 the sharded forward runs this function
-on the rank's batch shard, with *mean* averaging the router statistics
-over "data", so the aux loss is the global batch's. The expert-parallel
-sharding (``moe_param_specs``) is ROADMAP queue 1, item 7b.
+**Sharded** (``model.py``'s regions). Expert parallelism: with a
+"model" axis of n (:func:`moe_param_specs`) a rank holds E / n whole
+experts, routes every token of its batch shard (the stream made whole
+over "model"), and computes only the tokens routed to its own experts
+(*first_expert* on); the region sums the ranks' outputs. In a sequence
+mode a rank holds every expert and S / n columns of each row: *columns*
+gives each row's expert counts on the lower ranks and the whole S, so
+the capacity and each token's place in its queue are the row's. *mean*
+averages the router statistics over the ranks that hold the rest of the
+batch, so the aux loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -35,6 +41,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def moe_param_specs() -> dict:
+    """Router replicated; expert weights split over "model" on the expert
+    dim (each rank holds n_experts / model whole experts): the JAX
+    ``moe_param_specs`` as ``model.param_specs`` tuples."""
+    return {"wg": (), "w1": ("model", None, None),
+            "w2": ("model", None, None)}
 
 
 def init_moe_params(gen: torch.Generator, d_model: int, d_ff: int,
@@ -63,18 +77,27 @@ def moe_capacity(n_tokens: int, n_experts: int,
 
 
 def moe_ffn(params: dict, x: torch.Tensor, capacity_factor: float = 1.25,
-            mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+            mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+            first_expert: int = 0,
+            columns: Optional[Callable[[torch.Tensor], tuple]] = None
             ) -> tuple:
     """Top-1 routed FFN: x (B, S, D) -> (out (B, S, D) in x's type, aux
     loss, an fp32 scalar). Each batch row routes its S tokens on its own
     with capacity :func:`moe_capacity` (S, E, *capacity_factor*); a token
     past its expert's capacity contributes 0. *mean*, where given, maps
     the router's per-expert fractions over these rows to their mean over
-    the whole batch (the sharded forward's average over "data")."""
+    the whole batch (the sharded forward's average over "data").
+
+    Sharded: ``w1`` / ``w2`` may hold experts *first_expert* onwards only
+    (E / n of the router's E); a token routed elsewhere contributes 0.
+    *columns*, where given, maps this piece's per-row expert counts (B, E)
+    to ``(counts of the same rows' tokens before this piece, the rows'
+    whole length)``: x is then S of a longer row, and capacity and queue
+    places are the whole row's."""
     b, s, d = x.shape
     w1, w2 = params["w1"], params["w2"]
-    e = params["wg"].shape[1]
-    cap = moe_capacity(s, e, capacity_factor)
+    e, e_here = params["wg"].shape[1], w1.shape[0]
+    whole = s
 
     # router in fp32; argmax over the probabilities, the first maximum
     # winning as jnp.argmax's does
@@ -84,24 +107,39 @@ def moe_ffn(params: dict, x: torch.Tensor, capacity_factor: float = 1.25,
     gate = probs.gather(-1, expert[..., None])[..., 0]         # (B, S)
     # 1-based place of each token in its row's queue for its expert
     place = (onehot.cumsum(1) * onehot).sum(-1).long()         # (B, S)
+    before = None
+    if columns is not None:
+        counts, whole = columns(onehot.sum(1))
+        before = counts.long().gather(-1, expert)               # (B, S)
+        place = place + before
+    cap = moe_capacity(whole, e, capacity_factor)
     keep = place <= cap
+    # the expert batch's rows a (expert, row) here: a piece of S columns
+    # holds at most S of a queue
+    slots = cap if columns is None else min(cap, s)
+    mine = keep
+    if e_here != e:
+        mine = keep & (expert >= first_expert) \
+            & (expert < first_expert + e_here)
 
-    # flat row of each kept token in the (E, B, C) expert batch; dropped
-    # tokens go to the spare row e * b * cap
-    rows = e * b * cap
+    # flat row of each token of this piece in the (E here, B, slots)
+    # expert batch; tokens dropped or routed elsewhere go to the spare
+    # row e_here * b * slots
+    rows = e_here * b * slots
     b_idx = torch.arange(b, device=x.device)[:, None]
-    slot = (expert * b + b_idx) * cap + (place - 1)
-    slot = torch.where(keep, slot, torch.full_like(slot, rows))
+    queue = place - 1 if before is None else place - before - 1
+    slot = ((expert - first_expert) * b + b_idx) * slots + queue
+    slot = torch.where(mine, slot, torch.full_like(slot, rows))
     buf = x.new_zeros((rows + 1, d), dtype=w1.dtype)
     buf = buf.index_put((slot.flatten(),), x.reshape(-1, d).to(w1.dtype))
-    expert_in = buf[:rows].view(e, b * cap, d)
+    expert_in = buf[:rows].view(e_here, b * slots, d)
     h = F.gelu(torch.bmm(expert_in, w1), approximate="tanh")
     expert_out = torch.bmm(h, w2).view(rows, d)
     # index_select: its backward adds into the rows (index_add_), which a
-    # dropped token's index 0 meets only with a zero gradient
+    # token not computed here meets at index 0 only with a zero gradient
     picked = expert_out.index_select(
-        0, torch.where(keep, slot, 0).flatten()).view(b, s, d)
-    out = torch.where(keep[..., None], picked.float() * gate[..., None],
+        0, torch.where(mine, slot, 0).flatten()).view(b, s, d)
+    out = torch.where(mine[..., None], picked.float() * gate[..., None],
                       0.0)
 
     # Switch's load-balancing term: E * sum_e f_e * P_e

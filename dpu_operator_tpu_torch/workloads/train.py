@@ -2,15 +2,15 @@
 
 Port of ``dpu_operator_tpu/workloads/model.py::make_train_step``: the
 step is ``loss_fn`` -> backward -> AdamW, on one device or, with a mesh,
-dp/tp/sp-sharded or sequence-sharded by ring or Ulysses attention
-(``model.py``'s sharded forward): every rank runs the step on its
-parameter shards and its batch shard (in a sequence mode, its S / n
-columns of it), the gradients are averaged over "data" (and summed over
-"model" for the leaves that sequence parallelism or a sequence mode leaves
-partial), and AdamW updates the shards, which is AdamW on the whole tree
-because every one of its operations is elementwise. Expert parallelism
-(ROADMAP queue 1 item 7b-ii) and pipelines, multi-slice and re-sharding
-(7c) are not ported yet. The optimizer is ``optax.adamw(lr)``'s: betas
+dp/tp/sp/ep-sharded, sequence-sharded by ring or Ulysses attention, or
+multi-slice (``model.py``'s sharded forward): every rank runs the step on
+its parameter shards and its batch shard (in a sequence mode, its S / n
+columns of it), the gradients are averaged over the batch ranks ("data",
+or "dcn" x "data") and summed over "model" for the leaves that sequence
+parallelism, a sequence mode or expert parallelism leaves partial, and
+AdamW updates the shards, which is AdamW on the whole tree because every
+one of its operations is elementwise. The pipeline's step is
+``workloads/pipeline.py``'s. The optimizer is ``optax.adamw(lr)``'s: betas
 (0.9, 0.999), eps 1e-8, weight decay 1e-4 (torch's AdamW defaults to
 1e-2), decay applied to every parameter with the parameter from before
 the step, first and second moments kept in the parameters' type as optax
@@ -30,10 +30,10 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
-from .mesh import axis_size, mesh_device
-from .model import (SEQUENCE_MODES, TransformerConfig, batch_shard,
-                    check_mesh, init_params, loss_fn, param_specs,
-                    shard_params)
+from .mesh import axes_group, mesh_device
+from .model import (SEQUENCE_MODES, TransformerConfig, _batch_axes,
+                    batch_shard, check_mesh, init_params, loss_fn,
+                    param_specs, shard_params)
 
 
 def _map_layer(fn, lp: dict) -> dict:
@@ -43,12 +43,20 @@ def _map_layer(fn, lp: dict) -> dict:
     return out
 
 
+#: the stage-stacked leaves of a pipeline tree (``workloads/pipeline.py``)
+STAGE_LEAVES = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+
+
 def map_params(fn, params: dict) -> dict:
     """The parameter tree with *fn* applied to every leaf (a MoE layer's
-    ``moe`` subtree included)."""
-    return {"embed": fn(params["embed"]), "pos": fn(params["pos"]),
-            "out_norm": fn(params["out_norm"]),
-            "layers": [_map_layer(fn, lp) for lp in params["layers"]]}
+    ``moe`` subtree included; a pipeline tree's ``stages``)."""
+    out = {"embed": fn(params["embed"]), "pos": fn(params["pos"]),
+           "out_norm": fn(params["out_norm"])}
+    if "stages" in params:
+        out["stages"] = {n: fn(params["stages"][n]) for n in STAGE_LEAVES}
+    else:
+        out["layers"] = [_map_layer(fn, lp) for lp in params["layers"]]
+    return out
 
 
 def param_leaves(params: dict) -> list:
@@ -60,9 +68,13 @@ def param_leaves(params: dict) -> list:
 
 def named_leaves(params: dict) -> list:
     """``(name, tensor)`` of :func:`param_leaves`, in its order: names such
-    as ``layers.3.moe.wg`` (how a guard reports a leaf)."""
+    as ``layers.3.moe.wg`` (how a guard reports a leaf), or a pipeline
+    tree's ``stages.wqkv``."""
     out = [("embed", params["embed"]), ("pos", params["pos"]),
            ("out_norm", params["out_norm"])]
+    if "stages" in params:
+        return out + [(f"stages.{n}", params["stages"][n])
+                      for n in STAGE_LEAVES]
     for i, lp in enumerate(params["layers"]):
         for name in ("ln1", "wqkv", "wo", "ln2"):
             out.append((f"layers.{i}.{name}", lp[name]))
@@ -78,19 +90,23 @@ def named_leaves(params: dict) -> list:
 def _reduce_grads(params: dict, cfg: TransformerConfig,
                   mesh: DeviceMesh) -> None:
     """The sharded step's gradient collectives, each over one flat buffer:
-    the mean over "data" of every leaf, then under sequence parallelism the
-    sum over "model" of the replicated leaves (``pos`` and the norm
-    scales), whose gradients each rank took from its S / tp rows only. In
-    a sequence mode every leaf is replicated and each rank's gradient
+    the mean over the batch ranks of every leaf, then the sum over
+    "model" of the replicated leaves whose gradient each rank took from
+    part of the work: under sequence parallelism ``pos`` and the norm
+    scales (each rank's S / tp rows) and the MoE routers; without it the
+    MoE routers alone (expert parallelism: each rank's own experts). In a
+    sequence mode every leaf is replicated and each rank's gradient
     comes from its S / n columns, so every leaf is summed over "model",
     whatever ``sequence_parallel`` says."""
-    leaves = param_leaves(params)
+    named = named_leaves(params)
     specs = [s for _, s in named_leaves(param_specs(cfg))]
-    _all_reduce_into([p.grad for p in leaves], mesh.get_group("data"),
-                     axis_size(mesh, "data"))
-    if cfg.sequence_parallel or cfg.attention in SEQUENCE_MODES:
-        _all_reduce_into([p.grad for p, s in zip(leaves, specs)
-                          if "model" not in s], mesh.get_group("model"), 1)
+    group, n, _ = axes_group(mesh, _batch_axes(mesh))
+    _all_reduce_into([p.grad for _, p in named], group, n)
+    every = cfg.sequence_parallel or cfg.attention in SEQUENCE_MODES
+    partial = [p.grad for (name, p), s in zip(named, specs)
+               if "model" not in s and (every or name.endswith(".moe.wg"))]
+    if partial:
+        _all_reduce_into(partial, mesh.get_group("model"), 1)
 
 
 def _all_reduce_into(grads: list, group: dist.ProcessGroup,

@@ -267,14 +267,31 @@ def test_default_device_is_cuda_and_raises_without_it(f32, monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    # MoE in a sequence mode (ring and Ulysses alone are ported)
+    # MoE in a sequence mode: *match* is the refusal these cases gave
+    # until the mode was ported; they now run (the test's docstring)
     (dict(attention="ring", moe_experts=4),
      r"not ported yet \(ROADMAP queue 1, item 7"),
     (dict(attention="ulysses", moe_experts=4),
      r"not ported yet \(ROADMAP queue 1, item 7"),
 ])
 def test_unported_modes_raise(change, match):
+    """MoE in a sequence mode, refused until it was ported (*match* is
+    that refusal's text), now runs: ``init_params`` takes the config, and
+    without a mesh the forward of a bridged JAX tree gives JAX's logits
+    and aux loss (fp32)."""
     import dataclasses
-    cfg = dataclasses.replace(_configs("float32")[1], **change)
-    with pytest.raises(NotImplementedError, match=match):
-        tmodel.init_params(0, cfg, device="cpu")
+    jcfg, tcfg = (dataclasses.replace(c, **change)
+                  for c in _configs("float32"))
+    tmodel.init_params(0, tcfg, device="cpu")
+    tree = jax.tree_util.tree_map(
+        np.asarray, jmodel.init_params(jax.random.key(0), jcfg))
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 16))
+    with torch.no_grad():
+        got, aux = tmodel.forward(
+            tmodel.params_from_numpy(tree, tcfg, device="cpu"),
+            torch.from_numpy(tokens), tcfg, return_aux=True)
+    want, want_aux = jmodel.forward(tree, jnp.asarray(tokens, jnp.int32),
+                                    jcfg, return_aux=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5

@@ -65,6 +65,12 @@ ULYSSES_CFG = jax_model.TransformerConfig(
     dtype=jnp.float32)
 #: (JAX config, mesh axis sizes, global batch) of the train parity runs
 TRAIN = {"ring": (RING_CFG, (2, 4), 4), "ulysses": (ULYSSES_CFG, (1, 8), 2)}
+#: the refusal cases whose mode the port now runs (MoE with ring attention
+#: on (2, 4), with Ulysses on (1, 8)): the JAX config of the one step
+#: ``spmd._long_context_train`` takes, batch 2
+MOE_RUNS = {f"moe_{mode}": jax_model.TransformerConfig(
+    moe_experts=4, attention=mode, n_layers=2, max_seq=32, dtype=jnp.float32)
+    for mode in ("ring", "ulysses")}
 LR_TOL = 3 * RING_CFG.learning_rate
 
 
@@ -112,6 +118,9 @@ def inputs():
                   for mode, (cfg, _, _) in TRAIN.items()},
         "batches": {mode: _batch_np(cfg, batch)
                     for mode, (cfg, _, batch) in TRAIN.items()},
+        "moe_runs": {case: (_np_tree(jax_model.init_params(
+            jax.random.key(0), cfg)), *_batch_np(cfg, 2))
+            for case, cfg in MOE_RUNS.items()},
     }
 
 
@@ -125,7 +134,7 @@ def ranks(inputs, tmp_path_factory):
               (inputs["fwd_tree"], inputs["fwd_tokens"],
                inputs["trees"]["ring"], inputs["batches"]["ring"],
                inputs["trees"]["ulysses"], inputs["batches"]["ulysses"],
-               STEPS)))
+               STEPS, inputs["moe_runs"])))
 
 
 @pytest.fixture(scope="module")
@@ -380,7 +389,23 @@ def test_measure_train_runs_a_sequence_mode(train_runs):
     ("moe_ulysses", "NotImplementedError",
      r"MoE with attention='ulysses' .*7b-ii"),
 ])
-def test_what_the_sequence_modes_refuse(train_runs, case, kind, match):
+def test_what_the_sequence_modes_refuse(train_runs, inputs, case, kind,
+                                        match):
+    """What the sequence modes refuse: S or heads that do not split. The
+    cases ``moe_ring`` and ``moe_ulysses`` (*kind* and *match* are the
+    refusal the port gave until it ran MoE in a sequence mode) now run:
+    no refusal, and one step's loss equals JAX's loss at the same tree
+    within 1e-4 relative."""
+    if case in MOE_RUNS:
+        tree, tokens, targets = inputs["moe_runs"][case]
+        want = float(jax.jit(jax_model.loss_fn, static_argnums=2)(
+            tree, {"tokens": jnp.asarray(tokens),
+                   "targets": jnp.asarray(targets)}, MOE_RUNS[case]))
+        for r in train_runs:
+            assert r["refusals"][case] == (None, None), r["refusals"][case]
+            got = r["moe_runs"][case]
+            assert abs(got - want) <= 1e-4 * abs(want), (case, got, want)
+        return
     for r in train_runs:
         got_kind, msg = r["refusals"][case]
         assert got_kind == kind and re.search(match, msg), (got_kind, msg)
@@ -457,15 +482,29 @@ def test_one_rank_sequence_step_equals_the_one_device_step(one_rank, inputs,
 
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
 def test_moe_in_a_sequence_mode_raises(one_rank, mode):
-    """MoE's expert sharding and MoE in the sequence modes are item
-    7b-ii: the config is refused with or without a mesh."""
-    cfg = model.TransformerConfig(moe_experts=4, attention=mode,
-                                  dtype=torch.float32)
-    for call in (lambda: model.init_params(0, cfg, device="cpu"),
-                 lambda: model.check_mesh(cfg, one_rank),
-                 lambda: make_train_step(cfg, one_rank, device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"7b-ii"):
-            call()
+    """MoE in a sequence mode, refused until it was ported, now runs with
+    and without a mesh: ``init_params``, ``check_mesh`` and
+    ``make_train_step`` take the config, and the forward through the
+    one-rank mesh (the column routing) gives JAX's logits and aux loss on
+    the same tree."""
+    jcfg = jax_model.TransformerConfig(moe_experts=4, attention=mode,
+                                       max_seq=32, dtype=jnp.float32)
+    cfg = _torch_cfg(jcfg)
+    model.init_params(0, cfg, device="cpu")
+    model.check_mesh(cfg, one_rank)
+    make_train_step(cfg, one_rank, device="cpu")
+    tree = _np_tree(jax_model.init_params(jax.random.key(3), jcfg))
+    tokens, _ = _batch_np(jcfg, 2)
+    with torch.no_grad():
+        got, aux = model.forward(
+            model.params_from_numpy(tree, cfg, device="cpu"),
+            torch.from_numpy(tokens.astype(np.int64)), cfg, one_rank,
+            return_aux=True)
+    want, want_aux = jax.jit(lambda p, t: jax_model.forward(
+        p, t, jcfg, return_aux=True))(tree, jnp.asarray(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
 
 
 def test_a_sequence_mode_without_a_mesh_is_the_one_device_forward(inputs):

@@ -81,10 +81,39 @@ def parity(inputs, tmp_path_factory):
               STEPS, inputs["fwd_tree"], inputs["fwd_tokens"]))
 
 
+#: the refusal cases whose mode the port now runs (expert parallelism on
+#: (2, 4), MoE with ring attention on (2, 4), a (2, 2, 2) multi-slice
+#: mesh), with the JAX config of the one step ``train_behaviour`` takes
+NOW_RUN = {
+    "moe_tp": jax_model.TransformerConfig(moe_experts=4, max_seq=16,
+                                          dtype=jnp.float32),
+    "ring": jax_model.TransformerConfig(attention="ring", moe_experts=4,
+                                        max_seq=16, dtype=jnp.float32),
+    "dcn": jax_model.TransformerConfig(n_layers=1, max_seq=16,
+                                       dtype=jnp.float32),
+}
+
+
 @pytest.fixture(scope="module")
-def behaviour(tmp_path_factory):
+def now_run():
+    """Each NOW_RUN case's bridged tree and batch (4 x 16), and JAX's loss
+    of that batch at that tree (the first step's loss)."""
+    cases, losses = {}, {}
+    for case, cfg in NOW_RUN.items():
+        tree = _np_tree(jax_model.init_params(jax.random.key(0), cfg))
+        batch = jax_model.make_example_batch(cfg, batch=4, seq=16)
+        cases[case] = (tree, np.asarray(batch["tokens"]),
+                       np.asarray(batch["targets"]))
+        losses[case] = float(jax.jit(jax_model.loss_fn, static_argnums=2)(
+            tree, batch, cfg))
+    return cases, losses
+
+
+@pytest.fixture(scope="module")
+def behaviour(now_run, tmp_path_factory):
     return spmd.spawn(spmd.train_behaviour, WORLD,
-                      str(tmp_path_factory.mktemp("behaviour")))
+                      str(tmp_path_factory.mktemp("behaviour")),
+                      args=(now_run[0],))
 
 
 def _jax_run(sizes, sp):
@@ -242,8 +271,21 @@ def test_measure_train_times_the_sharded_step(behaviour):
     ("batch", "ValueError", "batch 3 does not split"),
     ("device", "ValueError", "a cpu mesh for device meta"),
 ])
-def test_what_the_sharded_step_refuses(behaviour, case, kind, match):
+def test_what_the_sharded_step_refuses(behaviour, now_run, case, kind,
+                                       match):
+    """What the sharded step refuses: heads, S and the batch that do not
+    split, and a mesh of another device type. The cases ``moe_tp``,
+    ``ring`` and ``dcn`` (*kind* and *match* are the refusal the port
+    gave until it ran these modes) now run: no refusal, and one step's
+    loss equals JAX's loss at the same tree within 1e-4 relative."""
     import re
+    if case in NOW_RUN:
+        want = now_run[1][case]
+        for r in behaviour:
+            assert r["refusals"][case] == (None, None), r["refusals"][case]
+            assert abs(r["runs"][case] - want) <= 1e-4 * abs(want), (
+                case, r["runs"][case], want)
+        return
     for r in behaviour:
         got_kind, msg = r["refusals"][case]
         assert got_kind == kind and re.search(match, msg), (got_kind, msg)
