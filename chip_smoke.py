@@ -169,6 +169,24 @@ Phases, each of which passes or raises (a failure exits non-zero):
    forward, within 1e-4. Prints step ms, tokens/s, MFU, peak memory and
    the ratio to phase 7's step beside nvidia-smi's line. Its launches join
    the kernels' line.
+15. expert parallelism, the pipeline, multi-slice and the re-sharding
+   restore, each on a new one-rank NCCL mesh (run last; see
+   :func:`phase_ep_pp_dcn`). Its launches join the kernels' line.
+16. the graft twin (``dpu_operator_tpu_torch/graft_entry.py``, run last):
+   first its kernels against their plain versions at the shapes its paths
+   give them (``entry()``'s RMSNorm 256 x 128 and forward 4 x 64 x 8 x 16,
+   the dry run's RMSNorm 32 x 64 and three training kernels 2 x 16 x 4 x
+   16, all bf16; these cases join the kernels' line); (a) ``entry()`` on
+   the card, its logits (4, 64, 256), finite and within
+   ``DEFAULT_BF16_LOGIT_TOL`` scaled of ``entry(device="cpu")``'s forward
+   on the same parameters, RMSNorm and the tensor-core forward launched;
+   (b) ``dryrun_multichip(1)`` on an NCCL group of one rank (dp/tp/sp,
+   ring, Ulysses and ep), each first loss printed; (c) a tiny fp32
+   pipeline of one stage with ``moe_experts=4`` training to the dense
+   config's losses exactly (the reference's dense stage stack); (d) a
+   dense state saved on the one-rank mesh and restored with the mesh into
+   a MoE config raising the ``ValueError`` a restore without a mesh
+   raises, every parameter unchanged. Its launches join the kernels' line.
 
 A profile window between phases 6 and 7 shows where the time of a decode
 iteration, a verify iteration and a prefill chunk goes. Phase 3 also times
@@ -1026,6 +1044,12 @@ def phase_kernels(cfg) -> list:
         "two-pass decode kernels and the tiled KV8 kernel; fp32, and bf16 at "
         "head dim 16 / 32: the CUDA-core kernels); fp32 attention bounds at "
         "a third of the TF32 rate (3xTF32)")
+    return _hold_cases(cases)
+
+
+def _hold_cases(cases: list) -> list:
+    """Log each kernel case's error and times, and fail unless each lies
+    within :data:`TOL` of its plain version. Returns *cases*."""
     for c in cases:
         earlier = "" if c.get("earlier_us") is None \
             else f" (earlier {c['earlier_us'] * 1e-3:.4f} ms)"
@@ -3978,6 +4002,215 @@ def phase_ep_pp_dcn(cfg, dense: dict, moe: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 16 -----------------------------------------------------------------
+#: phase 16 (c): the pipeline config's expert count (the stages stay dense)
+GRAFT_PP_EXPERTS = 4
+#: phase 16's kernel cases: ``entry()``'s (B, S, H, D), RMSNorm over B x S
+#: rows of H x D, and the dry run's at world 1 (batch 2, sequence 16, 4
+#: heads of 16)
+GRAFT_ENTRY_SHAPE = (4, 64, 8, 16)
+GRAFT_DRYRUN_SHAPE = (2, 16, 4, 16)
+#: phase 16 (d): the tiny dense model whose state a MoE config restores
+GRAFT_CKPT = dict(n_layers=2, d_model=32, n_heads=4, d_ff=64, max_seq=16,
+                  vocab=64)
+
+
+def _graft_entry_forward(smi: str) -> tuple:
+    """Phase 16 (a): ``graft_entry.entry()`` on the card: the logits (4,
+    64, 256), finite, within ``DEFAULT_BF16_LOGIT_TOL`` scaled of
+    ``entry(device="cpu")``'s forward on the card's parameters moved to
+    the CPU; RMSNorm 5 launches and the tensor-core forward 2 (head dim 16
+    padded to 64)."""
+    import torch
+    from dpu_operator_tpu_torch import graft_entry
+    from dpu_operator_tpu_torch.workloads.train import map_params
+    fn, (params, tokens) = graft_entry.entry()
+    cpu_fn, _ = graft_entry.entry(device="cpu")
+    with torch.no_grad():
+        got, counts = _counted(lambda: fn(params, tokens))
+        want = cpu_fn(map_params(lambda t: t.cpu(), params), tokens.cpu())
+        ms = cuda_ms(lambda: fn(params, tokens), 20)
+    err, scaled = scaled_err(got.cpu(), want)
+    require(tuple(got.shape) == (4, 64, 256)
+            and bool(torch.isfinite(got).all())
+            and scaled <= DEFAULT_BF16_LOGIT_TOL,
+            f"phase 16 (a): entry logits {tuple(got.shape)} vs the CPU's: "
+            f"{err:.3g} ({scaled:.3g} scaled)")
+    require(counts["fused_rmsnorm"] == 5 and counts["attention_fwd_tc"] == 2,
+            f"phase 16 (a): entry forward launches {counts}")
+    log(f"[graft] (a) entry() forward on the card: logits "
+        f"{tuple(got.shape)}, vs the CPU's max |diff| {err:.3g}, scaled "
+        f"{scaled:.3g} (bound {DEFAULT_BF16_LOGIT_TOL}); {ms:.3f} ms a "
+        f"call; {smi}")
+    return {"scaled_err": scaled, "ms": ms}, [counts]
+
+
+def _graft_kernel_cases() -> list:
+    """Phase 16's kernels against their plain versions at the shapes its
+    paths give them, bf16: ``entry()``'s RMSNorm and tensor-core forward
+    (:data:`GRAFT_ENTRY_SHAPE`, head dim 16 padded to 64), and the dry
+    run's RMSNorm and three training kernels (:data:`GRAFT_DRYRUN_SHAPE`),
+    each within :data:`TOL`."""
+    import torch
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1616)
+    b, s, h, d = GRAFT_ENTRY_SHAPE
+    q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                           device="cuda").to(bf16) for _ in range(3))
+    cases = [_rms_case(gen, b * s, h * d, bf16),
+             _attn_case(gen, "graft entry " + "x".join(map(str, (b, s, h, d))),
+                        q, k, v, torch.zeros(b, dtype=torch.int32,
+                                             device="cuda"))]
+    b, s, h, d = GRAFT_DRYRUN_SHAPE
+    cases.append(_rms_case(gen, b * s, h * d, bf16))
+    cases.extend(_train_cases(gen, b, s, h, d, bf16))
+    return _hold_cases(cases)
+
+
+def _graft_dryrun() -> tuple:
+    """Phase 16 (b): ``dryrun_multichip(1)``, the full train step once in
+    each mode of one rank (dp/tp/sp, ring, Ulysses, ep) on an NCCL group
+    it forms and ends: each first loss finite and positive; the training
+    kernels 2 a step in the three flash modes (ring's block is plain
+    products), RMSNorm 5 a step in all four."""
+    import torch.distributed as dist
+    from dpu_operator_tpu_torch import graft_entry
+    require(not dist.is_initialized(), "phase 16: a process group exists")
+    losses, counts = _counted(lambda: graft_entry.dryrun_multichip(1))
+    require(not dist.is_initialized(),
+            "phase 16 (b): the dry run left its process group")
+    require(tuple(losses) == ("standard", "ring", "ulysses", "ep"),
+            f"phase 16 (b): modes {tuple(losses)}")
+    for name in TRAIN_KERNELS:
+        require(counts[name] == 2 * 3, f"phase 16 (b): {name} launched "
+                f"{counts[name]} times, wanted 2 in each of 3 modes")
+    require(counts["fused_rmsnorm"] == 5 * 4,
+            f"phase 16 (b): fused_rmsnorm launched "
+            f"{counts['fused_rmsnorm']} times, wanted 5 in each of 4 modes")
+    log("[graft] (b) dryrun_multichip(1) on NCCL, first losses: "
+        + ", ".join(f"{m} {x:.6f}" for m, x in losses.items()))
+    return losses, [counts]
+
+
+def _graft_moe_pipeline() -> tuple:
+    """Phase 16 (c): the tiny fp32 pipeline model (phase 15 (e)'s) as one
+    stage on a one-rank ("pipe", "data") mesh, 2 train steps of 4
+    microbatches from one tree, with ``moe_experts`` 0 and
+    :data:`GRAFT_PP_EXPERTS`: the same losses, to the bit (the stages are
+    the dense stack either way)."""
+    import torch
+    from dpu_operator_tpu_torch.workloads import pipeline as pp
+    from dpu_operator_tpu_torch.workloads.model import (TransformerConfig,
+                                                        make_example_batch)
+    dense = TransformerConfig(dtype=torch.float32, **TINY_PP)
+    tree = pp.init_pipeline_params(20, dense, 1, device="cpu")
+    batch = make_example_batch(dense, batch=8)
+    losses, launches = {}, []
+    for experts in (0, GRAFT_PP_EXPERTS):
+        cfg = dataclasses.replace(dense, moe_experts=experts)
+        with _one_rank_mesh(("pipe", "data")) as mesh:
+            step, init_state, place = pp.make_pipeline_train_step(
+                cfg, mesh, PP_MICRO, device="cuda")
+            params, opt = init_state(params=tree)
+            data = place(batch)
+            got, counts = _counted(lambda: [
+                float(step(params, opt, data)[2]) for _ in range(2)])
+        losses[experts] = got
+        launches.append(counts)
+    require(losses[GRAFT_PP_EXPERTS] == losses[0],
+            f"phase 16 (c): moe_experts={GRAFT_PP_EXPERTS} pipeline losses "
+            f"{losses[GRAFT_PP_EXPERTS]} vs the dense config's {losses[0]}")
+    log(f"[graft] (c) tiny fp32 pipeline, one stage, moe_experts="
+        f"{GRAFT_PP_EXPERTS}: losses {losses[GRAFT_PP_EXPERTS]} equal the "
+        f"dense config's")
+    return losses, launches
+
+
+def _graft_mismatched_restore() -> tuple:
+    """Phase 16 (d): a dense fp32 state of :data:`GRAFT_CKPT` saved on a
+    one-rank ("data", "model") mesh after one step, restored with the mesh
+    into the same model with ``moe_experts=2``: ``ValueError`` with the
+    text a restore without a mesh gives, every parameter and the
+    optimizer unchanged. The file goes to ``build/`` and is removed."""
+    import shutil
+    import torch
+    from dpu_operator_tpu_torch.workloads.checkpoint import TrainCheckpointer
+    from dpu_operator_tpu_torch.workloads.model import (TransformerConfig,
+                                                        make_example_batch)
+    from dpu_operator_tpu_torch.workloads.train import (make_train_step,
+                                                        param_leaves)
+    where = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke_ckpt16")
+    shutil.rmtree(where, ignore_errors=True)
+    dense = TransformerConfig(dtype=torch.float32, **GRAFT_CKPT)
+    moe = dataclasses.replace(dense, moe_experts=2)
+    errors = {}
+
+    def attempt(mesh) -> None:
+        _, init_state, _ = make_train_step(moe, mesh, device="cuda")
+        params, opt = init_state(7)
+        before = [t.detach().clone() for t in param_leaves(params)]
+        try:
+            ckpt.restore(params, opt, mesh=mesh, cfg=moe)
+        except ValueError as e:
+            errors["mesh" if mesh is not None else "none"] = str(e)
+        require(all(torch.equal(a, b) for a, b in
+                    zip(param_leaves(params), before)) and not opt.state,
+                "phase 16 (d): a refused restore changed the caller's state")
+
+    def run() -> None:
+        with _one_rank_mesh(("data", "model")) as mesh:
+            step, init_state, place = make_train_step(dense, mesh, "cuda")
+            params, opt = init_state(0)
+            step(params, opt, place(make_example_batch(dense, batch=4)))
+            ckpt.save(1, params, opt, mesh=mesh, cfg=dense)
+            attempt(mesh)
+        attempt(None)
+
+    ckpt = TrainCheckpointer(where, keep=1)
+    try:
+        _, counts = _counted(run)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    require(set(errors) == {"mesh", "none"}
+            and errors["mesh"] == errors["none"],
+            f"phase 16 (d): restores into the MoE config raised {errors}")
+    log(f"[graft] (d) a dense state restored into moe_experts=2 with the "
+        f"one-rank mesh: ValueError {errors['mesh']!r}, as without a mesh; "
+        f"nothing written")
+    return errors, [counts]
+
+
+def phase_graft(smi: str) -> dict:
+    """Phase 16: the graft twin on the card, (a) :func:`_graft_entry_forward`,
+    (b) :func:`_graft_dryrun`, (c) :func:`_graft_moe_pipeline`, (d)
+    :func:`_graft_mismatched_restore`, each run's launch counters set to 0
+    just before it and read just after it, after its kernels are held at
+    their shapes (:func:`_graft_kernel_cases`). Returns the phase's numbers,
+    launches and kernel cases."""
+    import torch
+    t0 = time.monotonic()
+    cases = _graft_kernel_cases()
+    entry, launches = _graft_entry_forward(smi)
+    dryrun, counts = _graft_dryrun()
+    launches += counts
+    pipe, counts = _graft_moe_pipeline()
+    launches += counts
+    _, counts = _graft_mismatched_restore()
+    launches += counts
+    torch.cuda.empty_cache()
+    out = {"entry": entry, "dryrun": dryrun,
+           "moe_pipeline_losses": pipe[GRAFT_PP_EXPERTS],
+           "seconds": time.monotonic() - t0}
+    log("[graft] " + json.dumps(out))
+    out["launches"] = {k: sum(c[k] for c in launches) for k in launches[0]}
+    out["cases"] = cases
+    log(f"[graft] launches of the phase ({out['seconds']:.1f} s): "
+        f"{out['launches']}; {smi}")
+    return out
+
+
 def main(argv: list) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4036,16 +4269,21 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     new_counts = phase_ep_pp_dcn(cfg, train, moe["train"],
                                  dev["smi"])["launches"]
+    torch.cuda.empty_cache()
+    graft = phase_graft(dev["smi"])
+    graft_counts = graft["launches"]
+    cases += graft["cases"]
     # each kernel's launches on the main paths (phase 4's fp32 models, the
     # four serve runs, the two chaos runs, the wire run, the train run, the
     # quantized phase, the measurement phase, the MoE phase, the sharded
-    # phase, the long-context phase and phase 15's expert-parallel,
-    # pipeline, multi-slice and restore runs), each read from zero; a
-    # head-dim-256 case's from phase 10, the path of that head dim
+    # phase, the long-context phase, phase 15's expert-parallel, pipeline,
+    # multi-slice and restore runs and phase 16's graft twin), each read
+    # from zero; a head-dim-256 case's from phase 10, the path of that
+    # head dim
     counts = {k: counts[k] + parity_counts[k] + train_counts[k]
               + quant_counts[k] + measure_counts[k] + moe_counts[k]
               + sharded_counts[k] + long_counts[k] + new_counts[k]
-              for k in counts}
+              + graft_counts[k] for k in counts}
     kernels = [{
         "name": c["name"], "route": "cuda", "source": c["source"],
         "replaces": c["replaces"],

@@ -18,7 +18,10 @@ port only: a target in a test file would load JAX in every rank.
   rank that raises sends its traceback back, and the parent raises
   :class:`SpmdError` with it at once; a deadline that passes raises
   ``TimeoutError``. Either way every child is killed and joined before
-  :func:`spawn` returns or raises, so no process is left behind.
+  :func:`spawn` returns or raises, so no process is left behind. A rank
+  destroys its group on the way out, also when its target raised.
+- ``backend="nccl"`` forms the group over the cards, rank r on card r
+  (``graft_entry.dryrun_multichip`` on a machine of several cards).
 
 The targets below are the rank side of ``tests/test_torch_mesh.py``,
 ``tests/test_torch_spmd.py``, ``tests/test_torch_long_context.py``,
@@ -60,35 +63,45 @@ class SpmdError(RuntimeError):
 
 
 def _rank_main(target: Callable, rank: int, world: int, store: str,
-               out: multiprocessing.Queue) -> None:
+               out: multiprocessing.Queue, backend: str) -> None:
     torch.set_num_threads(1)
     try:
         with open(store + ".args", "rb") as f:
             args = pickle.load(f)
+        if backend == "nccl":  # one card a rank
+            torch.cuda.set_device(rank)
         dist.init_process_group(
-            "gloo", store=dist.FileStore(store, world), rank=rank,
+            backend, store=dist.FileStore(store, world), rank=rank,
             world_size=world,
             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
         payload = pickle.dumps(target(*args))
     except BaseException:  # reported to the parent, which kills the group
         out.put((rank, False, traceback.format_exc()))
+        # in the pipe before the group ends, so the parent reads this
+        # traceback before any rank that the end fails
+        out.close()
+        out.join_thread()
         return
-    dist.destroy_process_group()
+    finally:  # the group ends here, also when the target raised
+        if dist.is_initialized():
+            dist.destroy_process_group()
     out.put((rank, True, payload))
 
 
 def spawn(target: Callable, world: int, store_dir: str, args: tuple = (),
-          deadline: float = DEADLINE_S) -> list:
-    """``target(*args)`` in *world* ranks of a gloo group; returns the
-    ranks' results, rank 0 first. *target* must be a module-level function
-    of an importable module that does not import JAX."""
+          deadline: float = DEADLINE_S, backend: str = "gloo") -> list:
+    """``target(*args)`` in *world* ranks of a *backend* group ("gloo",
+    or "nccl" with rank r on card r); returns the ranks' results, rank 0
+    first. *target* must be a module-level function of an importable
+    module that does not import JAX."""
     ctx = multiprocessing.get_context("spawn")
     results: queue.Queue = ctx.Queue()
     store = os.path.join(store_dir, f"spmd-store-{uuid.uuid4().hex}")
     with open(store + ".args", "wb") as f:
         pickle.dump(args, f)
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(target, rank, world, store, results))
+                         args=(target, rank, world, store, results,
+                               backend))
              for rank in range(world)]
     for p in procs:
         p.start()
@@ -633,7 +646,9 @@ def _pipeline(fields: dict, tree: dict, tokens: np.ndarray,
     the forward of the bridged fp32 tree on *tokens* (this rank's rows and
     its data index) with the hops it made; *steps* fp32 train steps
     (losses, each leaf's sum on this rank, the gathered tree on rank 0);
-    6 bf16 steps from ``init_pipeline_params(0)``."""
+    the same steps of the config with ``moe_experts=4`` (the dense stage
+    stack, as the reference builds it); 6 bf16 steps from
+    ``init_pipeline_params(0)``."""
     from ..workloads import pipeline as pp
     from ..workloads.model import gather_tree, make_example_batch
     f32 = torch.float32
@@ -656,6 +671,14 @@ def _pipeline(fields: dict, tree: dict, tokens: np.ndarray,
                    for a in _leaves_np(params)]
     whole = gather_tree(params, pp.pipeline_param_specs(), mesh)
     out["params"] = _leaves_np(whole) if dist.get_rank() == 0 else None
+    moe = _cfg(**fields, dtype=f32, moe_experts=4)
+    step, init_state, place = pp.make_pipeline_train_step(moe, mesh, 4,
+                                                          "cpu")
+    params, opt = init_state(params=pp.pipeline_params_from_numpy(
+        tree, moe, "cpu"))
+    batch = place(_batch(tokens, targets))
+    out["moe_losses"] = [float(step(params, opt, batch)[2])
+                         for _ in range(steps)]
     bf16 = _cfg(**fields)
     step, init_state, place = pp.make_pipeline_train_step(bf16, mesh, 4,
                                                           "cpu")
@@ -669,7 +692,9 @@ def _multislice(blocks: np.ndarray, fields: dict, case: tuple,
                 steps: int) -> dict:
     """``make_multislice_mesh(2)``, the two all-reduces on this rank's
     block of *blocks* (block ``dcn * model + m``: JAX's
-    ``P(("dcn", "model"))``), and *steps* fp32 sharded steps on the
+    ``P(("dcn", "model"))``); ``make_multislice_mesh(2, ranks=range(4))``
+    (2, 1, 2), its two all-reduces on ranks 0-3, and the refusal of 3
+    ranks; and *steps* fp32 sharded steps on the
     (2, 2, 2) mesh from *case*'s bridged tree and batch (with the placed
     batch's rows)."""
     from ..workloads import multislice as ms
@@ -685,6 +710,16 @@ def _multislice(blocks: np.ndarray, fields: dict, case: tuple,
     out["flat"] = _np(ms.flat_allreduce(mesh)(x))
     out["input_kept"] = bool(torch.equal(x, kept))
     out["block"] = c * 2 + m
+    part = ms.make_multislice_mesh(2, device_type="cpu", ranks=range(4))
+    out["part_shape"] = mesh_shape(part)
+    out["part_placed"] = part.get_coordinate() is not None
+    if out["part_placed"]:
+        c, m = part.get_local_rank("dcn"), part.get_local_rank("model")
+        x = torch.from_numpy(blocks[c * 2 + m])
+        out["part_hier"] = _np(ms.hierarchical_allreduce(part)(x))
+        out["part_flat"] = _np(ms.flat_allreduce(part)(x))
+    out["part_uneven"] = _refusal(lambda: ms.make_multislice_mesh(
+        2, device_type="cpu", ranks=range(3)))
     cfg = _cfg(**fields, dtype=torch.float32)
     out["batch_axes"] = _batch_axes(mesh)
     out["dcn_in_specs"] = any("dcn" in s for _, s in
@@ -700,7 +735,8 @@ def _restores(store: str, fields: dict, pp_fields: dict,
               dcn_fields: dict) -> dict:
     """The re-sharding restores in *store*: (a) 3 fp32 steps on (2, 4),
     saved, restored onto (4, 2), one more step against the unbroken run's
-    fourth (and, on rank 0, onto one device with no mesh); (b) a pipeline
+    fourth (and, on rank 0, onto one device with no mesh), and a narrower
+    model's refused restores with and without the mesh; (b) a pipeline
     train state on (4, 2) ("pipe", "data") saved and restored, its
     ``wqkv`` shards; (c) one step on (2, 2, 2) ("dcn", "data", "model"),
     saved, restored onto a (2, 2) mesh of ranks 0-3, the first leaf and a
@@ -735,6 +771,17 @@ def _restores(store: str, fields: dict, pp_fields: dict,
         p1, o1 = init1(seed=2)
         ckpt.restore(p1, o1, cfg=cfg)
         out["one_device"] = float(step1(p1, o1, place1(batch))[2])
+    # a narrower model restored onto (2, 4): refused before the cut, with
+    # the text a restore without a mesh gives, nothing written
+    narrow = _cfg(**{**fields, "d_model": 32}, dtype=f32)
+    for where, m in (("mesh", a), ("none", None)):
+        _, init_n, _ = make_train_step(narrow, m, "cpu")
+        pn, on = init_n(seed=3)
+        before = [t.detach().clone() for t in param_leaves(pn)]
+        out[f"narrow_{where}"] = _refusal(
+            lambda: ckpt.restore(pn, on, mesh=m, cfg=narrow))
+        out[f"narrow_{where}_kept"] = not on.state and all(
+            torch.equal(x, y) for x, y in zip(param_leaves(pn), before))
 
     pcfg = _cfg(**pp_fields, dtype=f32)
     pmesh = _mesh(("pipe", "data"), (4, 2))

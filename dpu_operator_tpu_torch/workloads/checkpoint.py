@@ -10,14 +10,17 @@ restore with the rest (``train.map_params`` / ``param_leaves``).
 
 **Restore is all or nothing**, as the reference's: a checkpoint whose
 parameter leaves (count, name, shape, dtype) or optimizer groups do not
-match the caller's raises ``ValueError`` before anything is copied.
+match the caller's raises ``ValueError`` before anything is copied. A
+mesh restore checks before it cuts the saved state, against the global
+shapes of the caller's shards (each split dim times its axis's size), so
+a mismatch raises the same ``ValueError`` with and without a mesh.
 
 **Re-sharding** (the reference's restore onto the current mesh). A file
 always holds the global train state. With a *mesh*, ``save`` gathers the
 parameters and the AdamW moments by the tree's specs (``model.param_specs``
 of *cfg*, or ``pipeline.pipeline_param_specs`` for a stage-stacked tree)
 and global rank 0 writes them; ``restore`` cuts the global state into the
-caller's shards by the caller's specs on the caller's mesh, before the
+caller's shards by the caller's specs on the caller's mesh, after the
 check. So a state saved on one mesh restores onto another factoring, a
 smaller mesh (a multi-slice state onto one slice: parameters replicate
 over "dcn"), or one device, and a one-device state onto a mesh.
@@ -34,7 +37,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .mesh import axes_group
-from .model import TransformerConfig, gather_tree, param_specs, shard_tree
+from .model import (TransformerConfig, gather_tree, global_shapes,
+                    param_specs, shard_tree)
 from .pipeline import pipeline_param_specs
 from .train import map_params, named_leaves, param_leaves
 
@@ -94,17 +98,20 @@ class TrainCheckpointer:
         *cfg* of a model tree) *params* and *opt* are the rank's shards,
         and the saved global state is cut into them first, whatever mesh
         saved it. A checkpoint that does not match them raises
-        ``ValueError`` naming the first mismatch, and leaves *params* and
-        *opt* as they were."""
+        ``ValueError`` naming the first mismatch (the same with and without
+        a mesh), and leaves *params* and *opt* as they were."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         state = torch.load(self._path(step), map_location="cpu",
                            weights_only=True)
-        if mesh is not None:  # this rank's shards of the global state
+        shapes = [t.shape for t in param_leaves(params)]
+        if mesh is not None:  # the global shapes of the caller's shards
             specs = _specs(params, cfg)
+            shapes = param_leaves(global_shapes(params, specs, mesh))
+        _check_restorable(step, params, opt, state, shapes)
+        if mesh is not None:  # this rank's shards of the global state
             state = _map_state(lambda t: shard_tree(t, specs, mesh), state)
-        _check_restorable(step, params, opt, state)
         with torch.no_grad():
             for dst, src in zip(param_leaves(params),
                                 param_leaves(state["params"])):
@@ -163,24 +170,25 @@ def _map_state(fn, state: dict) -> dict:
 
 
 def _check_restorable(step: int, params: dict, opt: torch.optim.Optimizer,
-                      state: dict) -> None:
+                      state: dict, shapes: list) -> None:
     """Raise ``ValueError`` naming the first difference between the saved
     *state* and the caller's *params* / *opt*: the leaf count, then each
     leaf's name, shape and dtype in :func:`~.train.named_leaves` order,
-    then the optimizer's parameter-group sizes."""
+    then the optimizer's parameter-group sizes. *shapes* are the caller's
+    global leaf shapes (its own, or its shards' on a mesh)."""
     ours, saved = named_leaves(params), named_leaves(state["params"])
     if len(ours) != len(saved):
         raise ValueError(f"checkpoint step {step} holds {len(saved)} "
                          f"parameter leaves, the model {len(ours)}")
-    for (name, dst), (saved_name, src) in zip(ours, saved):
+    for (name, dst), (saved_name, src), shape in zip(ours, saved, shapes):
         if name != saved_name:
             raise ValueError(f"checkpoint step {step}: leaf {saved_name} "
                              f"where the model has {name}")
-        if dst.shape != src.shape or dst.dtype != src.dtype:
+        if src.shape != shape or dst.dtype != src.dtype:
             raise ValueError(
                 f"checkpoint step {step}: leaf {name} is "
                 f"{tuple(src.shape)} {src.dtype}, the model's "
-                f"{tuple(dst.shape)} {dst.dtype}")
+                f"{tuple(shape)} {dst.dtype}")
     groups = [len(g["params"]) for g in opt.param_groups]
     saved_groups = [len(g["params"])
                     for g in state["opt_state"]["param_groups"]]

@@ -187,12 +187,23 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 def axes_group(mesh: DeviceMesh, axes: "str | Sequence[str]") -> tuple:
     """``(process group, size, this rank's index)`` of the sub-mesh over
     *axes*: one axis name, or several flattened with the first major (JAX
-    ``P(("dcn", "data"))``). A flattened group is formed on first use by
-    its own ranks only, and kept on the mesh."""
+    ``P(("dcn", "data"))``). A flattened group is formed on first use and
+    kept on the mesh.
+
+    **How it is formed.** On a mesh over the whole default group every
+    rank forms every line's group, in one order, as ``DeviceMesh`` forms
+    its own, so the groups' names follow a count that every rank keeps
+    alike. On a mesh over part of the group (``make_mesh(ranks=)``) only
+    its ranks call this, and each forms its own line's group alone, by a
+    name hashed from the line's ranks and the process's number of groups.
+    A part mesh raises that number on its ranks only, so a whole-world
+    mesh's lines named that way after it would differ across the ranks and
+    never form."""
     if isinstance(axes, str):
         return mesh.get_group(axes), axis_size(mesh, axes), \
             mesh.get_local_rank(axes)
     axes = tuple(axes)
+    size = math.prod(axis_size(mesh, a) for a in axes)
     index = 0
     for axis in axes:
         index = index * axis_size(mesh, axis) + mesh.get_local_rank(axis)
@@ -205,8 +216,15 @@ def axes_group(mesh: DeviceMesh, axes: "str | Sequence[str]") -> tuple:
         coord = tuple(mesh.get_local_rank(a) for a in names
                       if a not in axes)
         ranks = grid[coord].flatten().tolist()
-        cache[axes] = dist.new_group(ranks, use_local_synchronization=True)
-    return cache[axes], math.prod(axis_size(mesh, a) for a in axes), index
+        if mesh.mesh.numel() < dist.get_world_size():
+            cache[axes] = dist.new_group(ranks,
+                                         use_local_synchronization=True)
+        else:
+            for line in grid.reshape(-1, size).tolist():
+                group = dist.new_group(line)
+                if line == ranks:
+                    cache[axes] = group
+    return cache[axes], size, index
 
 
 def mesh_shape(mesh: DeviceMesh) -> dict:

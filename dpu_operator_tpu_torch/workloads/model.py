@@ -561,6 +561,20 @@ def shard_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
     return _map_specs(shard, tree, specs)
 
 
+def global_shapes(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """*tree* with each leaf's global shape under *specs*: the rank's
+    piece's shape, each split dim times its axis's size (the shape
+    :func:`gather_tree` gives back)."""
+
+    def whole(t: torch.Tensor, spec: tuple, key: str) -> torch.Size:
+        shape = list(t.shape)
+        for dim, axis in _split_dims(spec):
+            shape[dim] *= axis_size(mesh, axis)
+        return torch.Size(shape)
+
+    return _map_specs(whole, tree, specs)
+
+
 def gather_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
     """The global tree from every rank's pieces under *specs* (a
     collective over each split axis's groups), detached: the inverse of

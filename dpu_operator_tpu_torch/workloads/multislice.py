@@ -19,7 +19,7 @@ one slice are consecutive.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -32,13 +32,19 @@ from .model import _gather, _scatter
 def make_multislice_mesh(n_slices: int,
                          axis_names: Sequence[str] = ("dcn", "data",
                                                       "model"),
-                         device_type: str = "cuda") -> DeviceMesh:
-    """A mesh over every rank of the default process group whose leading
-    axis spans slices and whose trailing axes stay inside one slice: the
-    ranks of a slice are factored as the reference factors its devices
-    (near-equal extents, the last axis taking the rest). A world that
-    does not split into *n_slices* raises ``ValueError``."""
-    n = _world(device_type)
+                         device_type: str = "cuda",
+                         ranks: Optional[Sequence[int]] = None
+                         ) -> DeviceMesh:
+    """A mesh over every rank of the default process group, or over
+    *ranks* of it (JAX ``make_multislice_mesh(devices=...)``), whose
+    leading axis spans slices and whose trailing axes stay inside one
+    slice: the ranks of a slice are factored as the reference factors its
+    devices (near-equal extents, the last axis taking the rest). As
+    ``mesh.make_mesh(ranks=)``, every rank of the group calls it, and a
+    rank outside *ranks* gets the mesh without a place on it
+    (``mesh.get_coordinate()`` is None). Ranks that do not split into
+    *n_slices* raise ``ValueError``."""
+    n = _world(device_type) if ranks is None else len(ranks)
     if n % n_slices:
         raise ValueError(
             f"{n} devices do not split into {n_slices} slices")
@@ -55,7 +61,8 @@ def make_multislice_mesh(n_slices: int,
         shape.append(f)
         rem //= f
     shape.append(rem)
-    return make_mesh(axis_names, tuple(shape), device_type=device_type)
+    return make_mesh(axis_names, tuple(shape), device_type=device_type,
+                     ranks=ranks)
 
 
 def hierarchical_allreduce(mesh: DeviceMesh, ici_axis: str = "model",

@@ -59,11 +59,13 @@ from .model import (TransformerConfig, _all_reduce, _check_supported,
 from .train import STAGE_LEAVES, _all_reduce_into, map_params, param_leaves
 
 def _stages_of(cfg: TransformerConfig, n_stages: int) -> int:
-    """Layers a stage; an uneven split raises ``ValueError``."""
+    """Layers a stage; an uneven split raises ``ValueError``. The stages
+    stack dense layers whatever ``cfg.moe_experts`` says, as the
+    reference's ``init_pipeline_params`` and ``_layer_fwd`` (which never
+    read it): a stage layer's dict has no ``"moe"`` key, so
+    ``model.layer`` runs its dense FFN, and the pipeline's loss has no
+    MoE term."""
     _check_supported(cfg)
-    if cfg.moe_experts > 0:
-        raise ValueError("the pipeline stacks dense layers only (as the "
-                         "reference's init_pipeline_params)")
     if cfg.n_layers % n_stages:
         raise ValueError(
             f"{cfg.n_layers} layers do not split over {n_stages} stages")

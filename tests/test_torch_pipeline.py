@@ -234,6 +234,41 @@ def test_pipeline_train_step_loss_decreases(ranks):
         assert losses == ranks[0]["pipeline"]["bf16"]
 
 
+def test_pipeline_moe_config_trains_the_dense_stack(ranks):
+    """A config with ``moe_experts=4`` builds and trains the dense stage
+    stack, as the reference's ``init_pipeline_params`` and ``_layer_fwd``
+    (which never read ``moe_experts``): from the same bridged tree its 3
+    fp32 steps on (4, 2) give the dense config's losses on every rank."""
+    for r in ranks:
+        run = r["pipeline"]
+        assert run["moe_losses"] == run["losses"], r["rank"]
+
+
+def test_pipeline_moe_config_sequential_forward_matches_jax():
+    """JAX ``init_pipeline_params`` of a config with ``moe_experts=4`` over
+    2 stages, through ``pipeline_params_from_numpy``: the port's
+    ``sequential_forward`` equals JAX's within 2e-4, and the dense
+    config's on the same tree exactly."""
+    jcfg = jax_model.TransformerConfig(**PP_FIELDS, dtype=jnp.float32,
+                                       moe_experts=4)
+    tree = _np_tree(jax_pipeline.init_pipeline_params(jax.random.key(3),
+                                                      jcfg, 2))
+    tokens = np.random.default_rng(21).integers(
+        0, PP_FIELDS["vocab"], (4, 16)).astype(np.int32)
+    want = np.asarray(jax_pipeline.sequential_forward(
+        jcfg, tree, jnp.asarray(tokens)))
+    toks = torch.from_numpy(tokens.astype(np.int64))
+    got = {}
+    for experts in (4, 0):
+        cfg = _pp_cfg(moe_experts=experts)
+        params = pipeline.pipeline_params_from_numpy(tree, cfg,
+                                                     device="cpu")
+        with torch.no_grad():
+            got[experts] = pipeline.sequential_forward(cfg, params, toks)
+    np.testing.assert_allclose(got[4].numpy(), want, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got[4], got[0])
+
+
 def test_pipeline_rejects_uneven_layer_split():
     """Twin of test_moe_pipeline.py:138."""
     with pytest.raises(ValueError, match="stages"):
@@ -286,6 +321,26 @@ def test_hierarchical_allreduce_matches_flat(ranks, inputs, jax_runs):
         assert ms["input_kept"]
 
 
+def test_multislice_mesh_over_part_of_the_world(ranks, inputs):
+    """``make_multislice_mesh(2, ranks=range(4))`` over 8 ranks (JAX
+    ``make_multislice_mesh(devices=...)``, test_multislice_e2e.py:206) is
+    (2, 1, 2) on every rank; on ranks 0-3 its hierarchical all-reduce
+    equals the flat one and the plain sum over those 4 ranks, ranks 4-7
+    have no place on it, and 3 ranks do not split into 2 slices."""
+    total = inputs["blocks"].sum(0)
+    for r in ranks:
+        ms = r["multislice"]
+        assert ms["part_shape"] == {"dcn": 2, "data": 1, "model": 2}
+        assert ms["part_placed"] == (r["rank"] < 4), r["rank"]
+        assert ms["part_uneven"] == (
+            "ValueError", "3 devices do not split into 2 slices")
+        if r["rank"] < 4:
+            np.testing.assert_allclose(ms["part_hier"], ms["part_flat"],
+                                       rtol=1e-5)
+            np.testing.assert_allclose(ms["part_hier"], total, rtol=1e-5,
+                                       atol=1e-6)
+
+
 def test_dcn_traffic_model():
     """Twin of test_long_context.py:149, and the JAX function's values."""
     flat = dcn_bytes_per_host(1 << 20, n_ici=4, n_slices=2,
@@ -331,6 +386,21 @@ def test_restore_onto_different_mesh_factoring(ranks):
         assert abs(rs["resumed"] - rs["unbroken"]) < 1e-5, rs
     one = ranks[0]["restores"]
     assert abs(one["one_device"] - one["unbroken"]) < 1e-5, one
+
+
+def test_restore_of_a_narrower_model_onto_a_mesh_is_refused(ranks):
+    """The (2, 4) state restored into a model of d_model 32 raises the same
+    ValueError with the (2, 4) mesh as without one, naming the global
+    shapes and not the rank's shards (``embed`` splits its vocabulary
+    over "model"), and leaves the caller's shards and optimizer as they
+    were."""
+    want = ("ValueError", "checkpoint step 3: leaf embed is (64, 64) "
+            "torch.float32, the model's (64, 32) torch.float32")
+    for r in ranks:
+        rs = r["restores"]
+        assert rs["narrow_mesh"] == want, r["rank"]
+        assert rs["narrow_none"] == want, r["rank"]
+        assert rs["narrow_mesh_kept"] and rs["narrow_none_kept"], r["rank"]
 
 
 def test_checkpoint_pipeline_params_roundtrip(ranks):

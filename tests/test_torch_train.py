@@ -17,6 +17,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from dpu_operator_tpu.ops.flash_attention import _fwd_with_lse
 from dpu_operator_tpu.ops.flash_attention import \
@@ -29,6 +30,7 @@ from dpu_operator_tpu_torch.ops import (
     fused_rmsnorm, fused_rmsnorm_plain, launch_counts)
 from dpu_operator_tpu_torch.workloads import model
 from dpu_operator_tpu_torch.workloads.checkpoint import TrainCheckpointer
+from dpu_operator_tpu_torch.workloads.mesh import make_mesh
 from dpu_operator_tpu_torch.workloads.perf import (CPU_PEAK_FLOPS,
                                                    measure_train,
                                                    param_count, peak_tflops,
@@ -331,10 +333,10 @@ def test_remat_train_step_matches_no_remat():
 
 # -- (h) checkpointing -----------------------------------------------------------
 
-def _trained(seed=0, steps=2):
-    step, init_state, place = make_train_step(TINY, device="cpu")
+def _trained(seed=0, steps=2, cfg=TINY, mesh=None):
+    step, init_state, place = make_train_step(cfg, mesh, device="cpu")
     params, opt = init_state(seed=seed)
-    batch = place(model.make_example_batch(TINY, 4))
+    batch = place(model.make_example_batch(cfg, 4))
     for _ in range(steps):
         params, opt, _ = step(params, opt, batch)
     return step, init_state, batch, params, opt
@@ -356,30 +358,65 @@ def test_checkpoint_save_restore_resumes_the_same_run(tmp_path):
     ckpt.close()
 
 
-@pytest.mark.parametrize("other,match", [
-    ({"n_layers": 3}, "15 parameter leaves, the model 21"),
-    ({"d_model": 32}, "leaf embed is"),
-    ({"dtype": torch.bfloat16}, "leaf embed is"),
-])
-def test_checkpoint_restore_of_a_mismatch_changes_nothing(tmp_path, other,
-                                                          match):
-    """A 2-layer fp32 checkpoint restored into another model (3 layers,
-    another width, bf16) raises ValueError, as the reference's restore
-    does, and leaves every parameter leaf and the optimizer as they
-    were: nothing is copied before the whole checkpoint is checked."""
-    _, _, _, params, opt = _trained(steps=1)
+@pytest.fixture(params=["no mesh", "one-rank mesh"])
+def restore_mesh(request):
+    """None, or a one-rank gloo ("data", "model") mesh in this process
+    whose group the finalizer ends, so no group outlives the test."""
+    if request.param == "no mesh":
+        return None
+    assert not dist.is_initialized()
+    request.addfinalizer(dist.destroy_process_group)
+    return make_mesh(("data", "model"), device_type="cpu")
+
+
+#: (the saved config's changes to TINY, the restoring one's, the whole
+#: ValueError text)
+_MISMATCHES = {
+    "3 layers into 2": ({"n_layers": 3}, {}, "checkpoint step 5 holds 21 "
+                        "parameter leaves, the model 15"),
+    "2 layers into 3": ({}, {"n_layers": 3}, "checkpoint step 5 holds 15 "
+                        "parameter leaves, the model 21"),
+    "another width": ({}, {"d_model": 32}, "checkpoint step 5: leaf embed "
+                      "is (64, 64) torch.float32, the model's (64, 32) "
+                      "torch.float32"),
+    "bf16": ({}, {"dtype": torch.bfloat16}, "checkpoint step 5: leaf "
+             "embed is (64, 64) torch.float32, the model's (64, 64) "
+             "torch.bfloat16"),
+    "dense into MoE": ({}, {"moe_experts": 2}, "checkpoint step 5 holds 15 "
+                       "parameter leaves, the model 16"),
+    "MoE into dense": ({"moe_experts": 2}, {}, "checkpoint step 5 holds 16 "
+                       "parameter leaves, the model 15"),
+}
+
+
+@pytest.mark.parametrize("case", list(_MISMATCHES))
+def test_checkpoint_restore_of_a_mismatch_changes_nothing(tmp_path,
+                                                          restore_mesh,
+                                                          case):
+    """A 2-layer fp32 checkpoint restored into another model (more or
+    fewer layers, another width, bf16, MoE layers or none) raises
+    ValueError, as the reference's restore does, and leaves every
+    parameter leaf and the optimizer as they were: nothing is copied
+    before the whole checkpoint is checked. Saved and restored with a
+    one-rank mesh, the text is the same: the tree's structure is checked
+    before the saved state is cut by the caller's specs."""
+    saved, other, want = _MISMATCHES[case]
+    saved_cfg = dataclasses.replace(TINY, **saved)
+    _, _, _, params, opt = _trained(steps=1, cfg=saved_cfg,
+                                    mesh=restore_mesh)
     ckpt = TrainCheckpointer(str(tmp_path / "ckpt"))
-    ckpt.save(5, params, opt)
+    ckpt.save(5, params, opt, mesh=restore_mesh, cfg=saved_cfg)
     cfg = dataclasses.replace(TINY, **other)
-    _, init_state, _ = make_train_step(cfg, device="cpu")
+    _, init_state, _ = make_train_step(cfg, restore_mesh, device="cpu")
     p0, o0 = init_state(seed=7)
     before = [t.detach().clone() for t in param_leaves(p0)]
     opt_before = o0.state_dict()
-    with pytest.raises(ValueError, match=match):
-        ckpt.restore(p0, o0)
-    for (name, _), got, want in zip(
+    with pytest.raises(ValueError) as raised:
+        ckpt.restore(p0, o0, mesh=restore_mesh, cfg=cfg)
+    assert str(raised.value) == want
+    for (name, _), got, want_leaf in zip(
             named_leaves(p0), param_leaves(p0), before):
-        assert torch.equal(got, want), name
+        assert torch.equal(got, want_leaf), name
     assert o0.state_dict() == opt_before and not o0.state
 
 
