@@ -1,0 +1,20 @@
+"""The serving step's share of the card's bf16 peak, in %: the model
+FLOPs of the useful work the executor's calls did in the window (the
+frozen ``serve_flops``: prompt tokens prefilled, tokens decoded for live
+requests, the logits of the tokens picked, the causal attention pairs),
+over the window's seconds times the peak."""
+
+from harness.arith import serve_flops
+
+
+def read(run):
+    host, peak = run.get("host"), run.get("peak")
+    if not host or not peak:
+        return None
+    w = host["work"]
+    if not (w["prefill_tokens"] or w["decode_tokens"]):
+        return None
+    flops = serve_flops(run["model"], w["prefill_tokens"],
+                        w["prefill_pairs"], w["first_tokens"],
+                        w["decode_tokens"], w["decode_pairs"])
+    return 100.0 * flops / (host["seconds"] * peak["bfloat16"])
