@@ -11,7 +11,11 @@ the serving shell uses:
   :func:`context_scope`, which adopts a caller's context on this thread;
 - :func:`exemplar`, the exemplar label set of a histogram observation;
 - :func:`det_trace_id` / :func:`det_span_id`, the deterministic ids of the
-  scheduler's phase spans, equal to the reference's for the same inputs.
+  scheduler's phase spans, equal to the reference's for the same inputs;
+- :func:`profiled`, a ``torch.profiler.record_function`` range that exists
+  only while the profiler records: the serving loop's spans (``serve.*``,
+  ``kv_pool.*``, ``executor.*``, ``model.*``) on the clock the profiler
+  aligns the device's kernels to. :func:`span` opens one too.
 
 The reference's JSONL sink (``TPU_OPERATOR_TRACE``), its thread-pool
 wrapper and its log filter are not ported: the port's spans go to the
@@ -27,7 +31,9 @@ import re
 import threading
 import time
 import uuid
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, Optional
+
+from torch.autograd import profiler as _autograd_profiler
 
 from . import flight
 
@@ -50,6 +56,19 @@ class SpanContext:
 
     def traceparent(self) -> str:
         return f"00-{self.trace_id}-{self.span_id}-01"
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def profiled(name: str) -> ContextManager:
+    """A ``record_function`` range named *name* while ``torch.profiler``
+    records, so the trace lays the host's work under it beside the device's
+    kernels; with no profiler running, a shared no-op context (the cost is
+    one flag read)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return _autograd_profiler.record_function(name)
 
 
 def new_trace_id() -> str:
@@ -131,7 +150,9 @@ def context_scope(ctx: Optional[SpanContext]) -> Iterator[None]:
 def span(name: str, /, **attributes: object) -> Iterator[SpanContext]:
     """Record a span around a block (nesting tracked per thread). Yields
     a live :class:`SpanContext`, a fresh root trace when no context is
-    active, and lands the finished span in the flight ring."""
+    active, and lands the finished span in the flight ring; under a
+    running profiler the block is a :func:`profiled` range of the same
+    name too."""
     parent = current()
     ctx = SpanContext(parent.trace_id if parent else new_trace_id(),
                       new_span_id())
@@ -140,7 +161,8 @@ def span(name: str, /, **attributes: object) -> Iterator[SpanContext]:
     t0 = time.perf_counter()
     error = ""
     try:
-        yield ctx
+        with profiled(name):
+            yield ctx
     except BaseException as e:
         error = f"{type(e).__name__}: {e}"
         raise

@@ -48,6 +48,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import attention_fwd, attention_fwd_kv8, fused_rmsnorm
+from ..utils import tracing
 from .model import (PROJECTIONS, TransformerConfig, _act_quant,
                     _check_supported, _int8_mm, _is_q, int8_weight, layer,
                     logits_of)
@@ -107,11 +108,12 @@ def _logits(x: torch.Tensor, embed: "torch.Tensor | dict") -> torch.Tensor:
     """x @ embed.T in fp32; an int8 embedding contracts over its d (axis
     1 of q, read through the transposed view) and rescales by the
     per-vocab-row scales, without rounding to x's type."""
-    if not _is_q(embed):
-        return logits_of(x, embed)
-    xq, xs = _act_quant(x)
-    acc = _int8_mm(xq, embed["q"].t())
-    return acc.float() * xs * embed["scale"][:, 0]
+    with tracing.profiled("model.logits"):
+        if not _is_q(embed):
+            return logits_of(x, embed)
+        xq, xs = _act_quant(x)
+        acc = _int8_mm(xq, embed["q"].t())
+        return acc.float() * xs * embed["scale"][:, 0]
 
 
 # -- the cache ----------------------------------------------------------------
@@ -176,22 +178,27 @@ def _hidden(params: dict, cfg: TransformerConfig, cache: list,
     quantized and attended through the KV8 kernels, except in whole
     prefill (*fresh*: a new cache, pos 0), which attends its K/V in the
     model's type (JAX ``prefill`` :348). Returns the final-normed hidden
-    state (B, W, D)."""
-    rows = pos.long()[:, None] + torch.arange(tokens.shape[1],
-                                              device=pos.device)
-    x = _embed(params, cfg, tokens, rows)
+    state (B, W, D). Under a running profiler the embedding is a
+    ``model.embed`` range and each layer's cache write a
+    ``model.cache_write`` range inside its ``model.attention``."""
+    with tracing.profiled("model.embed"):
+        rows = pos.long()[:, None] + torch.arange(tokens.shape[1],
+                                                  device=pos.device)
+        x = _embed(params, cfg, tokens, rows)
     for lp, kv in zip(params["layers"], cache):
 
         def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv: dict = kv) -> torch.Tensor:
             if "k_q" not in kv:
-                _write_rows(kv["k"], k, rows)
-                _write_rows(kv["v"], v, rows)
+                with tracing.profiled("model.cache_write"):
+                    _write_rows(kv["k"], k, rows)
+                    _write_rows(kv["v"], v, rows)
                 return attention_fwd(q, kv["k"], kv["v"], pos, causal=True)
-            (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
-            for name, t in (("k_q", kq), ("k_s", ks), ("v_q", vq),
-                            ("v_s", vs)):
-                _write_rows(kv[name], t, rows)
+            with tracing.profiled("model.cache_write"):
+                (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+                for name, t in (("k_q", kq), ("k_s", ks), ("v_q", vq),
+                                ("v_s", vs)):
+                    _write_rows(kv[name], t, rows)
             if fresh:
                 return attention_fwd(q, k, v, None, causal=True)
             return attention_fwd_kv8(q, kv["k_q"], kv["k_s"], kv["v_q"],

@@ -27,15 +27,19 @@ reference's gauges (``tpu_serve_kv_blocks{state}``,
 ``tpu_kv_shared_blocks``, ``tpu_serve_kv_internal_fragmentation``) and
 counters (``tpu_kv_cow_copies_total``, ``tpu_kv_prefix_block_hits_total``)
 current on every mutation, and :meth:`KvBlockPool.snapshot` is the
-``kv`` block of ``/debug/serve``.
+``kv`` block of ``/debug/serve``. Each gauge update runs under a
+``kv_pool.gauges`` profiler range and adds its seconds to
+:attr:`KvBlockPool.gauge_s`, the running cost of that upkeep, which the
+scheduler's ledger reads an iteration at a time.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional, Sequence
 
-from ..utils import metrics
+from ..utils import metrics, tracing
 
 #: 61-bit Mersenne prime, the rolling-hash modulus (no PYTHONHASHSEED
 #: dependence)
@@ -98,6 +102,8 @@ class KvBlockPool:
         self.cow_copies = 0
         self.prefix_block_hits = 0
         self.spec_rollback_tokens = 0
+        #: running seconds (perf_counter) of the gauge updates
+        self.gauge_s = 0.0
         self._update_gauges_locked()
 
     def blocks_for_tokens(self, tokens: int) -> int:
@@ -365,12 +371,15 @@ class KvBlockPool:
             return self.num_blocks - len(self._free)
 
     def _update_gauges_locked(self) -> None:
-        used = self.num_blocks - len(self._free)
-        metrics.SERVE_KV_BLOCKS.set(float(len(self._free)), state="free")
-        metrics.SERVE_KV_BLOCKS.set(float(used), state="used")
-        metrics.KV_SHARED_BLOCKS.set(float(
-            sum(1 for r in self._refs.values() if r >= 2)))
-        metrics.SERVE_KV_FRAGMENTATION.set(self._fragmentation_locked())
+        t0 = time.perf_counter()
+        with tracing.profiled("kv_pool.gauges"):
+            used = self.num_blocks - len(self._free)
+            metrics.SERVE_KV_BLOCKS.set(float(len(self._free)), state="free")
+            metrics.SERVE_KV_BLOCKS.set(float(used), state="used")
+            metrics.KV_SHARED_BLOCKS.set(float(
+                sum(1 for r in self._refs.values() if r >= 2)))
+            metrics.SERVE_KV_FRAGMENTATION.set(self._fragmentation_locked())
+        self.gauge_s += time.perf_counter() - t0
 
     def snapshot(self) -> dict:
         """The ``kv`` block of ``/debug/serve``."""

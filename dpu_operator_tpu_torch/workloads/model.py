@@ -83,6 +83,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
 from ..ops import flash_attention_vjp, fused_rmsnorm
+from ..utils import tracing
 from .mesh import axes_group, axis_size
 from .moe import init_moe_params, moe_ffn, moe_param_specs
 from .ring_attention import ring_attention
@@ -355,15 +356,21 @@ def layer(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
     *hooks* are the sharded forward's (:class:`_Spmd`): ``enter`` before
     the column-parallel ``wqkv`` and ``w1``, ``leave`` after the
     row-parallel ``wo`` and ``w2``, ``moe`` for a MoE layer's FFN; on one
-    device each is the identity, and ``moe`` is ``moe_ffn``."""
-    h = fused_rmsnorm(x, lp["ln1"])
-    o = attend(*split_heads(_mm(hooks.enter(h), lp["wqkv"]), cfg))
-    x = x + hooks.leave(_mm(o.flatten(2), lp["wo"]))
-    h = fused_rmsnorm(x, lp["ln2"])
-    if "moe" in lp:
-        out, aux = hooks.moe(lp["moe"], h, cfg)
-        return x + out, aux
-    return x + hooks.leave(mlp(hooks.enter(h), lp)), None
+    device each is the identity, and ``moe`` is ``moe_ffn``.
+
+    Under a running profiler the attention half of the block (its norm,
+    projections, attention and residual) is a ``model.attention`` range
+    and the FFN half a ``model.mlp`` or ``model.moe`` one."""
+    with tracing.profiled("model.attention"):
+        h = fused_rmsnorm(x, lp["ln1"])
+        o = attend(*split_heads(_mm(hooks.enter(h), lp["wqkv"]), cfg))
+        x = x + hooks.leave(_mm(o.flatten(2), lp["wo"]))
+    with tracing.profiled("model.moe" if "moe" in lp else "model.mlp"):
+        h = fused_rmsnorm(x, lp["ln2"])
+        if "moe" in lp:
+            out, aux = hooks.moe(lp["moe"], h, cfg)
+            return x + out, aux
+        return x + hooks.leave(mlp(hooks.enter(h), lp)), None
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -63,6 +63,7 @@ headroom digest carries as ``trendAnomalies``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import heapq
 import itertools
@@ -74,7 +75,7 @@ import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -89,6 +90,7 @@ from .decode import (decode_step, init_kv_cache, params_device, prefill,
                      prefill_chunk, verify_step)
 from .kv_pool import KvBlockPool, chain_keys
 from .model import TransformerConfig, init_params
+from .moe import moe_capacity
 from .spec import AdaptiveK, NgramDrafter, greedy_accept
 
 log = logging.getLogger(__name__)
@@ -384,7 +386,15 @@ class TorchSlotExecutor:
     at or past each slot's frontier, so the next call rewrites them (the
     same tokens at the same positions), and a retried request is prefilled
     again, prompt and kept tokens, into whatever slot it is readmitted
-    to."""
+    to.
+
+    Each blocking transfer between host and card is an ``executor.wait``
+    profiler range: the copies of a call's inputs from pageable memory
+    (each drains the stream first) and the read of its argmaxes (their
+    launch stays outside). It keeps on the host what the scheduler's
+    ledger reads an iteration at a time (:meth:`counters`): the seconds of
+    the decode passes' transfers, and the real tokens its MoE layers
+    routed beside the expert rows they computed, from the shapes."""
 
     #: a dense slot row cannot alias blocks of another request
     prefix_aware = False
@@ -407,6 +417,42 @@ class TorchSlotExecutor:
         self.cache = init_kv_cache(cfg, slots, device=self.device)
         self.pos = np.zeros(slots, dtype=np.int32)
         self.last = np.zeros(slots, dtype=np.int32)
+        self._moe_layers = sum(1 for i in range(cfg.n_layers)
+                               if cfg.is_moe_layer(i))
+        self.decode_wait_s = 0.0
+        self.moe_routed_tokens = 0
+        self.moe_expert_rows = 0
+
+    def counters(self) -> dict:
+        """Running totals: ``decode_wait_s``, the seconds ``step`` and
+        ``spec_step`` spent in transfers (``perf_counter``'s);
+        ``moe_routed_tokens``, the real tokens of every forward (a chunk's
+        valid ones, a decode pass's active slots) times the MoE layers;
+        ``moe_expert_rows``, the rows those layers' expert products
+        computed (experts x batch rows x capacity)."""
+        return {"decode_wait_s": self.decode_wait_s,
+                "moe_routed_tokens": self.moe_routed_tokens,
+                "moe_expert_rows": self.moe_expert_rows}
+
+    @contextlib.contextmanager
+    def _waiting(self, decode: bool = False) -> Iterator[None]:
+        """A blocking transfer between host and card: an
+        ``executor.wait`` range, its seconds added to ``decode_wait_s`` in
+        a decode pass."""
+        t0 = time.perf_counter()
+        with tracing.profiled("executor.wait"):
+            yield
+        if decode:
+            self.decode_wait_s += time.perf_counter() - t0
+
+    def _count_moe(self, tokens: int, b: int, s: int) -> None:
+        """A forward over (*b*, *s*) that holds *tokens* real ones: each
+        MoE layer routes the batch rows alone (``moe_ffn``)."""
+        if self._moe_layers:
+            self.moe_routed_tokens += self._moe_layers * tokens
+            self.moe_expert_rows += self._moe_layers * self.cfg.moe_experts \
+                * b * moe_capacity(s, self.cfg.moe_experts,
+                                   self.cfg.moe_capacity_factor)
 
     def _ids(self, req: Request) -> list:
         if req.prompt is None:
@@ -423,12 +469,16 @@ class TorchSlotExecutor:
         """Prefill the whole prompt into *slot*; returns the first token."""
         ids = self._ids(req)
         self._check_fits(req, ids)
-        one, logits = prefill(self.params, self.cfg,
-                              torch.tensor([ids], device=self.device))
+        with self._waiting():
+            prompt = torch.tensor([ids], device=self.device)
+        one, logits = prefill(self.params, self.cfg, prompt)
+        self._count_moe(len(ids), 1, len(ids))
         for layer, fresh in zip(self.cache, one):
             for key in layer:
                 layer[key][slot] = fresh[key][0]
-        tok = int(logits[0].argmax())
+        picked = logits[0].argmax()
+        with self._waiting():
+            tok = int(picked)
         self.pos[slot] = len(ids)
         self.last[slot] = tok
         return tok
@@ -452,12 +502,17 @@ class TorchSlotExecutor:
             self._check_fits(req, ids)
         chunk = np.zeros(self.chunk_capacity, np.int64)
         chunk[:n] = ids[offset:offset + n]
+        with self._waiting():
+            tokens = torch.from_numpy(chunk).to(self.device)
         _, logits = prefill_chunk(self.params, self.cfg, self.cache, slot,
-                                  torch.from_numpy(chunk), offset, n)
+                                  tokens, offset, n)
+        self._count_moe(n, 1, self.chunk_capacity)
         self.pos[slot] = offset + n
         if offset + n < len(ids):
             return None
-        tok = int(logits.argmax())
+        picked = logits.argmax()
+        with self._waiting():
+            tok = int(picked)
         self.last[slot] = tok
         return tok
 
@@ -468,11 +523,17 @@ class TorchSlotExecutor:
     def step(self, active: list) -> dict:
         """One decode iteration over every slot; returns ``{slot: token}``
         for the *active* ``(slot, request)`` pairs."""
-        tokens = torch.from_numpy(self.last.astype(np.int64))
-        logits, _ = decode_step(self.params, self.cfg, self.cache,
-                                tokens.to(self.device), self._positions())
+        with self._waiting(decode=True):
+            tokens = torch.from_numpy(self.last.astype(np.int64)
+                                      ).to(self.device)
+            pos = self._positions()
+        logits, _ = decode_step(self.params, self.cfg, self.cache, tokens,
+                                pos)
+        self._count_moe(len(active), self.slots, 1)
+        picked = logits.argmax(-1)
         # the one device-to-host copy of the iteration: every slot's argmax
-        picked = logits.argmax(-1).cpu().numpy()
+        with self._waiting(decode=True):
+            picked = picked.cpu().numpy()
         out = {}
         for slot, _req in active:
             tok = int(picked[slot])
@@ -500,12 +561,17 @@ class TorchSlotExecutor:
             d = [int(t) for t in drafts.get(slot, ())][:width - 1]
             n_drafted[slot] = len(d)
             tokens[slot, 1:1 + len(d)] = d
-        logits, _ = verify_step(self.params, self.cfg, self.cache,
-                                torch.from_numpy(tokens).to(self.device),
-                                self._positions())
+        with self._waiting(decode=True):
+            rows = torch.from_numpy(tokens).to(self.device)
+            pos = self._positions()
+        logits, _ = verify_step(self.params, self.cfg, self.cache, rows, pos)
+        self._count_moe(sum(1 + n_drafted[slot] for slot, _ in active),
+                        self.slots, width)
+        picked = logits.argmax(-1)
         # the one device-to-host copy of the iteration: every slot's k + 1
         # argmaxes
-        picked = logits.argmax(-1).cpu().numpy()
+        with self._waiting(decode=True):
+            picked = picked.cpu().numpy()
         out = {}
         for slot, _req in active:
             k = n_drafted[slot]
@@ -516,6 +582,13 @@ class TorchSlotExecutor:
             self.pos[slot] += len(emitted)
             out[slot] = emitted
         return out
+
+
+def _change(before: dict, after: dict) -> dict:
+    """*after* less *before*, key by key; seconds (floats) rounded to the
+    ledger's 6 places."""
+    return {key: round(value - before[key], 6) if isinstance(value, float)
+            else value - before[key] for key, value in after.items()}
 
 
 #: the ledger's phase keys, in render order: ``verify`` is the speculative
@@ -533,7 +606,16 @@ class StepLedger:
     prefill-budget spend, decode or verify, copy-on-write and pool write
     accounting, and scheduling. Served at ``/debug/serve/ledger``,
     summarized into ``tpu_serve_step_breakdown_seconds{phase}``, and
-    reconciled: the phase sum must track the iteration's time."""
+    reconciled: the phase sum must track the iteration's time.
+
+    An entry holds the reference's keys and one of the port's own,
+    ``detail``, the iteration's change of running totals: the seconds of
+    the pool's gauge upkeep (``pool_gauge_s``, in whichever segment it
+    fell) and, from an executor that keeps
+    :meth:`TorchSlotExecutor.counters`, the decode pass's transfers
+    (``decode_wait_s``) and its MoE layers' routed tokens and expert rows
+    (``moe_routed_tokens``, ``moe_expert_rows``). These seconds are
+    ``perf_counter``'s."""
 
     def __init__(self, capacity: int = 256) -> None:
         self.capacity = capacity
@@ -735,7 +817,8 @@ class Scheduler:
     # -- one iteration --------------------------------------------------------
     def step(self) -> bool:
         """One iteration. Returns False when nothing is left to do now."""
-        with watchdog.task(self.heartbeat), self._state_lock:
+        with watchdog.task(self.heartbeat), self._state_lock, \
+                tracing.profiled("serve.step"):
             return self._step_locked()
 
     def _step_locked(self) -> bool:
@@ -771,68 +854,77 @@ class Scheduler:
         # the ledger: under a real clock _bill charges each segment its
         # measured time (a stalled executor's seconds land in the phase
         # that stalled); under the virtual clock _advance attributes the
-        # modelled costs
+        # modelled costs. Each stretch is a profiler range of its own
         phases = dict.fromkeys(LEDGER_PHASES, 0.0)
         self._ledger_phases = phases
         step_start = self._ledger_mark = self._mark()
+        counted = self._counted()
         self._ledger_phase = "sched"
-        admitted = self._admit(it)
-        self._bill("sched")
+        with tracing.profiled("serve.admit"):
+            admitted = self._admit(it)
+            self._bill("sched")
         # an interleaved iteration's ITL includes the chunks it carried
         iter_start = self.now
         self._ledger_phase = "prefill"
-        if self._chunked:
-            for req in admitted:
-                req.state = PREFILLING
-                self._prefilling.append(req)
-            self._prefill_pass(it)
-        else:
-            for req in admitted:
-                prefill_start = self._mark()
-                self._advance(self.cost.prefill_s(
-                    req.prefill_target - req.prefill_start))
-                try:
-                    tok = self.executor.begin(req, req.slot)
-                except Exception as e:  # noqa: BLE001 — one request's
-                    # fault, never the scheduler's
-                    self._executor_fault(it, req, e, "prefill")
-                    continue
-                req.prefilled = req.prefill_target
-                self._phase_span(
-                    req, "serve.prefill", prefill_start, self._mark(),
-                    tokens=req.prefill_target - req.prefill_start,
-                    offset=req.prefill_start)
-                self._finish_prefill(it, req, tok)
-            iter_start = self.now
-        self._bill("prefill")
+        with tracing.profiled("serve.prefill"):
+            if self._chunked:
+                for req in admitted:
+                    req.state = PREFILLING
+                    self._prefilling.append(req)
+                self._prefill_pass(it)
+            else:
+                for req in admitted:
+                    prefill_start = self._mark()
+                    self._advance(self.cost.prefill_s(
+                        req.prefill_target - req.prefill_start))
+                    try:
+                        tok = self.executor.begin(req, req.slot)
+                    except Exception as e:  # noqa: BLE001 — one request's
+                        # fault, never the scheduler's
+                        self._executor_fault(it, req, e, "prefill")
+                        continue
+                    req.prefilled = req.prefill_target
+                    self._phase_span(
+                        req, "serve.prefill", prefill_start, self._mark(),
+                        tokens=req.prefill_target - req.prefill_start,
+                        offset=req.prefill_start)
+                    self._finish_prefill(it, req, tok)
+                iter_start = self.now
+            self._bill("prefill")
         self._ledger_phase = "sched"
-        active = sorted((slot, req) for slot, req in self._active.items()
-                        if req.state == RUNNING
-                        and len(req.tokens) < req.output_len)
-        drafts = self._propose(active) if active and self._spec_on \
-            else None
-        self._bill("sched")
+        with tracing.profiled("serve.select"):
+            active = sorted((slot, req)
+                            for slot, req in self._active.items()
+                            if req.state == RUNNING
+                            and len(req.tokens) < req.output_len)
+            drafts = self._propose(active) if active and self._spec_on \
+                else None
+            self._bill("sched")
         if active and drafts:
             self._spec_pass(it, active, drafts, iter_start)
         elif active:
             self._decode_pass(it, active, iter_start)
         self._ledger_phase = "sched"
-        for slot in sorted(self._active):
-            req = self._active[slot]
-            if len(req.tokens) >= req.output_len:
-                self._complete(it, req)
-            elif req.deadline_s is not None and self.now > req.deadline_s:
-                # mid-stream: after completion, so a request holding all
-                # its tokens completes rather than expires
-                self._deadline_exceed(it, req)
-        self._degrade_pass(it)
-        if self.history_limit is not None:
-            del self.trace[:-self.history_limit]
-            del self.completed[:-self.history_limit]
-            del self.rejected[:-self.history_limit]
-            del self.failed[:-self.history_limit]
-        self._update_gauges()
-        self._bill("sched")
+        with tracing.profiled("serve.finish"):
+            for slot in sorted(self._active):
+                req = self._active[slot]
+                if len(req.tokens) >= req.output_len:
+                    self._complete(it, req)
+                elif req.deadline_s is not None \
+                        and self.now > req.deadline_s:
+                    # mid-stream: after completion, so a request holding
+                    # all its tokens completes rather than expires
+                    self._deadline_exceed(it, req)
+            self._degrade_pass(it)
+            if self.history_limit is not None:
+                del self.trace[:-self.history_limit]
+                del self.completed[:-self.history_limit]
+                del self.rejected[:-self.history_limit]
+                del self.failed[:-self.history_limit]
+            self._bill("sched")
+        with tracing.profiled("serve.gauges"):
+            self._update_gauges()
+            self._bill("sched")
         self._ledger_phase = None
         self._ledger_phases = None
         self.ledger.record({
@@ -846,38 +938,53 @@ class Scheduler:
             "total_s": round(self._ledger_mark - step_start, 6),
             "preemptionsTotal": self.preemptions,
             "cowCopiesTotal": self.pool.cow_copies,
+            "detail": _change(counted, self._counted()),
         })
         return True
+
+    def _counted(self) -> dict:
+        """The running totals an iteration's ``detail`` holds the change
+        of: the pool's gauge upkeep and, where the executor keeps them,
+        its :meth:`TorchSlotExecutor.counters`."""
+        out = {"pool_gauge_s": self.pool.gauge_s}
+        counters = getattr(self.executor, "counters", None)
+        if counters is not None:
+            out.update(counters())
+        return out
 
     def _decode_pass(self, it: int, active: list,
                      iter_start: float) -> None:
         """One batched decode iteration; a pass that raises retries one
         victim and commits nothing."""
         self._ledger_phase = "decode"
-        self._advance(self.cost.decode_s(len(active)))
-        try:
-            toks = self.executor.step(active)
-        except Exception as e:  # noqa: BLE001 — the batch loses one
-            # iteration and one victim retries
-            toks = None
-            self._step_fault(it, "decode", active, e)
-        self._tick()
-        self._bill("decode")
-        # the measured iteration under a real clock (a stall is a stall),
-        # the modelled one, chunks included, under the virtual clock
-        metrics.SERVE_ITL_SECONDS.observe(
-            self.now - iter_start, exemplar=self._exemplar(active))
+        with tracing.profiled("serve.decode"):
+            self._advance(self.cost.decode_s(len(active)))
+            try:
+                toks = self.executor.step(active)
+            except Exception as e:  # noqa: BLE001 — the batch loses one
+                # iteration and one victim retries
+                toks = None
+                self._step_fault(it, "decode", active, e)
+            self._tick()
+            self._bill("decode")
         self._ledger_phase = "cow"
-        for slot, req in (active if toks is not None else ()):
-            if self._share:
-                self._write(it, req, req.prompt_len + len(req.tokens))
-            req.tokens.append(toks[slot])
-            req.decode_iters += 1
-            self.pool.set_used_tokens(
-                req.rid, req.prompt_len + len(req.tokens))
-            metrics.SERVE_TOKENS.inc(phase="decode")
-            self._notify(req, "token", toks[slot])
-        self._bill("cow")
+        with tracing.profiled("serve.commit"):
+            # the measured iteration under a real clock (a stall is a
+            # stall), the modelled one, chunks included, under the virtual
+            # clock
+            metrics.SERVE_ITL_SECONDS.observe(
+                self.now - iter_start, exemplar=self._exemplar(active))
+            for slot, req in (active if toks is not None else ()):
+                if self._share:
+                    self._write(it, req, req.prompt_len + len(req.tokens))
+                req.tokens.append(toks[slot])
+                req.decode_iters += 1
+                self.pool.set_used_tokens(
+                    req.rid, req.prompt_len + len(req.tokens))
+                self._notify(req, "token", toks[slot])
+            if toks is not None:
+                metrics.SERVE_TOKENS.inc(len(active), phase="decode")
+            self._bill("cow")
         if toks is not None:
             self.trace.append(("decode", it, len(active)))
 
@@ -1029,48 +1136,56 @@ class Scheduler:
         raises commits nothing and retries one victim."""
         k_iter = max(len(d) for d in drafts.values())
         self._ledger_phase = "verify"
-        self._advance(self.cost.verify_s(len(active), k_iter))
-        try:
-            emitted = self.executor.spec_step(active, drafts)
-        except Exception as e:  # noqa: BLE001 — as the decode pass
-            self._step_fault(it, "verify", active, e)
+        with tracing.profiled("serve.verify"):
+            self._advance(self.cost.verify_s(len(active), k_iter))
+            try:
+                emitted = self.executor.spec_step(active, drafts)
+            except Exception as e:  # noqa: BLE001 — as the decode pass
+                self._step_fault(it, "verify", active, e)
+                self._tick()
+                self._bill("verify")
+                return
             self._tick()
-            self._bill("verify")
-            return
-        self._tick()
-        metrics.SERVE_SPEC_VERIFY_SECONDS.observe(self._bill("verify"))
-        metrics.SERVE_ITL_SECONDS.observe(
-            self.now - iter_start, exemplar=self._exemplar(active))
+            verify_s = self._bill("verify")
         self._ledger_phase = "cow"
-        for slot, req in active:
-            toks = emitted[slot]
-            proposed = len(drafts.get(slot, ()))
-            accepted = len(toks) - 1
-            base = req.prompt_len + len(req.tokens)
-            if self._share:
-                for i in range(proposed + 1):
-                    self._write(it, req, base + i)
-                self.pool.set_used_tokens(req.rid, base + proposed + 1)
-            req.tokens.extend(toks)
-            req.decode_iters += 1
-            used = req.prompt_len + len(req.tokens)
-            if self._share and accepted < proposed:
-                self.pool.rollback_tokens(req.rid, used)
-            self.pool.set_used_tokens(req.rid, used)
-            for tok in toks:
-                metrics.SERVE_TOKENS.inc(phase="decode")
-                self._notify(req, "token", tok)
-            if proposed:
-                self._spec.observe(proposed, accepted)
-                self.spec_rows_total += 1
-                metrics.SERVE_SPEC_TOKENS.inc(proposed, outcome="proposed")
-                metrics.SERVE_SPEC_TOKENS.inc(accepted, outcome="accepted")
-                metrics.SERVE_SPEC_TOKENS.inc(proposed - accepted,
-                                              outcome="rejected")
-                self.trace.append(("spec", it, req.rid, proposed,
-                                   accepted))
-        metrics.SERVE_SPEC_ACCEPTANCE.set(self._spec.acceptance_rate())
-        self._bill("cow")
+        with tracing.profiled("serve.commit"):
+            metrics.SERVE_SPEC_VERIFY_SECONDS.observe(verify_s)
+            metrics.SERVE_ITL_SECONDS.observe(
+                self.now - iter_start, exemplar=self._exemplar(active))
+            committed = 0
+            for slot, req in active:
+                toks = emitted[slot]
+                proposed = len(drafts.get(slot, ()))
+                accepted = len(toks) - 1
+                base = req.prompt_len + len(req.tokens)
+                if self._share:
+                    for i in range(proposed + 1):
+                        self._write(it, req, base + i)
+                    self.pool.set_used_tokens(req.rid, base + proposed + 1)
+                req.tokens.extend(toks)
+                req.decode_iters += 1
+                used = req.prompt_len + len(req.tokens)
+                if self._share and accepted < proposed:
+                    self.pool.rollback_tokens(req.rid, used)
+                self.pool.set_used_tokens(req.rid, used)
+                committed += len(toks)
+                for tok in toks:
+                    self._notify(req, "token", tok)
+                if proposed:
+                    self._spec.observe(proposed, accepted)
+                    self.spec_rows_total += 1
+                    metrics.SERVE_SPEC_TOKENS.inc(proposed,
+                                                  outcome="proposed")
+                    metrics.SERVE_SPEC_TOKENS.inc(accepted,
+                                                  outcome="accepted")
+                    metrics.SERVE_SPEC_TOKENS.inc(proposed - accepted,
+                                                  outcome="rejected")
+                    self.trace.append(("spec", it, req.rid, proposed,
+                                       accepted))
+            if committed:
+                metrics.SERVE_TOKENS.inc(committed, phase="decode")
+            metrics.SERVE_SPEC_ACCEPTANCE.set(self._spec.acceptance_rate())
+            self._bill("cow")
         self.trace.append(("decode", it, len(active)))
 
     # -- admission ------------------------------------------------------------
