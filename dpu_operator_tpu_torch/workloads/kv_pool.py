@@ -27,8 +27,11 @@ reference's gauges (``tpu_serve_kv_blocks{state}``,
 ``tpu_kv_shared_blocks``, ``tpu_serve_kv_internal_fragmentation``) and
 counters (``tpu_kv_cow_copies_total``, ``tpu_kv_prefix_block_hits_total``)
 current on every mutation, and :meth:`KvBlockPool.snapshot` is the
-``kv`` block of ``/debug/serve``. Each gauge update runs under a
-``kv_pool.gauges`` profiler range and adds its seconds to
+``kv`` block of ``/debug/serve``. The gauges are kept by counters, shared
+blocks and written slots, that each mutation updates for only the blocks
+it touches (a decode token moves its owner's frontier through one block),
+so no update walks the owners or the blocks. Each gauge update still runs
+under a ``kv_pool.gauges`` profiler range and adds its seconds to
 :attr:`KvBlockPool.gauge_s`, the running cost of that upkeep, which the
 scheduler's ledger reads an iteration at a time.
 """
@@ -98,6 +101,14 @@ class KvBlockPool:
         #: token slots the key covers)
         self._index: dict[int, int] = {}
         self._block_key: dict[int, tuple] = {}
+        #: allocated blocks with refcount >= 2
+        self._shared = 0
+        #: block id -> {owner: slots of the block that owner has written},
+        #: nonzero only; a block's written slots are its owners' largest
+        #: (mappers' content is the same in the shared region)
+        self._cover: dict[int, dict[str, int]] = {}
+        #: written slots summed over blocks, a block counted once
+        self._written = 0
         #: lifetime counters
         self.cow_copies = 0
         self.prefix_block_hits = 0
@@ -133,32 +144,34 @@ class KvBlockPool:
     def shared_blocks(self) -> int:
         """Physical blocks referenced by two owners or more."""
         with self._lock:
-            return sum(1 for r in self._refs.values() if r >= 2)
+            return self._shared
 
-    def _written_slots_locked(self) -> int:
-        """Token slots holding real KV rows, a block counted once: per
-        block the largest coverage of its owners (mappers' content is the
-        same in the shared region)."""
-        written: dict[int, int] = {}
+    def _cover_locked(self, block: int, owner: str, slots: int) -> None:
+        """Set *owner*'s written slots in *block*, keeping ``_written``."""
+        covers = self._cover.setdefault(block, {})
+        self._written -= max(covers.values(), default=0)
+        if slots > 0:
+            covers[owner] = slots
+        else:
+            covers.pop(owner, None)
+        self._written += max(covers.values(), default=0)
+        if not covers:
+            del self._cover[block]
+
+    def _move_frontier_locked(self, owner: str, old: int, new: int) -> None:
+        """Re-cover the blocks of *owner* between its written frontier
+        *old* and *new*: the only blocks whose coverage the move changes."""
+        blocks = self._owned[owner]
         bs = self.block_size
-        for owner, blocks in self._owned.items():
-            used = self._used_tokens.get(owner, 0)
-            if used <= 0:
-                continue
-            full, rem = divmod(used, bs)
-            for b in blocks[:full]:
-                written[b] = bs
-            if rem and full < len(blocks):
-                b = blocks[full]
-                written[b] = max(written.get(b, 0), rem)
-        return sum(written.values())
+        lo, hi = max(0, min(old, new)), max(old, new)
+        for i in range(lo // bs, -(-hi // bs)):
+            self._cover_locked(blocks[i], owner, min(max(new - i * bs, 0), bs))
 
     def _fragmentation_locked(self) -> float:
         allocated = (self.num_blocks - len(self._free)) * self.block_size
         if allocated == 0:
             return 0.0
-        return max(0.0, (allocated - self._written_slots_locked())
-                   / allocated)
+        return max(0.0, (allocated - self._written) / allocated)
 
     def internal_fragmentation(self) -> float:
         """Fraction of allocated token slots not yet written (0.0 when
@@ -234,6 +247,8 @@ class KvBlockPool:
             blocks = [self._index[k] for k in keys[:n]]
             for b in blocks:
                 self._refs[b] += 1
+                if self._refs[b] == 2:
+                    self._shared += 1
             self._owned.setdefault(owner, []).extend(blocks)
             self._used_tokens.setdefault(owner, 0)
             self.prefix_block_hits += n
@@ -292,7 +307,13 @@ class KvBlockPool:
                 fresh = self._free.pop(0)
                 self._refs[fresh] = 1
                 self._refs[block] -= 1
+                if self._refs[block] == 1:
+                    self._shared -= 1
                 owned[b_idx] = fresh
+                slots = self._cover.get(block, {}).get(owner, 0)
+                if slots:
+                    self._cover_locked(block, owner, 0)
+                    self._cover_locked(fresh, owner, slots)
                 self.cow_copies += 1
                 metrics.KV_COW_COPIES.inc()
                 self._update_gauges_locked()
@@ -311,7 +332,9 @@ class KvBlockPool:
             if owner not in self._owned:
                 raise KeyError(f"unknown owner {owner!r}")
             cap = len(self._owned[owner]) * self.block_size
-            self._used_tokens[owner] = min(int(tokens), cap)
+            new = min(int(tokens), cap)
+            self._move_frontier_locked(owner, self._used_tokens[owner], new)
+            self._used_tokens[owner] = new
             self._update_gauges_locked()
 
     def rollback_tokens(self, owner: str, tokens: int) -> int:
@@ -329,6 +352,7 @@ class KvBlockPool:
             new = min(cur, int(tokens))
             rolled = cur - new
             if rolled:
+                self._move_frontier_locked(owner, cur, new)
                 self._used_tokens[owner] = new
                 self.spec_rollback_tokens += rolled
                 self._update_gauges_locked()
@@ -340,16 +364,20 @@ class KvBlockPool:
         Freeing an unknown owner is a no-op. Returns the blocks released."""
         with self._lock:
             blocks = self._owned.pop(owner, None)
-            self._used_tokens.pop(owner, None)
+            used = self._used_tokens.pop(owner, 0)
             if not blocks:
                 self._update_gauges_locked()
                 return 0
+            for b in blocks[:self.blocks_for_tokens(used)]:
+                self._cover_locked(b, owner, 0)
             released = []
             for b in blocks:
                 refs = self._refs[b] - 1
                 if refs < 0:
                     raise AssertionError(
                         f"block {b} refcount went negative")
+                if refs == 1:
+                    self._shared -= 1
                 if refs == 0:
                     del self._refs[b]
                     entry = self._block_key.pop(b, None)
@@ -376,8 +404,7 @@ class KvBlockPool:
             used = self.num_blocks - len(self._free)
             metrics.SERVE_KV_BLOCKS.set(float(len(self._free)), state="free")
             metrics.SERVE_KV_BLOCKS.set(float(used), state="used")
-            metrics.KV_SHARED_BLOCKS.set(float(
-                sum(1 for r in self._refs.values() if r >= 2)))
+            metrics.KV_SHARED_BLOCKS.set(float(self._shared))
             metrics.SERVE_KV_FRAGMENTATION.set(self._fragmentation_locked())
         self.gauge_s += time.perf_counter() - t0
 
@@ -395,8 +422,7 @@ class KvBlockPool:
                     self._fragmentation_locked(), 4),
                 "owners": len(self._owned),
                 "sharing": self.sharing,
-                "sharedBlocks": sum(1 for r in self._refs.values()
-                                    if r >= 2),
+                "sharedBlocks": self._shared,
                 "logicalBlocks": sum(len(b)
                                      for b in self._owned.values()),
                 "cowCopies": self.cow_copies,

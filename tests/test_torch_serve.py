@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from dpu_operator_tpu.utils import metrics as jax_metrics
 from dpu_operator_tpu.workloads.kv_pool import KvBlockPool as JaxKvBlockPool
+from dpu_operator_tpu_torch.utils import metrics
 from dpu_operator_tpu_torch.workloads import decode, model
-from dpu_operator_tpu_torch.workloads.kv_pool import KvBlockPool
+from dpu_operator_tpu_torch.workloads.kv_pool import KvBlockPool, chain_keys
 from dpu_operator_tpu_torch.workloads.serve import (
     BATCH, DONE, FAILED, INTERACTIVE, REJECTED, Request, Scheduler,
     ServeConfig, TorchSlotExecutor)
@@ -185,6 +187,160 @@ def test_kv_pool_allocates_as_the_jax_pool_does():
     assert ours.outstanding() == 0
     with pytest.raises(KeyError):
         ours.set_used_tokens("gone", 1)
+
+
+def _gauges(m):
+    return (m.SERVE_KV_BLOCKS.value(state="free"),
+            m.SERVE_KV_BLOCKS.value(state="used"),
+            m.KV_SHARED_BLOCKS.value(), m.SERVE_KV_FRAGMENTATION.value())
+
+
+def _assert_pools_equal(ours, theirs):
+    assert ours.snapshot() == theirs.snapshot()
+    assert ours.shared_blocks() == theirs.shared_blocks()
+    assert ours.internal_fragmentation() == theirs.internal_fragmentation()
+    assert ours.logical_blocks() == theirs.logical_blocks()
+    assert _gauges(metrics) == _gauges(jax_metrics)
+
+
+@pytest.mark.parametrize("sharing", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kv_pool_gauges_equal_the_jax_pool_after_every_operation(
+        sharing, seed):
+    """The same random operations on both pools, prompts drawn from a
+    few common prefixes so that mappings, copies on write and
+    unpublishing fire: after each, the snapshot, the gauge readers and
+    the four gauges' values are the JAX pool's, floats exactly."""
+    rng = np.random.default_rng(seed)
+    bs = 4
+    ours, theirs = KvBlockPool(40, bs, sharing), \
+        JaxKvBlockPool(40, bs, sharing)
+    stems = [[int(t) for t in rng.integers(0, 50, 13)] for _ in range(3)]
+    live = {}
+
+    def both(name, *args):
+        got = getattr(ours, name)(*args)
+        assert got == getattr(theirs, name)(*args), (name, args)
+        _assert_pools_equal(ours, theirs)
+        return got
+
+    _assert_pools_equal(ours, theirs)
+    for i in range(300):
+        op = rng.random()
+        owner = (list(live)[int(rng.integers(len(live)))] if live
+                 else None)
+        if owner is None or op < 0.2:
+            stem = stems[int(rng.integers(len(stems)))]
+            prompt = stem[:int(rng.integers(2, 14))] \
+                + [int(t) for t in rng.integers(0, 50,
+                                                int(rng.integers(0, 5)))]
+            keys = chain_keys(prompt, bs)
+            owner = f"o{i}"
+            mapped = both("map_prefix", owner, keys)
+            need = -(-(len(prompt) + int(rng.integers(1, 6))) // bs)
+            if both("alloc", owner, max(0, need - mapped)) is None:
+                both("free", owner)
+                continue
+            live[owner] = (keys, len(prompt))
+            if mapped:
+                both("set_used_tokens", owner,
+                     min(mapped * bs, len(prompt) - 1))
+        elif op < 0.3:
+            keys, prompt_len = live[owner]
+            both("set_used_tokens", owner, prompt_len)
+            both("register_prefix", owner, keys, prompt_len)
+        elif op < 0.5:
+            cap = len(ours.blocks_of(owner)) * bs
+            if cap:
+                both("write_token", owner, int(rng.integers(cap)))
+        elif op < 0.7:
+            cap = len(ours.blocks_of(owner)) * bs
+            both("set_used_tokens", owner, int(rng.integers(-2, cap + 4)))
+        elif op < 0.78:
+            both("alloc", owner, int(rng.integers(0, 3)))
+        elif op < 0.88:
+            cap = len(ours.blocks_of(owner)) * bs
+            both("rollback_tokens", owner, int(rng.integers(0, cap + 2)))
+        elif op < 0.98:
+            both("free", owner)
+            del live[owner]
+        else:
+            both("free", "never-seen")
+        for o in live:
+            assert ours.blocks_of(o) == theirs.blocks_of(o)
+    assert ours.cow_copies or not sharing
+    for owner in list(live):
+        both("free", owner)
+    assert ours.outstanding() == 0 and _gauges(metrics)[1:] == (0, 0, 0)
+
+
+class _Unwalkable(dict):
+    """A dict that refuses to be walked while armed."""
+
+    armed = False
+
+    def _refuse(self):
+        if self.armed:
+            raise AssertionError("a pool mutation walked a whole dict")
+
+    def __iter__(self):
+        self._refuse()
+        return super().__iter__()
+
+    def keys(self):
+        self._refuse()
+        return super().keys()
+
+    def values(self):
+        self._refuse()
+        return super().values()
+
+    def items(self):
+        self._refuse()
+        return super().items()
+
+
+def test_kv_pool_gauges_are_current_after_each_token_without_a_walk(
+        monkeypatch):
+    """At the serving cells' shape (16,384 blocks of 16, 256 owners,
+    prompts and outputs drawn as the cells' mix draws them, about 6,600
+    blocks held), one token more for every owner: each call
+    updates the gauges once, walking neither the owners nor the blocks,
+    and they end equal to the JAX pool's."""
+    rng = np.random.default_rng(25)
+    ours, theirs = KvBlockPool(16384, 16), JaxKvBlockPool(16384, 16)
+    used = {}
+    for i in range(256):
+        owner = f"r{i}"
+        prompt = int(np.clip(rng.lognormal(np.log(192), 0.8), 32, 768))
+        output = int(np.clip(rng.lognormal(np.log(128), 0.6), 32, 256))
+        blocks = -(-(prompt + output) // 16)
+        assert ours.alloc(owner, blocks) == theirs.alloc(owner, blocks)
+        ours.set_used_tokens(owner, prompt)
+        theirs.set_used_tokens(owner, prompt)
+        used[owner] = prompt
+    assert 6000 < ours.outstanding() < 7500
+    assert not hasattr(KvBlockPool, "_written_slots_locked")
+    calls = []
+    original = ours._update_gauges_locked
+
+    def counted():
+        calls.append(1)
+        original()
+
+    monkeypatch.setattr(ours, "_update_gauges_locked", counted)
+    for name in ("_owned", "_refs", "_cover", "_used_tokens"):
+        monkeypatch.setattr(ours, name, _Unwalkable(getattr(ours, name)))
+    monkeypatch.setattr(_Unwalkable, "armed", True)
+    for owner, n in used.items():
+        ours.set_used_tokens(owner, n + 1)
+    monkeypatch.setattr(_Unwalkable, "armed", False)
+    assert len(calls) == len(used)
+    for owner, n in used.items():
+        theirs.set_used_tokens(owner, n + 1)
+    ours._update_gauges_locked()
+    assert _gauges(metrics) == _gauges(jax_metrics)
+    assert ours.snapshot() == theirs.snapshot()
 
 
 # -- isolation guard ----------------------------------------------------------
