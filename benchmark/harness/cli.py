@@ -83,6 +83,20 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     return out
 
 
+def info(out: dict, device_name: str) -> dict:
+    """What else the run learned, for the ``# info`` line: the card's name
+    and power limit, launch counts, the reference's seconds, the numbers
+    compared, the sample, the queue, the fill at the window's open and
+    close with the seconds of mix set-up served (and whether it stopped at
+    its ceiling), and the host's load."""
+    from dpu_operator_tpu_torch.ops import launch_counts
+    return {"card": power_line(), "device": device_name,
+            "launches": launch_counts(), "reference_s": out["reference_s"],
+            "numbers": out["numbers"],
+            **{k: out[k] for k in ("sample", "queue", "fill", "host_load")
+               if k in out}}
+
+
 def result_line(out: dict, trace: bool, device_name: str,
                 chips: int) -> dict:
     mf, cell, limits = out["manifest"], out["cell"]["name"], out["limits"]
@@ -132,13 +146,7 @@ def main(argv: Optional[list] = None, t_start: float = 0.0) -> int:
               "the benchmark runs may load JAX or the JAX package",
               file=sys.stderr)
         return 3
-    from dpu_operator_tpu_torch.ops import launch_counts
-    info = {"card": power_line(), "device": device_name,
-            "launches": launch_counts(), "reference_s": out["reference_s"],
-            "numbers": out["numbers"],
-            **{k: out[k] for k in ("sample", "queue", "fill", "host_load")
-               if k in out}}
-    print("# info " + json.dumps(info), flush=True)
+    print("# info " + json.dumps(info(out, device_name)), flush=True)
     line = result_line(out, bool(args.trace), device_name, chips)
     for name, entry in line["compared"].items():
         print(f"compared {name} {entry['value']!r} limit {entry['limit']!r}",

@@ -21,16 +21,15 @@ from .weights import make_weights
 def serve_control_numbers(config: dict, traffic: dict, seed: int,
                           sequences: list, device: torch.device) -> dict:
     """The control's ``serve_numbers`` over a run's sample."""
-    m = config["model"]
-    params32 = reference.fp32_tree(make_weights(m, seed, device))
+    params32 = reference.fp32_tree(make_weights(config, seed, device))
     gaps: list = []
     for prompt, served, chunks in sequences:
         ids = prompt + served[:-1]
         groups = reference.served_groups(len(prompt), len(ids), chunks,
                                          traffic["chunk_tokens"])
-        ref = reference.sequence_logits(params32, ids, m, device,
+        ref = reference.sequence_logits(params32, ids, config, device,
                                         groups=groups)
-        low = reference.sequence_logits(params32, ids, m, device,
+        low = reference.sequence_logits(params32, ids, config, device,
                                         reference.mm_fp8, groups)
         picked = low[len(prompt) - 1:].argmax(-1).tolist()
         gaps += compare.served_gaps(ref, len(prompt), picked)

@@ -8,11 +8,15 @@ sharing. Requests come from the general generator: a backlog kept topped
 up, or Poisson arrivals scheduled ahead of time, each due at its own
 instant. Each request's tokens are stamped on the host clock as the
 scheduler delivers them. Set-up warms the two shapes the traffic uses (a
-chunk of the chunk width, a decode of every slot), then serves the mix
-for ``setup_traffic_s`` so that the slots are occupied when the window
-opens, and freezes what it made out of Python's collector (``gc.freeze``,
-as a server does once it has started), so that no full collection walks
-the weights' and the scheduler's long-lived objects inside the window.
+chunk of the chunk width, a decode of every slot), then serves the mix so
+that the window opens on the steady state: a backlog until the first
+decode pass that serves at least ``open_fill_share`` of the slots, after
+``setup_traffic_s`` and before ``setup_traffic_max_s`` at the most (a run
+that reaches the ceiling opens its window all the same and says so);
+Poisson arrivals for ``setup_traffic_s``. It then freezes what it made out
+of Python's collector (``gc.freeze``, as a server does once it has
+started), so that no full collection walks the weights' and the
+scheduler's long-lived objects inside the window.
 
 A traced run wraps the executor's ``step`` and ``prefill_chunk`` and the
 scheduler's ``step`` in the benchmark's spans, reads the scheduler's
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from . import arith, compare, reference
+from .manifest import block_of
 from .program import clock, free, peak_bytes, program_config, span, sync
 from .trace import profile_slice, warm_profiler
 from .traffic import RequestStream, arrival_offsets
@@ -152,14 +157,15 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
         limits: dict) -> dict:
     from dpu_operator_tpu_torch.workloads.serve import (
         Request, Scheduler, ServeConfig, TorchSlotExecutor)
-    m = config["model"]
+    blk, m = block_of(config), config["model"]
     slots, chunk = traffic["slots"], traffic["chunk_tokens"]
     block = traffic["kv_block_size"]
-    ex = TorchSlotExecutor(make_weights(m, seed, device),
+    ex = TorchSlotExecutor(make_weights(config, seed, device),
                            program_config(config), slots,
                            chunk_tokens=chunk, device=device)
     sched = Scheduler(
-        ServeConfig(slots=slots, kv_blocks=slots * m["max_seq"] // block,
+        ServeConfig(slots=slots,
+                    kv_blocks=slots * blk.positions(m) // block,
                     kv_block_size=block, queue_limit=1 << 30,
                     prefill_chunk_tokens=traffic["prefill_budget"]),
         executor=ex, clock=clock)
@@ -173,7 +179,7 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
     recorder = _Recorder(ex) if trace else None
     iterations: list = []
 
-    stream = RequestStream(traffic, m["vocab"], seed)
+    stream = RequestStream(traffic, blk.vocab(m), seed)
     made: list = []
 
     def make(arrival: float):
@@ -225,8 +231,23 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
                     0)
         return {"decode_rows": rows, "cache_blocks": sched.pool.occupancy()}
 
-    while clock() < t_traffic + traffic["setup_traffic_s"]:
+    # set-up's traffic: a backlog until the first decode pass that serves
+    # the share of the slots, not before the floor and not past the
+    # ceiling; Poisson arrivals for the floor
+    floor_s = traffic["setup_traffic_s"]
+    if arrivals["kind"] == "backlog":
+        need = math.ceil(traffic["open_fill_share"] * slots)
+        ceiling_s = traffic["setup_traffic_max_s"]
+    else:
+        need, ceiling_s = 0, floor_s
+    while True:
+        seen = len(sched.trace)
         iterate()
+        served_s = clock() - t_traffic
+        full = sum(e[2] for e in sched.trace[seen:]
+                   if e[0] == "decode") >= need
+        if served_s >= ceiling_s or served_s >= floor_s and full:
+            break
     # what set-up made lives to the end: a full collection never walks it
     gc.collect()
     gc.freeze()
@@ -250,7 +271,8 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
     sync(device)
     t1 = clock()
     memory_peak = peak_bytes(device)
-    fills = {"at_open": fill_open, "at_close": fill()}
+    fills = {"at_open": fill_open, "at_close": fill(),
+             "setup_traffic_s": served_s, "at_ceiling": not full}
     load = host_load(load_open, (clock(), time.process_time(), _cpu_ticks()))
 
     in_window = [(r, tt) for r, tt in made if t0 <= r.arrival_s <= t1]
@@ -284,7 +306,7 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
             tt.times and tt.times[0] <= t))
     queue = {"at_open": waiting_at(t0), "at_close": waiting_at(t1)}
 
-    layer_run = {"model": m, "traffic": traffic}
+    layer_run = {"model": m, "traffic": traffic, "block": blk}
     if trace:
         host_reqs = [(r, tt) for r, tt in made
                      if t0 <= r.arrival_s <= t_host]
@@ -312,12 +334,12 @@ def run(config: dict, traffic: dict, seed: int, seconds: float,
     gc.collect()
     free(device)
     t_ref = time.monotonic()
-    params32 = reference.fp32_tree(make_weights(m, seed, device))
+    params32 = reference.fp32_tree(make_weights(config, seed, device))
     gaps: list = []
     for prompt, served, chunked in sample:
         ids = prompt + served[:-1]
         logits = reference.sequence_logits(
-            params32, ids, m, device, groups=reference.served_groups(
+            params32, ids, config, device, groups=reference.served_groups(
                 len(prompt), len(ids), chunked, chunk))
         gaps += compare.served_gaps(logits, len(prompt), served)
     numbers = compare.serve_numbers(gaps)

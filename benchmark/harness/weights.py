@@ -1,14 +1,14 @@
 """Weights made on the device from the seed, by the benchmark.
 
 One ``torch.randn`` call on a generator of the device fills a flat buffer
-in the served type with N(0, 1) draws; each dense leaf is a view of it,
-scaled by 1 / sqrt(fan_in), and every norm scale is 1. The same seed on
-the same device gives the same weights, so the reference makes them again
-after the window instead of keeping a copy. The tree has the shape the
-program takes: ``embed (V, D)``, ``pos (max_seq, D)``, ``out_norm (D,)``
-and ``layers``, each ``ln1, wqkv (D, 3D), wo (D, D), ln2`` and ``w1 (D,
-F), w2 (F, D)``, or for a MoE layer ``moe: {wg (D, E), w1 (E, D, F), w2
-(E, F, D)}``.
+in the served type with N(0, 1) draws; each leaf that the configuration's
+block lists (``leaves``: path, shape, fan_in) is a view of it, in the
+block's order, scaled by 1 / sqrt(fan_in), and every norm scale it lists
+(``norms``) is 1. The same seed on the same device gives the same
+weights, so the reference makes them again after the window instead of
+keeping a copy. A path is a tuple of keys into nested dicts and lists (an
+int indexes a list, a leaf sits in a dict); the tree has the shape the
+block's program takes.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from .arith import is_moe_layer
+from .manifest import block_of
 
 #: the generator's stream of weights is seeded apart from the traffic's
 WEIGHT_STREAM = 0x5EED
@@ -27,56 +27,42 @@ def dtype_of(m: dict) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[m["dtype"]]
 
 
-def dense_shapes(m: dict) -> list:
-    """``(path, shape, fan_in)`` of every randomly drawn leaf, in the
-    buffer's order."""
-    d, f, e = m["d_model"], m["d_ff"], m["moe_experts"]
-    out = [(("embed",), (m["vocab"], d), m["vocab"]),
-           (("pos",), (m["max_seq"], d), m["max_seq"])]
-    for i in range(m["n_layers"]):
-        out += [(("layers", i, "wqkv"), (d, 3 * d), d),
-                (("layers", i, "wo"), (d, d), d)]
-        if is_moe_layer(m, i):
-            out += [(("layers", i, "moe", "wg"), (d, e), d),
-                    (("layers", i, "moe", "w1"), (e, d, f), d),
-                    (("layers", i, "moe", "w2"), (e, f, d), f)]
-        else:
-            out += [(("layers", i, "w1"), (d, f), d),
-                    (("layers", i, "w2"), (f, d), f)]
-    return out
-
-
 def _seed(seed: int, stream: int) -> int:
     return (seed * 0x9E3779B1 + stream) % (1 << 63)
 
 
-def make_weights(m: dict, seed: int, device: "str | torch.device",
+def _put(tree: dict, path: tuple, leaf: torch.Tensor) -> None:
+    """Set *leaf* at *path*, making the dicts and lists on the way."""
+    node = tree
+    for key, nxt in zip(path[:-1], path[1:]):
+        make = list if isinstance(nxt, int) else dict
+        if isinstance(node, list):
+            while len(node) <= key:
+                node.append(make())
+            node = node[key]
+        else:
+            node = node.setdefault(key, make())
+    node[path[-1]] = leaf
+
+
+def make_weights(config: dict, seed: int, device: "str | torch.device",
                  dtype: "torch.dtype | None" = None) -> dict:
     """The parameter tree from *seed* on *device*, in the configuration's
     type (or *dtype*)."""
+    block, m = block_of(config), config["model"]
     dtype = dtype or dtype_of(m)
     gen = torch.Generator(device=device)
     gen.manual_seed(_seed(seed, WEIGHT_STREAM))
-    shapes = dense_shapes(m)
+    shapes = block.leaves(m)
     total = sum(math.prod(s) for _, s, _ in shapes)
     flat = torch.randn(total, generator=gen, device=device, dtype=dtype)
-    d = m["d_model"]
-    tree: dict = {"out_norm": torch.ones(d, dtype=dtype, device=device),
-                  "layers": [{"ln1": torch.ones(d, dtype=dtype,
-                                                device=device),
-                              "ln2": torch.ones(d, dtype=dtype,
-                                                device=device)}
-                             for _ in range(m["n_layers"])]}
+    tree: dict = {}
+    for path, shape in block.norms(m):
+        _put(tree, path, torch.ones(shape, dtype=dtype, device=device))
     start = 0
     for path, shape, fan_in in shapes:
         n = math.prod(shape)
-        leaf = flat[start:start + n].view(shape).mul_(1.0 / math.sqrt(fan_in))
+        _put(tree, path, flat[start:start + n].view(shape)
+             .mul_(1.0 / math.sqrt(fan_in)))
         start += n
-        node = tree
-        for key in path[:-1]:
-            if key == "moe":
-                node = node.setdefault("moe", {})
-            else:
-                node = node[key]
-        node[path[-1]] = leaf
     return tree

@@ -1,12 +1,11 @@
 """The decode attention kernels' share of their roofline, in %: the least
-time of the traced iterations' decode attention (the frozen
+time of the traced iterations' decode attention (the block's frozen
 ``decode_attention_least_s``: each live request's row at its position,
 the K and V of the keys it admits read once; an idle slot that the
 executor decodes beside them is no work a request needs) over the device
 time of the kernels of the family ``kernels/decode_attention`` in the
 traced slice."""
 
-from harness.arith import decode_attention_least_s
 from harness.manifest import in_family, kernel_patterns
 
 
@@ -19,6 +18,7 @@ def read(run):
                   if in_family(name, family))
     if seconds <= 0:
         return None
-    least = sum(decode_attention_least_s(run["model"], pos, peak)
+    least = sum(run["block"].decode_attention_least_s(run["model"], pos,
+                                                      peak)
                 for pos in sl["decode_positions"])
     return 100.0 * least / seconds

@@ -1,10 +1,8 @@
 """The serving step's share of the card's bf16 peak, in %: the model
 FLOPs of the useful work the executor's calls did in the window (the
-frozen ``serve_flops``: prompt tokens prefilled, tokens decoded for live
-requests, the logits of the tokens picked, the causal attention pairs),
-over the window's seconds times the peak."""
-
-from harness.arith import serve_flops
+block's frozen ``serve_flops``: for GPT-2, prompt tokens prefilled,
+tokens decoded for live requests, the logits of the tokens picked, the
+causal attention pairs), over the window's seconds times the peak."""
 
 
 def read(run):
@@ -14,7 +12,5 @@ def read(run):
     w = host["work"]
     if not (w["prefill_tokens"] or w["decode_tokens"]):
         return None
-    flops = serve_flops(run["model"], w["prefill_tokens"],
-                        w["prefill_pairs"], w["first_tokens"],
-                        w["decode_tokens"], w["decode_pairs"])
+    flops = run["block"].serve_flops(run["model"], w)
     return 100.0 * flops / (host["seconds"] * peak["bfloat16"])

@@ -21,7 +21,6 @@ benchmark's own runs do not run any of this.
 
 import argparse
 import json
-import math
 import os
 import sys
 import tempfile
@@ -145,25 +144,6 @@ def scheduler_share(split: dict) -> dict:
                                     key=lambda kv: -kv[1]))}
 
 
-def expected_fill(config: dict, traffic: dict, counts: dict) -> "float | None":
-    """The MoE expert fill, in %, that *counts* decode passes and chunks
-    give from the shapes: a pass routes every slot alone (capacity 8), a
-    chunk its padded width; the real tokens among them are the passes'
-    active rows and the chunks' valid tokens."""
-    m = config["model"]
-    if not m["moe_experts"] or not (counts["decode"] or counts["chunk"]):
-        return None
-    e, cf = m["moe_experts"], m["moe_capacity_factor"]
-    slots, width = traffic["slots"], traffic["chunk_tokens"]
-
-    def cap(n):
-        return max(8, -(-int(math.ceil(n / e * cf)) // 8) * 8)
-    routed = counts["decode_tokens"] + counts["chunk_tokens"]
-    rows = e * (counts["decode"] * slots * cap(1)
-                + counts["chunk"] * cap(width))
-    return 100.0 * routed / rows
-
-
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--workload", required=True)
@@ -246,8 +226,8 @@ def main() -> int:
         "pool_gauge_share_of_pool_write": (gauge / write if gauge and write
                                            else None),
         "window_counts": counts,
-        "moe_expert_fill_from_shapes": expected_fill(config, traffic,
-                                                     counts),
+        "moe_expert_fill_from_shapes": manifest.block_of(config)
+        .expected_moe_fill(config["model"], traffic, counts),
         "iteration_ms": {
             "profiler_off": (1e3 * sum(off) / len(off)) if off else None,
             "profiler_on": (1e3 * sum(on) / len(on)) if on else None,

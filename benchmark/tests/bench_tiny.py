@@ -12,15 +12,16 @@ MODEL = {"vocab": 256, "d_model": 64, "n_heads": 4, "n_layers": 2,
 
 
 def config(**model) -> dict:
-    return {"model": dict(MODEL, **model)}
+    return {"block": "gpt2", "model": dict(MODEL, **model)}
 
 
 def serve_mix(name: str, **arrivals) -> dict:
     """A benchmark mix cut to the tiny model: 8 slots, chunks of 32,
-    prompts and outputs that fit 64 positions."""
+    prompts and outputs that fit 64 positions, set-up's mix within 10 s."""
     mix = json.loads((BENCH / "traffic" / f"{name}.json").read_text())
     mix.update(slots=8, prefill_budget=32, chunk_tokens=32,
-               setup_traffic_s=0.5, check_requests=4,
+               setup_traffic_s=0.5, setup_traffic_max_s=10.0,
+               check_requests=4,
                prompt={"median": 20, "sigma": 0.7, "min": 4, "max": 48},
                output={"median": 6, "sigma": 0.6, "min": 2, "max": 16})
     if arrivals:

@@ -20,7 +20,7 @@ def _run():
     """A run whose sample is every finished request, so that a fault in
     any slot reaches the comparison."""
     mix = dict(bench_tiny.serve_mix("serve-batch"), check_requests=1000)
-    return serve_cell.run(bench_tiny.config(dtype="float32"), mix, SEED, 1.0,
+    return serve_cell.run(bench_tiny.config(dtype="float32"), mix, SEED, 2.0,
                           False, CPU, time.monotonic(),
                           manifest.load_limits(CELL))
 
@@ -87,7 +87,7 @@ def test_the_control_reads_above_the_program(model):
     mix = bench_tiny.serve_mix("serve-batch")
     program, ctl = [], []
     for seed in range(SEED, SEED + 4):
-        out = serve_cell.run(config, mix, seed, 1.0, False, CPU,
+        out = serve_cell.run(config, mix, seed, 2.0, False, CPU,
                              time.monotonic(), manifest.load_limits(CELL))
         program.append(out["numbers"]["logit_gap_mean"])
         ctl.append(control.serve_control_numbers(

@@ -20,13 +20,13 @@ def test_forward_matches_the_port(kind):
     from dpu_operator_tpu_torch.workloads.model import forward
     from harness.program import program_config
     config = bench_tiny.config(dtype="float32", **MODELS[kind])
-    weights = make_weights(config["model"], SEED, CPU)
+    weights = make_weights(config, SEED, CPU)
     tokens = torch.randint(0, 256, (3, 40), generator=torch.Generator()
                            .manual_seed(1))
     with torch.no_grad():
         port = forward(weights, tokens, program_config(config))
         ref = reference.forward(reference.fp32_tree(weights), tokens,
-                                config["model"])
+                                config)
     assert (port - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
@@ -38,7 +38,7 @@ def test_serving_matches_the_reference_in_float32(kind):
     config = bench_tiny.config(dtype="float32", moe_capacity_factor=0.5,
                                **MODELS[kind])
     out = serve_cell.run(config, bench_tiny.serve_mix("serve-batch"), SEED,
-                         1.0, False, CPU, time.monotonic(),
+                         2.0, False, CPU, time.monotonic(),
                          {"logit_gap": 1e-5})
     assert out["sample"]["requests"] == 4
     assert out["correct"], out["numbers"]

@@ -48,7 +48,7 @@ def test_the_decode_roofline_counts_live_rows_only():
     stale position adds no work to the roofline's count."""
     import numpy as np
 
-    from harness import arith, manifest
+    from harness import manifest
     from harness.serve_cell import _Recorder
 
     class Executor:
@@ -68,8 +68,9 @@ def test_the_decode_roofline_counts_live_rows_only():
     assert rows == [[5, 7]]
     model = {"d_model": 64, "n_layers": 2}
     peak = {"bfloat16": 1e15, "hbm_bytes_per_s": 1e9}
-    least = arith.decode_attention_least_s(model, [5, 7], peak)
-    run = {"model": model, "peak": peak,
+    block = manifest.block_of({"block": "gpt2"})
+    least = block.decode_attention_least_s(model, [5, 7], peak)
+    run = {"model": model, "block": block, "peak": peak,
            "slice": {"decode_positions": rows,
                      "kernels": {"attn_decode_split_kernel<64>": least * 2}}}
     assert manifest.metric_reader("decode_attn_roofline.serve")(run) == \

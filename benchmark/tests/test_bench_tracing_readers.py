@@ -118,19 +118,20 @@ def test_span_split_fill_from_the_shapes():
     """The MoE cell's shapes: a decode pass computes 16,384 expert rows a
     layer, whatever its active slots, and a chunk of 512 columns 640,
     whatever its valid tokens."""
-    from span_split import expected_fill
-    config = {"model": {"moe_experts": 8, "moe_capacity_factor": 1.25}}
+    from harness.manifest import block_of
+    expected_moe_fill = block_of({"block": "gpt2"}).expected_moe_fill
+    model = {"moe_experts": 8, "moe_capacity_factor": 1.25}
     traffic = {"slots": 256, "chunk_tokens": 512}
 
     def counts(decode, decode_tokens, chunk, chunk_tokens):
         return {"decode": decode, "decode_tokens": decode_tokens,
                 "chunk": chunk, "chunk_tokens": chunk_tokens}
 
-    assert expected_fill(config, traffic, counts(1, 256, 0, 0)) \
+    assert expected_moe_fill(model, traffic, counts(1, 256, 0, 0)) \
         == pytest.approx(1.5625)
-    assert expected_fill(config, traffic, counts(0, 0, 1, 512)) \
+    assert expected_moe_fill(model, traffic, counts(0, 0, 1, 512)) \
         == pytest.approx(80.0)
-    assert expected_fill(config, traffic, counts(2, 300, 1, 100)) \
+    assert expected_moe_fill(model, traffic, counts(2, 300, 1, 100)) \
         == pytest.approx(100.0 * 400 / (2 * 16384 + 640))
-    assert expected_fill({"model": {"moe_experts": 0}}, traffic,
-                         counts(3, 700, 1, 512)) is None
+    assert expected_moe_fill({"moe_experts": 0}, traffic,
+                             counts(3, 700, 1, 512)) is None

@@ -40,10 +40,11 @@ def test_requests_fit_the_model(name):
     for cell in mf["workloads"]:
         if cell["traffic"] != name:
             continue
-        m = manifest.load_config(mf, cell["config"])["model"]
+        config = manifest.load_config(mf, cell["config"])
+        block, m = manifest.block_of(config), config["model"]
         for _, ids, out in _take(mix, SEED, mix["pool"]):
-            assert 1 <= len(ids) and len(ids) + out <= m["max_seq"]
-            assert 0 <= min(ids) and max(ids) < m["vocab"]
+            assert 1 <= len(ids) and len(ids) + out <= block.positions(m)
+            assert 0 <= min(ids) and max(ids) < block.vocab(m)
 
 
 def test_pool_follows_its_quantiles():
